@@ -1,0 +1,117 @@
+"""`LaunchPlan`: a kernel launch as data, and `run`, the one place that
+executes one.
+
+A plan names its CUDA grid, threads and shared memory, the in-block loops
+that replace the reference's sequential grid axes, its (padded) operands and
+its accumulator, plus two callables over the same padded operands:
+
+  ``cuda``   launches the hand-written Hopper kernel(s) from ``csrc/``;
+  ``plain``  the same loop nest in plain PyTorch.
+
+`run` sends CUDA tensors to ``cuda`` and CPU tensors to ``plain``; there is
+no fallback from one to the other. Each CUDA wrapper adds one to
+``LAUNCHES[name]`` where it launches its kernel, and nowhere else, so a run
+can show that it went through the kernels.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+#: kernel launches per kernel name since the last `reset_launches`
+LAUNCHES: dict[str, int] = {}
+
+
+def count_launch(name: str) -> None:
+    LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()
+
+
+def resolve_device(device: "str | torch.device") -> torch.device:
+    """The device an entry point runs on. Asking for CUDA where there is no
+    GPU raises: nothing falls back to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but no CUDA device is "
+                           "available; pass device='cpu' to run the plain "
+                           "PyTorch path")
+    return device
+
+
+def check_operands(name: str, *ops: torch.Tensor, dtypes) -> None:
+    """What every CUDA wrapper checks before it launches: one supported
+    dtype, contiguous memory, one device."""
+    if ops[0].dtype not in dtypes or any(op.dtype != ops[0].dtype for op in ops):
+        raise ValueError(f"{name}: takes operands of one type out of "
+                         f"{sorted(map(str, dtypes))}, got "
+                         f"{[str(op.dtype) for op in ops]}")
+    if not all(op.is_contiguous() for op in ops):
+        raise ValueError(f"{name}: operands must be contiguous")
+    if len({op.device for op in ops}) != 1:
+        raise ValueError(f"{name}: operands on {[str(op.device) for op in ops]}")
+
+
+@dataclasses.dataclass(frozen=True)
+class OperandPlan:
+    """One operand: its full (padded) shape and the block one step reads."""
+
+    name: str
+    array_shape: tuple[int, ...]
+    block_shape: tuple[int, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class ScratchPlan:
+    """One on-chip buffer a block keeps for the whole launch."""
+
+    name: str
+    shape: tuple[int, ...]
+    where: str = "registers"      # "registers" | "shared"
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """A complete launch description.
+
+    grid     CUDA grid (x, y), one block per output tile
+    threads  threads per block; smem_bytes dynamic shared memory per block
+    launches kernel launches per call (the passive GEMM launches once per
+             k-step)
+    loops    (axis, trip count) of the loops inside a block, outermost first
+    """
+
+    name: str
+    grid: tuple[int, ...]
+    threads: int
+    smem_bytes: int
+    launches: int
+    loops: tuple[tuple[str, int], ...]
+    inputs: tuple[OperandPlan, ...]
+    outputs: tuple[OperandPlan, ...]
+    scratch: tuple[ScratchPlan, ...]
+    cuda: Callable[..., torch.Tensor]
+    plain: Callable[..., torch.Tensor]
+
+
+def run(plan: LaunchPlan, *operands: torch.Tensor) -> torch.Tensor:
+    """Execute a plan on its operands' device."""
+    if len(operands) != len(plan.inputs):
+        raise ValueError(f"{plan.name}: got {len(operands)} operands, plan "
+                         f"has {len(plan.inputs)} inputs")
+    for op, spec in zip(operands, plan.inputs):
+        if tuple(op.shape) != spec.array_shape:
+            raise ValueError(f"{plan.name}: operand {spec.name} shaped "
+                             f"{tuple(op.shape)}, plan needs {spec.array_shape}")
+    devices = {op.device.type for op in operands}
+    if devices == {"cuda"}:
+        return plan.cuda(*operands)
+    if devices == {"cpu"}:
+        return plan.plain(*operands)
+    raise ValueError(f"{plan.name}: operands on {sorted(devices)}; they must "
+                     f"all be on one CUDA device or all on the CPU")

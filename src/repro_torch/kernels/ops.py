@@ -1,0 +1,59 @@
+"""Public wrappers around the kernels: schedules come from the planner
+(`repro_torch.plan`) and padding/layout is handled here, so callers see plain
+tensor ops. They run on the device of the tensors they are given."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch import plan as _plan
+from repro_torch.kernels import conv2d_psum as _conv
+from repro_torch.kernels import psum_matmul as _mm
+from repro_torch.plan import gemm_model as _gemm
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor, *, act: str = "none",
+           controller: str = "active",
+           vmem_budget: int | None = None) -> torch.Tensor:
+    """Partial-sum-scheduled GEMM with planner-chosen blocks. The budget is
+    the bytes one block may hold on chip (default: one H100 block's shared
+    memory)."""
+    m, k = x.shape
+    n = w.shape[1]
+    wl = _plan.MatmulWorkload(m=m, n=n, k=k)
+    sched = _gemm.plan_gemm(
+        wl, vmem_budget if vmem_budget is not None else _plan.SMEM_BUDGET,
+        _plan.Strategy.EXHAUSTIVE_VMEM, _plan.Controller.coerce(controller),
+        max_block=512)
+    # clamp to the (rounded-up) problem so tiny shapes keep tiny grids
+    sched = dataclasses.replace(
+        sched, bm=min(sched.bm, _round_up(m, 8)),
+        bn=min(sched.bn, _round_up(n, 128)),
+        bk=min(sched.bk, _round_up(k, 128)))
+    return _mm.psum_matmul(x, w, schedule=sched, act=act)
+
+
+def _round_up(x: int, mult: int) -> int:
+    return ((x + mult - 1) // mult) * mult
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
+           pad: int | None = None, p_macs: int = 2048,
+           strategy: str = "paper_opt", act: str = "none") -> torch.Tensor:
+    """Partitioned conv2d for one image. x: (Cin, H, W), w: (Cout, Cin, K, K).
+    The (m, n) channel schedule comes from the paper's strategy at `p_macs`."""
+    cin, h, _ = x.shape
+    cout, _, kk, _ = w.shape
+    pad = kk // 2 if pad is None else pad
+    if pad:
+        x = F.pad(x, (pad, pad, pad, pad))
+    hp = h + 2 * pad
+    ho = (hp - kk) // stride + 1
+    wl = _plan.ConvWorkload(name="op", cin=cin, cout=cout, k=kk, wi=h, hi=h,
+                            wo=ho, ho=ho, stride=stride)
+    # The kernel's on-chip accumulator is the active controller.
+    sched = _plan.plan(wl, p_macs, strategy, "active").schedule
+    return _conv.conv2d_psum(x, w, schedule=sched, stride=stride, act=act)
