@@ -14,15 +14,29 @@
      conv2d_psum                 the 512 -> 512 3x3 layer of ResNet-18 at
                                  56 x 56 px under its exact_opt schedule,
                                  fp32 and bf16
-   and runs both kernels' other cases at small shapes (every activation,
-   padded edges, odd channel blocks, stride 2, K in {1, 3, 7}) against the
-   plain versions on the CPU.
-4. Drives the main path with every launch count set to 0 first: ResNet-18 at
-   full channel width (``NetworkGraph.from_cnn("resnet18").shrink(56, 1)``,
-   exact_opt/active schedules at P = 2048 MACs) answers 4 seeded images
-   through ``run_network_kernels``, and the GEMM above runs through
-   ``ops.matmul`` under both controllers in fp32 and bf16. Every output is
-   checked against a library reference, and every kernel must have launched.
+     flash_attention             Qwen2-1.5B's attention (12 q heads over 2
+                                 kv heads, head dim 128, batch 4): prefill
+                                 at 1024 tokens and decode of one token
+                                 against 1056 keys, fp32 and bf16
+   and runs the kernels' other cases at small shapes (every activation,
+   padded edges, odd channel blocks, stride 2, K in {1, 3, 7}; padded q and
+   kv tails, decode, GQA, head dims 32 to 256) against the plain versions on
+   the CPU.
+4. Drives the main paths, each with every launch count set to 0 just before
+   it and read just after:
+   a. ResNet-18 at full channel width
+      (``NetworkGraph.from_cnn("resnet18").shrink(56, 1)``, exact_opt/active
+      schedules at P = 2048 MACs) answers 4 seeded images through
+      ``run_network_kernels``, and the GEMM above runs through ``ops.matmul``
+      under both controllers in fp32 and bf16;
+   b. ``repro_torch.launch.serve`` serves 8 requests of Qwen2-1.5B at full
+      width (28 layers, bf16, seeded weights) in batches of 4, prompt 1024,
+      32 generated tokens: every attention layer of prefill and decode runs
+      the flash kernel.
+   Every output is checked against a library reference (the served logits
+   against the model with `ref.attention_ref` as its attention, and against
+   one full forward of prompt plus generated tokens), and every kernel of a
+   path must have launched on it.
 5. Prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 Any failed check exits non-zero. Without a CUDA device, or without the
@@ -47,6 +61,9 @@ HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 MATMUL_TOL = {"float32": 1e-3, "bfloat16": 2e-2}
 CONV_TOL = 1e-4
 NETWORK_REL_TOL = 1e-3
+FLASH_TOL = {"float32": 2e-4, "bfloat16": 3e-2}
+SERVE_ARCH, REQUESTS, SERVE_BATCH, PROMPT, GEN = "qwen2-1.5b", 8, 4, 1024, 32
+SERVE_REL_TOL = 5e-2
 
 
 def fail(msg: str) -> None:
@@ -64,7 +81,9 @@ def main() -> None:
     sys.path.insert(0, str(ROOT / "src"))
 
     from repro_torch import plan
-    from repro_torch.kernels import _build, conv2d_psum, launch, ops, psum_matmul, ref
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import (_build, conv2d_psum, flash_attention,
+                                     launch, ops, psum_matmul, ref)
     from repro_torch.kernels.conv_network import (init_network_params,
                                                   run_network_kernels,
                                                   run_network_reference)
@@ -220,6 +239,77 @@ def main() -> None:
                 if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
                     fail(f"conv2d_psum stride {stride} k{kk} {dname}")
                 cases += 1
+    # 3d. flash_attention at Qwen2-1.5B's serving shapes
+    qcfg = get_config(SERVE_ARCH)
+    hq, hkv, hd = qcfg.n_heads, qcfg.n_kv_heads, qcfg.hd
+    for case, (sq, skv, q_off) in {"prefill": (PROMPT, PROMPT, 0),
+                                   "decode": (1, PROMPT + GEN, PROMPT + GEN - 1)
+                                   }.items():
+        fp = flash_attention.flash_launch_plan(
+            bh=SERVE_BATCH * hq, sq=sq, skv=skv, d=hd, q_offset=q_off,
+            kv_group=hq // hkv)
+        print(f"flash {case}: B={SERVE_BATCH} Hq={hq} Hkv={hkv} Sq={sq} "
+              f"Skv={skv} D={hd} q_offset={q_off} grid={fp.grid} "
+              f"threads={fp.threads} smem={fp.smem_bytes} loops={fp.loops}")
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).removeprefix("torch.")
+            q = torch.randn(SERVE_BATCH * hq, sq, hd, generator=gen).to(dev, dtype)
+            k, v = (torch.randn(SERVE_BATCH * hkv, skv, hd, generator=gen)
+                    .to(dev, dtype) for _ in range(2))
+            kp, vp = (torch.nn.functional.pad(
+                t, (0, 0, 0, fp.inputs[1].array_shape[1] - skv)).contiguous()
+                for t in (k, v))
+            got = fp.cuda(q, kp, vp)
+            want = fp.plain(q, kp, vp)
+            torch.cuda.synchronize()
+            tol = FLASH_TOL[dname]
+            err = (got.float() - want.float()).abs().max().item()
+            if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+                fail(f"flash_attention {case} {dname}: kernel vs plain max abs "
+                     f"err {err}")
+            # SDPA, the yardstick: q heads grouped over repeated kv heads
+            q4 = q.view(SERVE_BATCH, hq, sq, hd)
+            k4, v4 = (t.view(SERVE_BATCH, hkv, skv, hd)
+                      .repeat_interleave(hq // hkv, dim=1) for t in (k, v))
+            flops = 4.0 * SERVE_BATCH * hq * sq * skv * hd
+            if case == "prefill":
+                flops /= 2                                  # causal
+            b_ms, b_by = bound(flops, q.element_size() * (
+                2 * q.numel() + k.numel() + v.numel()), dtype)
+            stats = {"max_abs_err": err, "ms": time_ms(lambda: fp.cuda(q, kp, vp)),
+                     "plain_ms": time_ms(lambda: fp.plain(q, kp, vp)),
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": time_ms(
+                         lambda: torch.nn.functional.scaled_dot_product_attention(
+                             q4, k4, v4, is_causal=case == "prefill")),
+                     "launches_per_call": fp.launches}
+            print(f"flash_attention {case} {dname}: " + " ".join(
+                f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
+                for k, v in stats.items()))
+            rows.setdefault("flash_attention", {}).setdefault(case, {})[dname] = stats
+            del got, want, q, k, v, kp, vp, q4, k4, v4
+
+    # 3e. flash_attention's other cases, small: the reference's cases
+    #     (tests/test_kernels.py), odd blocks, GQA, head dims 32 to 256
+    flash_small = [(2, 128, 128, 64, True, 64, 64, 1), (1, 64, 64, 32, False, 32, 32, 1),
+                   (3, 100, 100, 64, True, 32, 32, 1), (2, 1, 256, 64, True, 1, 64, 1),
+                   (2, 8, 384, 128, True, 8, 128, 1), (1, 17, 17, 32, True, 16, 32, 1),
+                   (8, 20, 52, 64, True, 16, 16, 4), (2, 40, 40, 256, True, 16, 16, 1)]
+    for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        for bh, sq, skv, d, causal, bq, bk, grp in flash_small:
+            q = torch.randn(bh, sq, d, generator=gen).to(dtype)
+            k, v = (torch.randn(bh // grp, skv, d, generator=gen).to(dtype)
+                    for _ in range(2))
+            kw = dict(causal=causal, bq=bq, bk=bk, q_offset=skv - sq if causal else 0)
+            got = flash_attention.flash_attention(q.to(dev), k.to(dev), v.to(dev),
+                                                  **kw).cpu()
+            want = flash_attention.flash_attention(q, k, v, **kw)
+            tol = FLASH_TOL[dname]
+            if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+                fail(f"flash_attention {(bh, sq, skv, d, causal, bq, bk, grp)} "
+                     f"{dname}: max abs err "
+                     f"{(got.float() - want.float()).abs().max().item()}")
+            cases += 1
     print(f"small cases: {cases} kernel launches on the card match the plain "
           f"versions on the CPU")
 
@@ -336,6 +426,108 @@ def main() -> None:
                  f"max abs err {(y.float() - want.float()).abs().max().item()}")
     print("ops.matmul: active and passive, fp32 and bf16, match matmul_ref")
 
+    # 4b. the serving path, counted: Qwen2-1.5B at full width
+    from unittest import mock
+
+    from repro_torch.launch import serve
+    from repro_torch.models import steps as model_steps
+    from repro_torch.models.transformer import forward
+    record: dict = {}
+    torch.cuda.synchronize()
+    launch.reset_launches()
+    report = serve.main(["--arch", SERVE_ARCH, "--requests", str(REQUESTS),
+                         "--batch", str(SERVE_BATCH), "--prompt-len", str(PROMPT),
+                         "--gen-len", str(GEN), "--device", "cuda"], record=record)
+    torch.cuda.synchronize()
+    serve_counts = dict(launch.LAUNCHES)
+    print(f"serve path launches: {serve_counts}")
+    scfg, sparams = record["cfg"], record["params"]
+    n_batches = -(-REQUESTS // SERVE_BATCH)
+    expect = {"flash_attention": scfg.n_layers * GEN * n_batches}
+    if serve_counts != expect:
+        fail(f"serve path launched {serve_counts}, expected {expect} "
+             f"({scfg.n_layers} layers x {GEN} steps x {n_batches} batches)")
+    print(f"serve report: {json.dumps(report)}")
+    print(f"serve card: {smi}")
+
+    # checks of batch 0: its prefill logits against the same model with
+    # `ref.attention_ref` as its attention, and its decode logits
+    # (teacher-forced with the generated tokens) against one full forward of
+    # prompt plus generated tokens
+    def ref_attention(q, k, v, *, causal, q_offset, **_):
+        b, h, sq, d = q.shape
+        k, v = (t.repeat_interleave(h // t.shape[1], dim=1) for t in (k, v))
+        out = ref.attention_ref(q.reshape(b * h, sq, d), k.reshape(b * h, -1, d),
+                                v.reshape(b * h, -1, d), causal, q_offset)
+        return out.reshape(b, h, sq, d)
+
+    def serve_err(got, want, what):
+        got, want = got.float(), want.float()
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            fail(f"{what}: shape {tuple(got.shape)} vs {tuple(want.shape)} or "
+                 f"non-finite values")
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        if rel > SERVE_REL_TOL:
+            fail(f"{what}: max abs err / max abs = {rel}")
+        return rel
+
+    b0 = record["batches"][0]
+    with torch.inference_mode():
+        with mock.patch.object(ops, "gqa_flash_attention", ref_attention):
+            ref_logits = forward(sparams, scfg, b0["prompts"])[0][:, -1]
+        pre_rel = serve_err(b0["logits"][:, 0], ref_logits, "prefill logits")
+        del ref_logits
+        full = forward(sparams, scfg, torch.cat(
+            [b0["prompts"], b0["tokens"][:, :-1]], 1))[0][:, PROMPT - 1:]
+        dec_rel = serve_err(b0["logits"], full, "decode logits")
+        del full
+    print(f"serve checks (batch 0, bf16): prefill logits vs attention_ref "
+          f"{pre_rel:.3g}, decode logits vs full forward {dec_rel:.3g} "
+          f"(max-abs-err/max-abs, limit {SERVE_REL_TOL})")
+
+    # where one prefill's and one decode step's device time goes
+    with torch.inference_mode():
+        prefill = model_steps.make_prefill_step(scfg, PROMPT + GEN)
+        decode = model_steps.make_decode_step(scfg)
+        for phase in ("prefill", "decode"):
+            if phase == "decode":
+                logits, caches = prefill(sparams, {"tokens": b0["prompts"]})
+                tok = torch.argmax(logits, -1)[:, None]
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                if phase == "prefill":
+                    prefill(sparams, {"tokens": b0["prompts"]})
+                else:
+                    decode(sparams, caches, tok)
+                torch.cuda.synchronize()
+                wall = 1e3 * (time.perf_counter() - t0)
+            # busy time sums the kernels themselves: a CPU op such as
+            # aten::mm also reports the device time of the kernels it
+            # launched, so summing every event counts those twice
+            busy, all_events, flash_busy, by_kernel = 0.0, 0.0, 0.0, []
+            for evt in prof.key_averages():
+                dev_us = getattr(evt, "self_device_time_total", None)
+                if dev_us is None:
+                    dev_us = getattr(evt, "self_cuda_time_total", 0.0)
+                all_events += dev_us / 1e3
+                if evt.device_type != torch.autograd.DeviceType.CUDA:
+                    continue
+                busy += dev_us / 1e3
+                if "flash_kernel" in evt.key:
+                    flash_busy += dev_us / 1e3
+                by_kernel.append((dev_us / 1e3, evt.count, evt.key[:70]))
+            print(f"profile ({phase}, batch {SERVE_BATCH}): device busy "
+                  f"{busy:.3f} ms (kernel events; {all_events:.3f} ms summed "
+                  f"over all events), flash_attention kernels "
+                  f"{flash_busy:.3f} ms ({flash_busy / busy:.3f} of busy); "
+                  f"wall {wall:.3f} ms profiled; idle share "
+                  f"{1 - busy / wall:.3f}")
+            for ms, n, key in sorted(by_kernel, reverse=True)[:6]:
+                print(f"  {phase} device time {ms:.3f} ms in {n} calls: {key}")
+        del caches
+
     # 5. result lines
     sources = {"psum_matmul/active": ("psum_matmul", "src/repro/kernels/psum_matmul.py:48"),
                "psum_matmul/passive": ("psum_matmul", "src/repro/kernels/psum_matmul.py:66"),
@@ -353,6 +545,17 @@ def main() -> None:
             "bound_by": first["bound_by"], "library_ms": first["library_ms"],
             "dtype": "float32",
             "by_dtype": by_dtype})
+    fl = rows["flash_attention"]
+    head = fl["prefill"]["bfloat16"]            # the serving path's dtype
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:26",
+        "launches": serve_counts["flash_attention"],
+        "max_abs_err": head["max_abs_err"], "ms": head["ms"],
+        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+        "dtype": "bfloat16", "case": "prefill", "by_case": fl})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

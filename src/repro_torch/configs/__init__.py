@@ -1,0 +1,13 @@
+"""Architecture registry of the port: the dense decoder-only archs whose
+modules the port has, full and smoke-reduced, plus the shape definitions.
+``get_config(name)`` / ``get_smoke(name)``."""
+
+from repro_torch.configs.base import (SHAPES, ArchConfig, EncoderCfg, MlaCfg,
+                                      MoeCfg, ShapeCfg, SsmCfg,
+                                      applicable_shapes)
+from repro_torch.configs.registry import (ARCHS, get_config, get_smoke,
+                                          list_archs)
+
+__all__ = ["SHAPES", "ArchConfig", "EncoderCfg", "MlaCfg", "MoeCfg",
+           "ShapeCfg", "SsmCfg", "applicable_shapes", "ARCHS", "get_config",
+           "get_smoke", "list_archs"]

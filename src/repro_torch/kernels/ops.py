@@ -11,6 +11,7 @@ import torch.nn.functional as F
 
 from repro_torch import plan as _plan
 from repro_torch.kernels import conv2d_psum as _conv
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import psum_matmul as _mm
 from repro_torch.plan import gemm_model as _gemm
 
@@ -57,3 +58,20 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     # The kernel's on-chip accumulator is the active controller.
     sched = _plan.plan(wl, p_macs, strategy, "active").schedule
     return _conv.conv2d_psum(x, w, schedule=sched, stride=stride, act=act)
+
+
+def gqa_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, q_offset: int = 0,
+                        bq: int = 128, bk: int = 128) -> torch.Tensor:
+    """q: (B, Hq, Sq, D); k/v: (B, Hkv, Skv, D) with Hq % Hkv == 0. Query
+    head h reads kv head h // (Hq / Hkv) inside the kernel (the reference
+    repeats the kv heads; the result is the same)."""
+    b, hq, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    if hq % hkv:
+        raise ValueError(f"gqa_flash_attention: {hq} q heads over {hkv} kv heads")
+    out = _flash.flash_attention(
+        q.reshape(b * hq, sq, d), k.reshape(b * hkv, skv, d),
+        v.reshape(b * hkv, skv, d), causal=causal, q_offset=q_offset,
+        bq=bq, bk=bk)
+    return out.reshape(b, hq, sq, d)

@@ -1,0 +1,180 @@
+"""Core layer library of the port, for dense attention and the MLP: dense
+projections, norms, rotary embeddings, causal GQA/MQA self-attention with a
+KV cache, and gated MLPs.
+
+Functional like the reference (``repro/models/layers.py``): ``*_init(...) ->
+params dict`` and ``*_apply(params, x, ...) -> y`` over plain dicts of
+tensors. Attention runs through `ops.gqa_flash_attention`: the flash kernel
+keeps the running (m, l, acc) partial sums on chip and never materialises
+S = QK^T, the schedule the reference's ``chunked_attention`` computes at the
+XLA level. MLA, cross-attention and ``chunked_attention`` itself wait for
+later slices (ROADMAP A5).
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+
+Params = dict[str, Any]
+
+ACTS = {"silu": F.silu,
+        "gelu": functools.partial(F.gelu, approximate="tanh"),  # as jax.nn.gelu
+        "relu": torch.relu}
+
+
+def dtype_of(cfg) -> torch.dtype:
+    """The activation and weight type a config names ("bfloat16", ...)."""
+    return getattr(torch, cfg.dtype)
+
+
+def normal(gen: torch.Generator | None, shape: tuple[int, ...], scale: float,
+           dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """N(0, scale^2) drawn in fp32 from ``gen`` and cast to ``dtype``; only a
+    shape on the meta device."""
+    if device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
+    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (x * scale).to(dtype)
+
+
+# --------------------------------------------------------------------- basics
+def dense_init(gen, d_in: int, d_out: int, dtype, device,
+               bias: bool = False) -> Params:
+    p = {"w": normal(gen, (d_in, d_out), 1.0 / math.sqrt(d_in), dtype, device)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
+    return p
+
+
+def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
+    y = x @ p["w"]
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
+def norm_init(d: int, dtype, device, kind: str = "rmsnorm") -> Params:
+    p = {"scale": torch.ones((d,), dtype=dtype, device=device)}
+    if kind == "layernorm":
+        p["bias"] = torch.zeros((d,), dtype=dtype, device=device)
+    return p
+
+
+def norm_apply(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """rmsnorm, or layernorm where the params have a bias; computed in fp32
+    and cast back."""
+    xf = x.float()
+    if "bias" in p:  # layernorm
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+        y = y * p["scale"].float() + p["bias"].float()
+    else:  # rmsnorm
+        var = (xf ** 2).mean(-1, keepdim=True)
+        y = xf * torch.rsqrt(var + eps) * p["scale"].float()
+    return y.to(x.dtype)
+
+
+# ----------------------------------------------------------------------- rope
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               rope_dim: int | None = None) -> torch.Tensor:
+    """x: (B, S, H, hd); positions: (S,) or (B, S). Rotates the first
+    ``rope_dim`` dims (full head by default) in interleaved pairs
+    (x[..., 0::2], x[..., 1::2]), as the reference does."""
+    hd = x.shape[-1]
+    rd = rope_dim or hd
+    freqs = theta ** (-torch.arange(0, rd, 2, dtype=torch.float32,
+                                    device=x.device) / rd)        # (rd/2,)
+    if positions.ndim == 1:
+        positions = positions[None, :]
+    ang = positions[..., None].float() * freqs                     # (B, S, rd/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    xr = x[..., :rd].float()
+    x1, x2 = xr[..., 0::2], xr[..., 1::2]
+    rot = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    rot = rot.reshape(x.shape[:-1] + (rd,)).to(x.dtype)
+    return torch.cat([rot, x[..., rd:]], -1) if rd < hd else rot
+
+
+# ------------------------------------------------------------------ attention
+def attn_init(gen, cfg, device) -> Params:
+    d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    dt = dtype_of(cfg)
+    p = {
+        "wq": dense_init(gen, d, hq * hd, dt, device, cfg.qkv_bias),
+        "wk": dense_init(gen, d, hkv * hd, dt, device, cfg.qkv_bias),
+        "wv": dense_init(gen, d, hkv * hd, dt, device, cfg.qkv_bias),
+        "wo": dense_init(gen, hq * hd, d, dt, device),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = norm_init(hd, dt, device)
+        p["k_norm"] = norm_init(hd, dt, device)
+    return p
+
+
+def init_kv_cache(cfg, batch: int, max_len: int, device) -> Params:
+    """Zeroed (B, max_len, Hkv, hd) keys and values, the reference's layout."""
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype_of(cfg), device=device),
+            "v": torch.zeros(shape, dtype=dtype_of(cfg), device=device)}
+
+
+def attn_apply(p: Params, x: torch.Tensor, cfg, *, positions: torch.Tensor,
+               cache: Params | None = None,
+               cache_pos: int | None = None) -> tuple[torch.Tensor, Params | None]:
+    """Causal self-attention with an optional KV cache. x: (B, S, d).
+
+    With a cache, this step's keys and values are written at ``cache_pos``
+    (in place: the port updates the cache where the reference returns an
+    updated copy) and the queries attend to keys [0, cache_pos + S) with
+    ``q_offset = cache_pos``. Returns (out, cache)."""
+    b, s, _ = x.shape
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = dense(p["wq"], x).reshape(b, s, hq, hd)
+    k = dense(p["wk"], x).reshape(b, s, hkv, hd)
+    v = dense(p["wv"], x).reshape(b, s, hkv, hd)
+    if cfg.qk_norm:
+        q = norm_apply(p["q_norm"], q, cfg.norm_eps)
+        k = norm_apply(p["k_norm"], k, cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    q_off = 0
+    if cache is not None:
+        q_off = int(cache_pos)
+        if not 0 <= q_off <= cache["k"].shape[1] - s:
+            raise ValueError(f"attn_apply: {s} tokens at position {q_off} do "
+                             f"not fit a cache of {cache['k'].shape[1]}")
+        cache["k"][:, q_off:q_off + s] = k
+        cache["v"][:, q_off:q_off + s] = v
+        k, v = cache["k"][:, :q_off + s], cache["v"][:, :q_off + s]
+    out = ops.gqa_flash_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True,
+        q_offset=q_off)
+    out = out.transpose(1, 2).reshape(b, s, hq * hd)
+    return dense(p["wo"], out), cache
+
+
+# ------------------------------------------------------------------------ MLP
+def mlp_init(gen, d: int, ff: int, dtype, device, gated: bool = True) -> Params:
+    p = {"wi": dense_init(gen, d, ff, dtype, device),
+         "wo": dense_init(gen, ff, d, dtype, device)}
+    if gated:
+        p["wg"] = dense_init(gen, d, ff, dtype, device)
+    return p
+
+
+def mlp_apply(p: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    h = dense(p["wi"], x)
+    if "wg" in p:
+        h = ACTS[act](dense(p["wg"], x)) * h
+    else:
+        h = ACTS[act](h)
+    return dense(p["wo"], h)

@@ -1,0 +1,45 @@
+"""Step factories: prefill_step / decode_step for the dense stack, and the
+greedy sampling loop. ``lm_loss`` and the train step wait for the training
+slice (ROADMAP A6)."""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.transformer import forward, init_caches
+
+
+def make_prefill_step(cfg: ArchConfig, max_len: int):
+    """Full-sequence forward that populates fresh caches (on the tokens'
+    device) and returns the last token's logits (sampling seed)."""
+    def prefill_step(params, batch):
+        tokens = batch["tokens"]
+        caches = init_caches(cfg, tokens.shape[0], max_len,
+                             device=tokens.device)
+        logits, caches, _ = forward(params, cfg, tokens, caches=caches)
+        return logits[:, -1], caches
+
+    return prefill_step
+
+
+def make_decode_step(cfg: ArchConfig):
+    """One-token decode against a populated cache."""
+    def decode_step(params, caches, token):
+        logits, caches, _ = forward(params, cfg, token, caches=caches)
+        return logits[:, -1], caches
+
+    return decode_step
+
+
+def greedy_generate(cfg: ArchConfig, params, prompt: torch.Tensor,
+                    steps: int, max_len: int) -> torch.Tensor:
+    """Reference sampling loop (prefill + steps - 1 decodes) -> (B, steps)."""
+    prefill = make_prefill_step(cfg, max_len)
+    decode = make_decode_step(cfg)
+    logits, caches = prefill(params, {"tokens": prompt})
+    toks = [torch.argmax(logits, -1)[:, None]]
+    for _ in range(steps - 1):
+        logits, caches = decode(params, caches, toks[-1])
+        toks.append(torch.argmax(logits, -1)[:, None])
+    return torch.cat(toks, 1)

@@ -1,0 +1,172 @@
+"""Model assembly of the port: dense decoder-only LMs, whose period layout is
+made of ("attn", "dense") sublayers only.
+
+The reference stacks parameters over periods and runs the stack with
+``jax.lax.scan``; the port keeps one params dict per layer and runs a Python
+loop over them. KV caches follow the same structure: one (k, v) pair per
+layer plus the position ``pos``. MoE, SSM, hybrid, vlm and audio archs, MLA
+and leading dense layers wait for later slices (ROADMAP A5).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.launch import resolve_device
+from repro_torch.models import layers as L
+
+Params = dict[str, Any]
+
+
+def check_dense(cfg: ArchConfig) -> None:
+    """Raise `NotImplementedError` for anything outside the dense stack."""
+    missing = [what for what, on in (
+        (f"family {cfg.family!r}", cfg.family != "dense"),
+        ("a period layout other than ('attn', 'dense') sublayers",
+         any(tuple(sub) != ("attn", "dense") for sub in cfg.period_layout)),
+        ("MoE", cfg.moe is not None), ("MLA", cfg.mla is not None),
+        ("SSM", cfg.ssm is not None), ("an encoder", cfg.encoder is not None),
+        ("vision tokens", bool(cfg.n_vision_tokens)),
+        ("leading dense layers", bool(cfg.first_dense_layers)))
+        if on]
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: the port runs dense decoder-only LMs only; "
+            f"{', '.join(missing)} wait(s) for ROADMAP A5")
+
+
+def _layer_init(gen, cfg: ArchConfig, device) -> Params:
+    dt = L.dtype_of(cfg)
+    return {"norm1": L.norm_init(cfg.d_model, dt, device, cfg.norm),
+            "attn": L.attn_init(gen, cfg, device),
+            "norm2": L.norm_init(cfg.d_model, dt, device, cfg.norm),
+            "mlp": L.mlp_init(gen, cfg.d_model, cfg.d_ff, dt, device,
+                              gated=cfg.gated_mlp)}
+
+
+def _layer_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
+                 positions: torch.Tensor, cache: Params | None,
+                 cache_pos: int | None) -> tuple[torch.Tensor, Params | None]:
+    h = L.norm_apply(p["norm1"], x, cfg.norm_eps)
+    out, cache = L.attn_apply(p["attn"], h, cfg, positions=positions,
+                              cache=cache, cache_pos=cache_pos)
+    x = x + out
+    x = x + L.mlp_apply(p["mlp"], L.norm_apply(p["norm2"], x, cfg.norm_eps),
+                        cfg.act)
+    return x, cache
+
+
+# ----------------------------------------------------------------- full model
+def init_lm(cfg: ArchConfig, *, seed: int = 0, device="cuda") -> Params:
+    """Random weights from ``seed`` on ``device`` with the reference's
+    distributions: fan-in normal / sqrt(d_in) for projections, normal * 0.02
+    for the embedding, norms 1, biases 0. On the meta device only shapes."""
+    check_dense(cfg)
+    device = resolve_device(device)
+    gen = (None if device.type == "meta"
+           else torch.Generator(device=device).manual_seed(seed))
+    dt = L.dtype_of(cfg)
+    p: Params = {
+        "embed": {"w": L.normal(gen, (cfg.padded_vocab, cfg.d_model), 0.02,
+                                dt, device)},
+        "final_norm": L.norm_init(cfg.d_model, dt, device, cfg.norm),
+        "layers": [_layer_init(gen, cfg, device) for _ in range(cfg.n_layers)],
+    }
+    if not cfg.tie_embed:
+        p["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.padded_vocab, dt,
+                                    device)
+    return p
+
+
+def init_caches(cfg: ArchConfig, batch: int, max_len: int, *,
+                device="cuda") -> Params:
+    """``pos`` 0 and one zeroed (k, v) pair per layer."""
+    check_dense(cfg)
+    device = resolve_device(device)
+    return {"pos": 0,
+            "layers": [L.init_kv_cache(cfg, batch, max_len, device)
+                       for _ in range(cfg.n_layers)]}
+
+
+def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
+            caches: Params | None = None
+            ) -> tuple[torch.Tensor, Params | None, torch.Tensor]:
+    """tokens: (B, S) int -> (logits (B, S, padded_vocab), new_caches,
+    aux_loss). The caches are updated in place and returned with ``pos``
+    advanced by S; aux_loss is 0 for the dense stack."""
+    check_dense(cfg)
+    x = params["embed"]["w"][tokens]
+    if cfg.embed_scale:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
+    pos = caches["pos"] if caches is not None else 0
+    positions = pos + torch.arange(tokens.shape[1], device=tokens.device)
+    layer_caches = []
+    for i, lp in enumerate(params["layers"]):
+        c = caches["layers"][i] if caches is not None else None
+        x, c = _layer_apply(lp, x, cfg, positions=positions, cache=c,
+                            cache_pos=pos)
+        layer_caches.append(c)
+    new_caches = (None if caches is None
+                  else {"pos": pos + tokens.shape[1], "layers": layer_caches})
+    x = L.norm_apply(params["final_norm"], x, cfg.norm_eps)
+    head_w = (params["embed"]["w"].T if cfg.tie_embed
+              else params["lm_head"]["w"])
+    logits = x @ head_w
+    return logits, new_caches, torch.zeros((), dtype=torch.float32,
+                                           device=x.device)
+
+
+# ------------------------------------------------------------------- counting
+def count_params(cfg: ArchConfig, active_only: bool = False) -> int:
+    """Parameters of `init_lm`'s tree, counted from shapes on the meta
+    device. The dense stack has no routed experts, so ``active_only`` counts
+    the same."""
+    leaves: list[torch.Tensor] = []
+
+    def walk(node) -> None:
+        if isinstance(node, torch.Tensor):
+            leaves.append(node)
+        elif isinstance(node, dict):
+            for value in node.values():
+                walk(value)
+        else:
+            for value in node:
+                walk(value)
+
+    walk(init_lm(cfg, device="meta"))
+    return sum(t.numel() for t in leaves)
+
+
+# ------------------------------------------------------------ weight carrier
+def params_from_jax(tree: Mapping[str, Any], cfg: ArchConfig,
+                    device="cuda") -> Params:
+    """The reference's ``init_lm`` tree, as nested dicts of numpy arrays,
+    turned into `init_lm`'s structure: the leading ``n_periods`` axis of
+    ``periods`` is unstacked into one params dict per layer, in the config's
+    dtype on ``device``."""
+    check_dense(cfg)
+    device = resolve_device(device)
+    dt = L.dtype_of(cfg)
+
+    def convert(node, index=None):
+        if isinstance(node, Mapping):
+            return {k: convert(v, index) for k, v in node.items()}
+        a = np.array(node, dtype=np.float32)
+        if index is not None:
+            a = a[index]
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device, dt)
+
+    layout = cfg.period_layout
+    p: Params = {
+        "embed": convert(tree["embed"]),
+        "final_norm": convert(tree["final_norm"]),
+        "layers": [convert(tree["periods"][f"sub{i}"], n)
+                   for n in range(cfg.n_periods) for i in range(len(layout))],
+    }
+    if "lm_head" in tree:
+        p["lm_head"] = convert(tree["lm_head"])
+    return p
