@@ -16,12 +16,19 @@
                                  fp32 and bf16
      flash_attention             Qwen2-1.5B's attention (12 q heads over 2
                                  kv heads, head dim 128, batch 4): prefill
-                                 at 1024 tokens and decode of one token
-                                 against 1056 keys, fp32 and bf16
+                                 at 1024 tokens (tc_bf16 / cuda_core body)
+                                 and decode of one token against 1056 keys
+                                 (split_kv body and its combine), fp32 and
+                                 bf16; kernel and SDPA times are replays of
+                                 a CUDA graph of 20 calls, so the wrapper's
+                                 Python does not count
    and runs the kernels' other cases at small shapes (every activation,
    padded edges, odd channel blocks, stride 2, K in {1, 3, 7}; padded q and
-   kv tails, decode, GQA, head dims 32 to 256) against the plain versions on
-   the CPU.
+   kv tails, decode, GQA, head dims 32 to 256, for each flash body; split_kv
+   at Sq 1 and 8, GQA 4:1 and 6:1, fewer keys than a tile, keys not a
+   multiple of the split)
+   against the plain versions on the CPU, and fails unless the flash
+   library's SASS holds tensor-core (HGMMA) instructions.
 4. Drives the main paths, each with every launch count set to 0 just before
    it and read just after:
    a. ResNet-18 at full channel width
@@ -31,8 +38,9 @@
       under both controllers in fp32 and bf16;
    b. ``repro_torch.launch.serve`` serves 8 requests of Qwen2-1.5B at full
       width (28 layers, bf16, seeded weights) in batches of 4, prompt 1024,
-      32 generated tokens: every attention layer of prefill and decode runs
-      the flash kernel.
+      32 generated tokens: every attention layer of prefill runs the flash
+      kernel's one-pass body, and every decode layer its split_kv body and
+      combine.
    Every output is checked against a library reference (the served logits
    against the model with `ref.attention_ref` as its attention, and against
    one full forward of prompt plus generated tokens), and every kernel of a
@@ -103,6 +111,15 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
+    cuobjdump = pathlib.Path(_build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(paths["flash_attention"])],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    hgmma = sum("HGMMA" in line for line in sass.splitlines())
+    if not hgmma:
+        fail("flash_attention: no HGMMA instruction in the library's SASS")
+    print(f"flash_attention SASS: {hgmma} HGMMA instructions")
+
     # 2. the card
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -120,6 +137,20 @@ def main() -> None:
         end.record()
         end.synchronize()
         return start.elapsed_time(end) / reps
+
+    def graph_ms(fn, calls: int = 20, reps: int = 5) -> float:
+        """Per-call time of a CUDA graph of `calls` calls of fn, replayed:
+        the device's time, without the host's per-call launch cost."""
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(calls):
+                fn()
+        graph.replay()
+        ms = time_ms(graph.replay, reps) / calls
+        del graph
+        return ms
 
     def bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:
         t_ops, t_mem = flops / peak[dtype], nbytes / HBM_BYTES_PER_S
@@ -245,14 +276,15 @@ def main() -> None:
     for case, (sq, skv, q_off) in {"prefill": (PROMPT, PROMPT, 0),
                                    "decode": (1, PROMPT + GEN, PROMPT + GEN - 1)
                                    }.items():
-        fp = flash_attention.flash_launch_plan(
-            bh=SERVE_BATCH * hq, sq=sq, skv=skv, d=hd, q_offset=q_off,
-            kv_group=hq // hkv)
-        print(f"flash {case}: B={SERVE_BATCH} Hq={hq} Hkv={hkv} Sq={sq} "
-              f"Skv={skv} D={hd} q_offset={q_off} grid={fp.grid} "
-              f"threads={fp.threads} smem={fp.smem_bytes} loops={fp.loops}")
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).removeprefix("torch.")
+            fp = flash_attention.flash_launch_plan(
+                bh=SERVE_BATCH * hq, sq=sq, skv=skv, d=hd, q_offset=q_off,
+                kv_group=hq // hkv, dtype=dtype)
+            print(f"flash {case} {dname}: B={SERVE_BATCH} Hq={hq} Hkv={hkv} "
+                  f"Sq={sq} Skv={skv} D={hd} q_offset={q_off} body={fp.body} "
+                  f"grid={fp.grid} threads={fp.threads} smem={fp.smem_bytes} "
+                  f"loops={fp.loops}")
             q = torch.randn(SERVE_BATCH * hq, sq, hd, generator=gen).to(dev, dtype)
             k, v = (torch.randn(SERVE_BATCH * hkv, skv, hd, generator=gen)
                     .to(dev, dtype) for _ in range(2))
@@ -276,13 +308,16 @@ def main() -> None:
                 flops /= 2                                  # causal
             b_ms, b_by = bound(flops, q.element_size() * (
                 2 * q.numel() + k.numel() + v.numel()), dtype)
-            stats = {"max_abs_err": err, "ms": time_ms(lambda: fp.cuda(q, kp, vp)),
+            def sdpa():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    q4, k4, v4, is_causal=case == "prefill")
+            stats = {"max_abs_err": err, "ms": graph_ms(lambda: fp.cuda(q, kp, vp)),
                      "plain_ms": time_ms(lambda: fp.plain(q, kp, vp)),
                      "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": time_ms(
-                         lambda: torch.nn.functional.scaled_dot_product_attention(
-                             q4, k4, v4, is_causal=case == "prefill")),
-                     "launches_per_call": fp.launches}
+                     "library_ms": graph_ms(sdpa),
+                     "eager_ms": time_ms(lambda: fp.cuda(q, kp, vp), reps=20),
+                     "eager_library_ms": time_ms(sdpa, reps=20),
+                     "body": fp.body, "launches_per_call": fp.launches}
             print(f"flash_attention {case} {dname}: " + " ".join(
                 f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
                 for k, v in stats.items()))
@@ -308,6 +343,58 @@ def main() -> None:
             if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
                 fail(f"flash_attention {(bh, sq, skv, d, causal, bq, bk, grp)} "
                      f"{dname}: max abs err "
+                     f"{(got.float() - want.float()).abs().max().item()}")
+            cases += 1
+    # 3f. tc_bf16, small: every head dim, padded q and kv tails, GQA, a
+    #     non-causal call, a q offset, 64-row heads in a grid of 200
+    tc_small = [(2, 128, 128, 32, True, 1), (2, 128, 128, 64, True, 1),
+                (2, 128, 128, 128, True, 1), (2, 512, 512, 256, True, 1),
+                (4, 300, 300, 128, True, 2), (4, 256, 256, 128, False, 1),
+                (2, 256, 1000, 128, True, 2), (200, 64, 64, 64, True, 1)]
+    for bh, sq, skv, d, causal, grp in tc_small:
+        q_off = skv - sq if causal else 0
+        tp = flash_attention.flash_launch_plan(bh=bh, sq=sq, skv=skv, d=d,
+                                               causal=causal, q_offset=q_off,
+                                               kv_group=grp, dtype=torch.bfloat16)
+        if tp.body != "tc_bf16":
+            fail(f"flash_attention {(bh, sq, skv, d, causal, grp)}: body {tp.body}")
+        q = torch.randn(bh, sq, d, generator=gen).to(torch.bfloat16)
+        k, v = (torch.randn(bh // grp, skv, d, generator=gen).to(torch.bfloat16)
+                for _ in range(2))
+        kw = dict(causal=causal, q_offset=q_off)
+        got = flash_attention.flash_attention(q.to(dev), k.to(dev), v.to(dev),
+                                              **kw).cpu()
+        want = flash_attention.flash_attention(q, k, v, **kw)
+        tol = FLASH_TOL["bfloat16"]
+        if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+            fail(f"flash_attention tc_bf16 {(bh, sq, skv, d, causal, grp)}: max "
+                 f"abs err {(got.float() - want.float()).abs().max().item()}")
+        cases += 1
+
+    # 3g. split_kv, small: Sq 1 and 8, GQA 4:1 and 6:1 over 2 kv heads,
+    #     fewer keys than a staged tile, keys not a multiple of the split,
+    #     head dims 64 to 256; each call must take the split_kv body
+    split_small = [(1, 20, 64, 4), (8, 20, 128, 6), (1, 1001, 128, 6),
+                   (8, 1001, 256, 4), (1, 300, 256, 6), (8, 77, 64, 4),
+                   (1, 1056, 128, 4), (8, 1056, 64, 6)]
+    for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        for sq, skv, d, grp in split_small:
+            bh, q_off = 2 * grp, skv - sq
+            sp = flash_attention.flash_launch_plan(bh=bh, sq=sq, skv=skv, d=d,
+                                                   q_offset=q_off, kv_group=grp,
+                                                   dtype=dtype)
+            if sp.body != "split_kv":
+                fail(f"flash_attention {(sq, skv, d, grp)}: body {sp.body}")
+            q = torch.randn(bh, sq, d, generator=gen).to(dtype)
+            k, v = (torch.randn(2, skv, d, generator=gen).to(dtype)
+                    for _ in range(2))
+            got = flash_attention.flash_attention(q.to(dev), k.to(dev), v.to(dev),
+                                                  q_offset=q_off).cpu()
+            want = flash_attention.flash_attention(q, k, v, q_offset=q_off)
+            tol = FLASH_TOL[dname]
+            if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+                fail(f"flash_attention split_kv {(sq, skv, d, grp)} {dname} "
+                     f"({sp.loops}): max abs err "
                      f"{(got.float() - want.float()).abs().max().item()}")
             cases += 1
     print(f"small cases: {cases} kernel launches on the card match the plain "
@@ -390,16 +477,22 @@ def main() -> None:
                             device=dev)
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
-    busy, conv_busy = 0.0, 0.0
+    # busy time sums the kernels themselves: a CPU op such as aten::cat
+    # also reports the device time of the kernels it launched
+    busy, all_events, conv_busy = 0.0, 0.0, 0.0
     for evt in prof.key_averages():
         dev_us = getattr(evt, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(evt, "self_cuda_time_total", 0.0)
+        all_events += dev_us / 1e3
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
         busy += dev_us / 1e3
         if "conv_kernel" in evt.key:
             conv_busy += dev_us / 1e3
     median_ms = sorted(image_ms)[len(image_ms) // 2]
-    print(f"profile (one image): device busy {busy:.3f} ms, conv2d_psum kernels "
+    print(f"profile (one image): device busy {busy:.3f} ms (kernel events; "
+          f"{all_events:.3f} ms summed over all events), conv2d_psum kernels "
           f"{conv_busy:.3f} ms ({conv_busy / busy:.3f} of busy); wall "
           f"{wall:.3f} ms profiled, {median_ms:.3f} ms unprofiled (median "
           f"image); idle share of the unprofiled wall {1 - busy / median_ms:.3f}")
@@ -443,10 +536,12 @@ def main() -> None:
     print(f"serve path launches: {serve_counts}")
     scfg, sparams = record["cfg"], record["params"]
     n_batches = -(-REQUESTS // SERVE_BATCH)
-    expect = {"flash_attention": scfg.n_layers * GEN * n_batches}
+    expect = {"flash_attention": scfg.n_layers * GEN * n_batches,
+              "flash_attention/combine": scfg.n_layers * (GEN - 1) * n_batches}
     if serve_counts != expect:
         fail(f"serve path launched {serve_counts}, expected {expect} "
-             f"({scfg.n_layers} layers x {GEN} steps x {n_batches} batches)")
+             f"({scfg.n_layers} layers x {GEN} steps x {n_batches} batches; "
+             f"every decode step combines its splits)")
     print(f"serve report: {json.dumps(report)}")
     print(f"serve card: {smi}")
 
@@ -552,6 +647,7 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:26",
         "launches": serve_counts["flash_attention"],
+        "combine_launches": serve_counts["flash_attention/combine"],
         "max_abs_err": head["max_abs_err"], "ms": head["ms"],
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],

@@ -1,41 +1,84 @@
 // flash_attention for NVIDIA Hopper (sm_90a): online-softmax attention with
-// the fp32 (m, l, acc) partial sums of every q row kept on chip across all
-// kv blocks.
+// the fp32 (m, l, acc) partial sums of every q row kept on chip across the
+// kv walk. Three bodies, chosen by `flash_launch_plan`
+// (src/repro_torch/kernels/flash_attention.py) from the dtype and the shape;
+// all three replace the TPU kernel `_flash_kernel` of
+// src/repro/kernels/flash_attention.py, where the kv blocks are the
+// sequential, innermost grid axis and (m, l, acc) live in VMEM scratch from
+// one grid step to the next. Hopper blocks carry nothing between them, so
+// here the kv axis is a loop inside the block.
 //
-// Replaces the TPU kernel `_flash_kernel` of
-// src/repro/kernels/flash_attention.py (launched through `flash_launch_plan`).
-// There the kv blocks are the sequential, innermost grid axis and (m, l, acc)
-// live in VMEM scratch from one grid step to the next. Hopper blocks carry
-// nothing between them, so here the kv axis is a loop inside the block:
+// tc_bf16 (bf16 prefill; bound by tensor-core operations: about 440 flops
+// per byte at Qwen2-1.5B's S = 1024, D = 128)
+//   grid     (BH, q tiles of 128 rows), the tiles with the longest causal
+//            walk first. 288 threads: two consumer warpgroups of 64 q rows
+//            each and one producer warp.
+//   loads    the producer's lane 0 issues TMA copies: Q once, then K and V
+//            tiles of KT keys (128, or 32 at D = 256) into a ring of 2
+//            stages, each signalled on its own mbarrier; the consumers free
+//            a stage on an `empty` mbarrier. Tiles land 128-byte swizzled
+//            (64-byte at D = 32) in chunks one swizzle span wide, the layout
+//            wgmma's shared-memory descriptors read.
+//   S = QK^T wgmma m64nKTk16, A = Q and B = K (K-major) in shared memory,
+//            S in fp32 registers; scaled, and masked (k_id <= q_id, k_id <
+//            skv) only on tiles that hold a masked key.
+//   softmax  in registers: a row's max reduces over the 4 lanes that share
+//            it; its sum stays per lane until the epilogue.
+//   O += PV  wgmma m64nDk16 with A = P from registers (the S fragment packed
+//            to bf16 pairs is wgmma's A-fragment layout) and B = V read
+//            MN-major from the same tiles; O stays in fp32 registers for the
+//            whole walk. P is rounded to bf16 here: the one place where this
+//            body rounds differently from the reference, which keeps P in
+//            fp32.
+//   skip     a block stops at the last key its last row sees; a warpgroup
+//            skips the math of a tile none of its rows sees.
+//   epilogue O / max(l, 1e-30), written once in bf16.
 //
+// cuda_core (fp32 prefill; TF32 would not hold the reference's fp32
+// tolerance, so fp32 stays exact on the fp32 cores: 67 TFLOP/s)
 //   grid     (row tiles of QT = 32 q rows, BH); 128 threads = 8 row groups
 //            x 16 lanes. Thread (ty, tx) owns rows ty + 8i (i < 4), and for
 //            each row its fp32 m, l and D/16 columns of acc in registers.
-//   kv loop  tiles of KT keys (64, or 32 at D = 256) in order, K and V staged
-//            in shared memory and converted to fp32 there (bf16 inputs are
-//            computed in fp32 as the reference's astype does). Per tile:
-//              s = q k^T * scale           thread: 4 rows x KT/16 keys
-//              masks: k_id <= q_id and k_id < skv (causal)
-//              m' = max(m, rowmax s); p = exp(s - m'); alpha = exp(m - m')
-//              l = l alpha + sum p;  acc = acc alpha + p V (p via shared mem)
-//            Row max and sum reduce over the 16 lanes that share a row.
+//   kv loop  tiles of 64 keys (32 at D = 256) staged in shared memory, rows
+//            padded by 4 floats (conflict-free 16-byte reads); per tile
+//            s = q k^T * scale, the masks, m' = max(m, rowmax s),
+//            p = exp(s - m'), alpha = exp(m - m'), l = l alpha + sum p,
+//            acc = acc alpha + p V (p via shared memory). Row max and sum
+//            reduce over the 16 lanes that share a row.
 //   skip     a causal block stops at the last key its last row sees, and at
 //            skv: the reference gives those keys weight exp(-1e30 - m) = 0.
-//   epilogue acc / max(l, 1e-30), written once in q's type.
 //
-// GQA: query head bh reads kv head bh / group; no kv head is copied.
+// split_kv (decode, both dtypes; bound by the bytes of K and V: one query
+// row per head reads the whole cache). Taken when the one-pass grid would
+// not fill the card: at most 64 rows (q heads of a kv head x q positions)
+// and fewer one-pass blocks than the 132 SMs.
+//   pass 1   grid (splits, BH / group), 128 threads. A block serves all
+//            group x sq_p rows of one kv head over one contiguous key range
+//            [split * split_len, ...) of [0, skv), so each key is read once
+//            and not once per q head. K and V tiles of 32 keys are staged
+//            with cp.async, double-buffered; the arithmetic is fp32. A warp
+//            owns rows w + 4i with one key per lane, so a row's max and sum
+//            are warp shuffles. The kernel is instantiated for at most 8,
+//            16, 32 or 64 rows, and a thread past the last row repeats the
+//            last row and keeps nothing: no loop carries a branch per row.
+//            The block writes its fp32 (m, l, acc) per row to device
+//            scratch: the passive half of the trade, rows x (D + 2) words
+//            per split, written once and read once.
+//   pass 2   grid (rows, BH / group): m* = max m_s, w_s = exp(m_s - m*),
+//            l = sum l_s w_s, acc = sum acc_s w_s, out = acc / max(l, 1e-30)
+//            (the combine of src/repro/sharding/flash_decode.py). A split
+//            that sees no key of a row has m_s = -1e30 and weight exactly 0.
 //
-// Bound on an H100: prefill at Qwen2-1.5B's shapes (S = 1024, D = 128) is
-// compute-bound (about 440 flops per byte in bf16); decode (one q row per
-// head against the cache) is bound by the bytes of K and V. This first
-// version runs on the fp32 CUDA cores for both types, with register tiles
-// fed from padded shared-memory rows (conflict-free 16-byte reads). Tensor
-// cores (wgmma), TMA staging and a split-kv decode are later work.
+// GQA everywhere: query head bh reads kv head bh / group; no kv head is
+// copied.
 //
-// Operands arrive padded to block multiples: q (BH, sq_p, D), k/v
-// (BH / group, skv_p, D), row major, 16-byte aligned. C interface, loaded
-// with ctypes; the entry point returns cudaGetLastError() after its launch.
+// Operands arrive padded to the reference's block multiples: q (BH, sq_p, D),
+// k/v (BH / group, skv_p, D), row major, 16-byte aligned. C interface, loaded
+// with ctypes; each entry point returns cudaGetLastError() after its launch.
+// TMA descriptors are encoded through the runtime's entry-point lookup, so
+// the library is not linked against libcuda.
 
+#include <cuda.h>   // CUtensorMap and its enums only; libcuda is not linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -43,21 +86,7 @@
 
 namespace {
 
-constexpr int THREADS = 128;   // 8 row groups x 16 lanes
-constexpr int QT = 32;         // q rows per block
-constexpr int RPT = 4;         // rows per thread: ty + 8 * i
 constexpr float NEG_INF = -1e30f;
-
-template <int D>
-struct Tile {
-  static constexpr int KT = D > 128 ? 32 : 64;   // keys staged per step
-  static constexpr int KPT = KT / 16;            // keys per thread: tx + 16 * j
-  static constexpr int LD = D + 4;               // padded q/k/v row, floats
-  static constexpr int PLD = KT + 4;             // padded p row, floats
-  static constexpr int VEC = D >= 64 ? 4 : 2;    // acc columns per chunk
-  static constexpr int CH = D / (16 * VEC);      // chunks per thread
-  static constexpr int SMEM_FLOATS = QT * LD + 2 * KT * LD + QT * PLD;
-};
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -75,6 +104,48 @@ template <> __device__ __forceinline__ float from_f<float>(float v) { return v; 
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
+
+__device__ __forceinline__ float fma4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// Set a kernel's dynamic shared memory limit once per process.
+template <typename K>
+int allow_smem(K kernel, size_t bytes, bool& done) {
+  if (done) return 0;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  done = true;
+  return 0;
+}
+
+// ---------------------------------------------------------------- cuda_core
+namespace core {
+
+constexpr int THREADS = 128;   // 8 row groups x 16 lanes
+constexpr int QT = 32;         // q rows per block
+constexpr int RPT = 4;         // rows per thread: ty + 8 * i
+
+template <int D>
+struct Tile {
+  static constexpr int KT = D > 128 ? 32 : 64;   // keys staged per step
+  static constexpr int KPT = KT / 16;            // keys per thread: tx + 16 * j
+  static constexpr int LD = D + 4;               // padded q/k/v row, floats
+  static constexpr int PLD = KT + 4;             // padded p row, floats
+  static constexpr int VEC = D >= 64 ? 4 : 2;    // acc columns per chunk
+  static constexpr int CH = D / (16 * VEC);      // chunks per thread
+  static constexpr int SMEM_FLOATS = QT * LD + 2 * KT * LD + QT * PLD;
+};
 
 // rows x D elements from src (row stride D) into dst (row stride D + 4) as
 // fp32; rows at or beyond `valid` are zero.
@@ -249,12 +320,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh,
            float scale, cudaStream_t stream) {
   const size_t smem = sizeof(float) * Tile<D>::SMEM_FLOATS;
   static bool configured = false;
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    configured = true;
-  }
+  if (const int rc = allow_smem(flash_kernel<T, D>, smem, configured)) return rc;
   const dim3 grid((sq_p + QT - 1) / QT, bh);
   flash_kernel<T, D><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
@@ -262,41 +328,839 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh,
   return (int)cudaGetLastError();
 }
 
+}  // namespace core
+
+// ------------------------------------------------------------------ tc_bf16
+namespace tc {
+
+constexpr int QROWS = 128;               // q rows per block
+constexpr int CONSUMERS = 256;           // two warpgroups of 64 rows
+constexpr int THREADS = CONSUMERS + 32;  // and one producer warp
+constexpr int STAGES = 2;                // K/V ring depth
+
+template <int D>
+struct Cfg {
+  static constexpr int KT = D > 128 ? 32 : 128;   // keys per K/V tile
+  static constexpr int SW = D >= 64 ? 128 : 64;   // swizzle span: bytes of a staged row
+  static constexpr int CW = SW / 2;               // bf16 columns per chunk
+  static constexpr int NCH = D / CW;              // chunks of a row
+  static constexpr int Q_BYTES = QROWS * D * 2;
+  static constexpr int KV_BYTES = KT * D * 2;
+  // 1024 bytes of slack to align the tiles to the swizzle pattern, then the
+  // barriers: q_full, k_full[STAGES], v_full[STAGES], empty[STAGES]
+  static constexpr int SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 8 * (1 + 3 * STAGES);
+};
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" :: "r"(smem_u32(bar)) : "memory");
+}
+
+// Wait for the phase of `bar` with this parity to complete. A phase that
+// never completes (a copy that never lands) traps after about 10 s of clock
+// rather than hanging the card: the launch then fails with an error.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  const long long start = clock64();
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+    if (!done && clock64() - start > 20000000000LL) __trap();
+  }
+}
+
+// One TMA copy of a (1, rows, columns) box of a 3-d tensor map into shared
+// memory, completing on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int c0, int c1,
+                                         int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+         "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Registers that an asynchronous wgmma reads or writes: the compiler may
+// neither move their uses across this point nor reuse them before it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units) and the swizzle mode (1: 128 B, 2: 64 B).
+template <int SW>
+__device__ __forceinline__ uint64_t mat_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)(SW == 128 ? 1 : 2) << 62);
+}
+
+// A tile of `rows` rows is staged as D / CW chunks of rows x SW bytes. The
+// K-major operand (Q or K) of k-step kk (16 columns) starts in chunk
+// 16 kk / CW, 32 bytes further per k-step inside the swizzle span; its
+// 8-row groups are SW * 8 bytes apart.
+template <int D>
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int rows, int kk) {
+  using C = Cfg<D>;
+  return mat_desc<C::SW>(tile + (kk * 16 / C::CW) * rows * C::SW + (kk * 16 % C::CW) * 2,
+                         16, 8 * C::SW);
+}
+
+// V read MN-major (its columns are the product's N): k-step kk is keys
+// 16 kk.., 16 rows further; 8-key groups are SW * 8 bytes apart and the
+// column chunks KT * SW bytes apart.
+template <int D>
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int kk) {
+  using C = Cfg<D>;
+  return mat_desc<C::SW>(tile + kk * 16 * C::SW, C::KT * C::SW, 8 * C::SW);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+template <int N> struct Wgmma;
+
+template <> struct Wgmma<32> {
+  // d (64 x 32, fp32) += A (64 x 16, shared) * B (16 x 32, shared, K-major)
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(acc));
+  }
+  // d (64 x 32, fp32) += A (64 x 16, registers) * B (16 x 32, shared, MN-major)
+  static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+template <> struct Wgmma<64> {
+  // d (64 x 64, fp32) += A (64 x 16, shared) * B (16 x 64, shared, K-major)
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(acc));
+  }
+  // d (64 x 64, fp32) += A (64 x 16, registers) * B (16 x 64, shared, MN-major)
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+template <> struct Wgmma<128> {
+  // d (64 x 128, fp32) += A (64 x 16, shared) * B (16 x 128, shared, K-major)
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(acc));
+  }
+  // d (64 x 128, fp32) += A (64 x 16, registers) * B (16 x 128, shared, MN-major)
+  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+template <> struct Wgmma<256> {
+  // d (64 x 256, fp32) += A (64 x 16, shared) * B (16 x 256, shared, K-major)
+  static __device__ __forceinline__ void ss(float (&d)[128], uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "l"(da), "l"(db), "r"(acc));
+  }
+  // d (64 x 256, fp32) += A (64 x 16, registers) * B (16 x 256, shared, MN-major)
+  static __device__ __forceinline__ void rs(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_kernel_tc(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                int sq_p, int skv, int group, int causal, int q_offset, float scale_log2) {
+  using C = Cfg<D>;
+  constexpr int KT = C::KT;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* qs = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* ks = qs + C::Q_BYTES;                 // STAGES K tiles
+  uint8_t* vs = ks + STAGES * C::KV_BYTES;       // STAGES V tiles
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + STAGES * C::KV_BYTES);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + STAGES;
+  uint64_t* empty = v_full + STAGES;
+
+  const int bh = blockIdx.x;
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * QROWS;   // longest causal walks first
+  const int kv_end = causal ? min(skv, q_offset + min(row0 + QROWS, sq_p)) : skv;
+  const int n_tiles = (kv_end + KT - 1) / KT;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full + s, 1);
+      mbar_init(v_full + s, 1);
+      mbar_init(empty + s, CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {
+    // producer warp: its lane 0 issues every copy, KV tile i into stage
+    // i % STAGES once the consumers have freed it
+    if (threadIdx.x == CONSUMERS) {
+      const int hk = bh / group;
+      mbar_expect_tx(q_full, C::Q_BYTES);
+      for (int c = 0; c < C::NCH; ++c)
+        tma_load(qs + c * QROWS * C::SW, &tq, c * C::CW, row0, bh, q_full);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % STAGES;
+        if (i >= STAGES) mbar_wait(empty + s, ((i / STAGES) - 1) & 1);
+        mbar_expect_tx(k_full + s, C::KV_BYTES);
+        for (int c = 0; c < C::NCH; ++c)
+          tma_load(ks + s * C::KV_BYTES + c * KT * C::SW, &tk, c * C::CW, i * KT, hk, k_full + s);
+        mbar_expect_tx(v_full + s, C::KV_BYTES);
+        for (int c = 0; c < C::NCH; ++c)
+          tma_load(vs + s * C::KV_BYTES + c * KT * C::SW, &tv, c * C::CW, i * KT, hk, v_full + s);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg owns rows wrow0 .. wrow0 + 63; in the wgmma
+  // fragments a thread holds rows r_a and r_a + 8 of them, columns
+  // 8j + c2 and 8j + c2 + 1
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int lane = tid % 32;
+  const int wrow0 = row0 + wg * 64;
+  const int r_a = (tid / 32) * 16 + lane / 4;
+  const int c2 = (lane % 4) * 2;
+  const int q_id[2] = {q_offset + wrow0 + r_a, q_offset + wrow0 + r_a + 8};
+  const int wg_last = q_offset + wrow0 + 63;   // the last key a causal row here sees
+  const uint32_t q_tile = smem_u32(qs) + wg * 64 * C::SW;
+
+  float oacc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+  mbar_wait(q_full, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % STAGES;
+    const uint32_t phase = (i / STAGES) & 1;
+    const int k0 = i * KT;
+    mbar_wait(k_full + s, phase);
+    if (!causal || k0 <= wg_last) {
+      // S = Q K^T in fp32 registers
+      float sacc[KT / 2];
+#pragma unroll
+      for (int j = 0; j < KT / 2; ++j) sacc[j] = 0.f;
+      const uint32_t k_tile = smem_u32(ks + s * C::KV_BYTES);
+      fence_regs(sacc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wgmma<KT>::ss(sacc, kmajor_desc<D>(q_tile, QROWS, kk), kmajor_desc<D>(k_tile, KT, kk), 1);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sacc);
+
+      // scale into the log2 domain, mask, and the online softmax
+      const bool edge = k0 + KT > skv || (causal && k0 + KT - 1 > q_offset + wrow0);
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sacc[4 * j + e] * scale_log2;
+          if (edge) {
+            const int col = k0 + 8 * j + c2 + (e & 1);
+            if (col >= skv || (causal && col > q_id[e / 2])) x = NEG_INF;
+          }
+          sacc[4 * j + e] = x;
+          mx[e / 2] = fmaxf(mx[e / 2], x);
+        }
+      float alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        alpha[h] = exp2f(m[h] - mx[h]);   // rescale the old partial sums
+        m[h] = mx[h];
+        l[h] *= alpha[h];
+      }
+      // P in bf16 pairs: k-step kk takes columns 16kk.. of rows r_a, r_a + 8
+      uint32_t pa[KT / 16][4];
+#pragma unroll
+      for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float p0 = exp2f(sacc[4 * j + 2 * h] - m[h]);
+          const float p1 = exp2f(sacc[4 * j + 2 * h + 1] - m[h]);
+          l[h] += p0 + p1;
+          pa[j / 2][(j % 2) * 2 + h] = pack_bf16(p0, p1);
+        }
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) oacc[4 * j + e] *= alpha[e / 2];
+
+      // O += P V
+      const uint32_t v_tile = smem_u32(vs + s * C::KV_BYTES);
+      mbar_wait(v_full + s, phase);
+      fence_regs(oacc);
+      fence_regs(pa);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KT / 16; ++kk) Wgmma<D>::rs(oacc, pa[kk], mnmajor_desc<D>(v_tile, kk));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(oacc);
+      fence_regs(pa);
+    }
+    mbar_arrive(empty + s);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const int r = wrow0 + r_a + 8 * h;
+    if (r >= sq_p) continue;
+    const float den = fmaxf(l[h], 1e-30f);
+    __nv_bfloat16* orow = o + ((size_t)bh * sq_p + r) * D + c2;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+          __floats2bfloat162_rn(oacc[4 * j + 2 * h] / den, oacc[4 * j + 2 * h + 1] / den);
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The tensor map of a (heads, rows, d) bf16 array: boxes of box_rows rows
+// by one swizzle span of columns, zero-filled past the array's rows.
+int tensor_map(CUtensorMap* map, const void* base, int heads, int rows, int d, int box_rows,
+               int sw) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return (int)cudaErrorSymbolNotFound;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows, (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)d * 2 * rows};
+  const cuuint32_t box[3] = {(cuuint32_t)(sw / 2), (cuuint32_t)box_rows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+                            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            sw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int bh, int sq_p, int skv_p,
+           int skv, int group, int causal, int q_offset, float scale, cudaStream_t stream) {
+  using C = Cfg<D>;
+  CUtensorMap tq, tk, tv;
+  int rc = tensor_map(&tq, q, bh, sq_p, D, QROWS, C::SW);
+  if (!rc) rc = tensor_map(&tk, k, bh / group, skv_p, D, C::KT, C::SW);
+  if (!rc) rc = tensor_map(&tv, v, bh / group, skv_p, D, C::KT, C::SW);
+  static bool configured = false;
+  if (!rc) rc = allow_smem(flash_kernel_tc<D>, C::SMEM, configured);
+  if (rc) return rc;
+  const dim3 grid(bh, (sq_p + QROWS - 1) / QROWS);
+  flash_kernel_tc<D><<<grid, THREADS, C::SMEM, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), sq_p, skv, group, causal, q_offset,
+      scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
+// ----------------------------------------------------------------- split_kv
+namespace split {
+
+constexpr int THREADS = 128;     // 4 warps
+constexpr int KT = 32;           // keys per staged tile: one per lane
+constexpr int MAX_ROWS = 64;     // q heads of a kv head x q positions
+constexpr int MAX_SPLITS = 1024;
+
+template <typename T, int D, int MAXR>
+struct Cfg {
+  static constexpr int EPC = 16 / sizeof(T);   // elements per 16-byte copy
+  static constexpr int LD = D + EPC;           // staged K/V row, elements (16 B padding)
+  static constexpr int RW = MAXR / 4;          // rows per warp in q k^T and softmax
+  static constexpr int CPR = D / 4;            // 4-column groups of a row
+  static constexpr int RG = THREADS / CPR;     // row groups of the p V product
+  static constexpr int RPT = (MAXR + RG - 1) / RG;   // rows per thread there
+  static constexpr int PLD = KT + 4;           // p row, floats
+  // fp32 q rows, 2 stages of K and V, p rows, and m, l, alpha per row
+  static size_t smem(int rows) {
+    return sizeof(float) * (size_t)rows * (D + 4 + PLD + 3) + sizeof(T) * 2 * 2 * KT * LD;
+  }
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Pass 1: the (m, l, acc) of rows r = j * sq_p + pos (q head hk * group + j,
+// position pos) over keys [split * split_len, ...) of kv head hk. MAXR >=
+// rows bounds the rows per thread at compile time; a thread whose row index
+// passes the last row computes on the last row and keeps nothing, so the
+// loops carry no per-row branch.
+template <typename T, int D, int MAXR>
+__global__ void __launch_bounds__(THREADS)
+flash_kernel_split(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                   float* __restrict__ part_acc, float* __restrict__ part_ml, int sq_p,
+                   int skv_p, int skv, int group, int causal, int q_offset, int split_len,
+                   float scale) {
+  using C = Cfg<T, D, MAXR>;
+  extern __shared__ __align__(16) float smem_f[];
+  const int rows = group * sq_p;
+  float* Qs = smem_f;                                          // rows x (D + 4)
+  T* Ks = reinterpret_cast<T*>(Qs + rows * (D + 4));           // 2 x KT x LD
+  T* Vs = Ks + 2 * KT * C::LD;                                 // 2 x KT x LD
+  float* Ps = reinterpret_cast<float*>(Vs + 2 * KT * C::LD);   // rows x PLD
+  float* Ms = Ps + rows * C::PLD;
+  float* Ls = Ms + rows;
+  float* As = Ls + rows;
+
+  const int split = blockIdx.x, hk = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int k_begin = split * split_len;
+  int k_end = min(skv, k_begin + split_len);
+  if (causal) k_end = min(k_end, q_offset + sq_p);   // no row sees a later key
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + KT - 1) / KT : 0;
+  const T* kb = k + (size_t)hk * skv_p * D;
+  const T* vb = v + (size_t)hk * skv_p * D;
+
+  // tile t into stage buf; keys past k_end are zero-filled
+  auto stage = [&](int t, int buf) {
+    constexpr int CH = D / C::EPC;
+    const int k0 = k_begin + t * KT, kt = min(KT, k_end - k0);
+    for (int i = tid; i < KT * CH; i += THREADS) {
+      const int r = i / CH, c = (i % CH) * C::EPC;
+      const size_t src = (size_t)(k0 + min(r, kt - 1)) * D + c;
+      cp_async16(Ks + (buf * KT + r) * C::LD + c, kb + src, r < kt);
+      cp_async16(Vs + (buf * KT + r) * C::LD + c, vb + src, r < kt);
+    }
+    cp_async_commit();
+  };
+  if (n_tiles > 0) stage(0, 0);
+
+  for (int i = tid; i < rows * (D / 4); i += THREADS) {
+    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+    const T* src = q + ((size_t)(hk * group + r / sq_p) * sq_p + r % sq_p) * D + c;
+    *reinterpret_cast<float4*>(Qs + r * (D + 4) + c) = load4(src);
+  }
+  for (int r = tid; r < rows; r += THREADS) {
+    Ms[r] = NEG_INF;
+    Ls[r] = 0.f;
+  }
+
+  // q k^T and softmax: warp w owns rows w + 4i, lane = key, so a row's max
+  // and sum are warp shuffles. p V: thread (rg, c4) owns rows rg + RG i,
+  // columns 4 c4 .. 4 c4 + 3.
+  int sr[C::RW], pr[C::RPT];
+#pragma unroll
+  for (int i = 0; i < C::RW; ++i) sr[i] = min(warp + 4 * i, rows - 1);
+  const int c4 = tid % C::CPR, rg = tid / C::CPR;
+#pragma unroll
+  for (int i = 0; i < C::RPT; ++i) pr[i] = min(rg + C::RG * i, rows - 1);
+  float acc[C::RPT][4];
+#pragma unroll
+  for (int i = 0; i < C::RPT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < n_tiles) {
+      stage(t + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* Kt = Ks + buf * KT * C::LD;
+    const T* Vt = Vs + buf * KT * C::LD;
+    const int k0 = k_begin + t * KT, kt = min(KT, k_end - k0);
+    const int k_id = k0 + lane;
+
+    float s[C::RW];
+#pragma unroll
+    for (int i = 0; i < C::RW; ++i) s[i] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; d += 4) {
+      const float4 kx = load4(Kt + lane * C::LD + d);
+#pragma unroll
+      for (int i = 0; i < C::RW; ++i)
+        s[i] = fma4(*reinterpret_cast<const float4*>(Qs + sr[i] * (D + 4) + d), kx, s[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < C::RW; ++i) {
+      const int r = sr[i];
+      const bool ok = lane < kt && (!causal || k_id <= q_offset + r % sq_p);
+      const float x = ok ? s[i] * scale : NEG_INF;
+      const float m_old = Ms[r];
+      const float m_new = fmaxf(m_old, warp_max(x));
+      const float p = ok ? expf(x - m_new) : 0.f;
+      const float sum = warp_sum(p);
+      if (warp + 4 * i < rows) {   // the row's owner; a clamped copy keeps nothing
+        Ps[r * C::PLD + lane] = p;
+        if (lane == 0) {
+          const float alpha = expf(m_old - m_new);   // rescale the old partial sums
+          Ms[r] = m_new;
+          Ls[r] = Ls[r] * alpha + sum;
+          As[r] = alpha;
+        }
+      }
+    }
+    __syncthreads();
+
+    // acc = acc alpha + p V over the whole tile: keys past kt have p = 0
+#pragma unroll
+    for (int i = 0; i < C::RPT; ++i) {
+      const float a = As[pr[i]];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][e] *= a;
+    }
+#pragma unroll 2
+    for (int kk = 0; kk < KT; kk += 4) {
+      float4 vx[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) vx[u] = load4(Vt + (kk + u) * C::LD + 4 * c4);
+#pragma unroll
+      for (int i = 0; i < C::RPT; ++i) {
+        const float4 p = *reinterpret_cast<const float4*>(Ps + pr[i] * C::PLD + kk);
+        const float pu[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          acc[i][0] = fmaf(pu[u], vx[u].x, acc[i][0]);
+          acc[i][1] = fmaf(pu[u], vx[u].y, acc[i][1]);
+          acc[i][2] = fmaf(pu[u], vx[u].z, acc[i][2]);
+          acc[i][3] = fmaf(pu[u], vx[u].w, acc[i][3]);
+        }
+      }
+    }
+    __syncthreads();   // the stage and p rows are read out
+  }
+  __syncthreads();
+
+  // the partials: (BH / group, splits, rows, D) and (..., rows, 2) in fp32
+  const size_t row_base = ((size_t)hk * gridDim.x + split) * rows;
+#pragma unroll
+  for (int i = 0; i < C::RPT; ++i)
+    if (rg + C::RG * i < rows)
+      *reinterpret_cast<float4*>(part_acc + (row_base + pr[i]) * D + 4 * c4) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  for (int r = tid; r < rows; r += THREADS)
+    *reinterpret_cast<float2*>(part_ml + (row_base + r) * 2) = make_float2(Ms[r], Ls[r]);
+}
+
+// Pass 2: one block per row of one kv head combines that row's splits.
 template <typename T>
-int launch_d(int d, const void* q, const void* k, const void* v, void* o, int bh,
-             int sq_p, int skv_p, int skv, int group, int causal, int q_offset,
-             float scale, cudaStream_t s) {
+__global__ void __launch_bounds__(THREADS)
+flash_kernel_combine(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
+                     T* __restrict__ o, int splits, int d, int sq_p, int group) {
+  __shared__ float w[MAX_SPLITS];
+  const int r = blockIdx.x, hk = blockIdx.y, rows = gridDim.x;
+  const size_t first = (size_t)hk * splits * rows + r;   // split s at first + s * rows
+  float m_star = NEG_INF;
+  for (int s = 0; s < splits; ++s) m_star = fmaxf(m_star, part_ml[(first + (size_t)s * rows) * 2]);
+  for (int s = threadIdx.x; s < splits; s += THREADS)
+    w[s] = expf(part_ml[(first + (size_t)s * rows) * 2] - m_star);
+  __syncthreads();
+  float l = 0.f;
+  for (int s = 0; s < splits; ++s) l += part_ml[(first + (size_t)s * rows) * 2 + 1] * w[s];
+  const float den = fmaxf(l, 1e-30f);
+  T* orow = o + ((size_t)(hk * group + r / sq_p) * sq_p + r % sq_p) * d;
+  for (int c = threadIdx.x; c < d; c += THREADS) {
+    float acc = 0.f;
+    for (int s = 0; s < splits; ++s) acc += part_acc[(first + (size_t)s * rows) * d + c] * w[s];
+    orow[c] = from_f<T>(acc / den);
+  }
+}
+
+template <typename T, int D, int MAXR>
+int launch(const void* q, const void* k, const void* v, float* part_acc, float* part_ml,
+           int bh, int sq_p, int skv_p, int skv, int group, int causal, int q_offset,
+           int splits, int split_len, float scale, cudaStream_t stream) {
+  using C = Cfg<T, D, MAXR>;
+  static bool configured = false;
+  if (const int rc = allow_smem(flash_kernel_split<T, D, MAXR>, C::smem(MAXR), configured))
+    return rc;
+  const dim3 grid(splits, bh / group);
+  flash_kernel_split<T, D, MAXR><<<grid, THREADS, C::smem(group * sq_p), stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), part_acc,
+      part_ml, sq_p, skv_p, skv, group, causal, q_offset, split_len, scale);
+  return (int)cudaGetLastError();
+}
+
+// The instantiation for the rows of one kv head: 8, 16, 32 or 64 at most.
+template <typename T, int D>
+int launch_rows(const void* q, const void* k, const void* v, float* pa, float* pm, int bh,
+                int sq_p, int skv_p, int skv, int group, int causal, int q_offset, int splits,
+                int split_len, float scale, cudaStream_t s) {
+  const int rows = group * sq_p;
+  if (rows <= 8)
+    return launch<T, D, 8>(q, k, v, pa, pm, bh, sq_p, skv_p, skv, group, causal, q_offset, splits, split_len, scale, s);
+  if (rows <= 16)
+    return launch<T, D, 16>(q, k, v, pa, pm, bh, sq_p, skv_p, skv, group, causal, q_offset, splits, split_len, scale, s);
+  if (rows <= 32)
+    return launch<T, D, 32>(q, k, v, pa, pm, bh, sq_p, skv_p, skv, group, causal, q_offset, splits, split_len, scale, s);
+  return launch<T, D, MAX_ROWS>(q, k, v, pa, pm, bh, sq_p, skv_p, skv, group, causal, q_offset, splits, split_len, scale, s);
+}
+
+template <typename T>
+int launch_d(int d, const void* q, const void* k, const void* v, float* pa, float* pm, int bh,
+             int sq_p, int skv_p, int skv, int group, int causal, int q_offset, int splits,
+             int split_len, float scale, cudaStream_t s) {
   switch (d) {
-    case 32: return launch<T, 32>(q, k, v, o, bh, sq_p, skv_p, skv, group, causal, q_offset, scale, s);
-    case 64: return launch<T, 64>(q, k, v, o, bh, sq_p, skv_p, skv, group, causal, q_offset, scale, s);
-    case 128: return launch<T, 128>(q, k, v, o, bh, sq_p, skv_p, skv, group, causal, q_offset, scale, s);
-    case 256: return launch<T, 256>(q, k, v, o, bh, sq_p, skv_p, skv, group, causal, q_offset, scale, s);
+    case 32: return launch_rows<T, 32>(q, k, v, pa, pm, bh, sq_p, skv_p, skv, group, causal, q_offset, splits, split_len, scale, s);
+    case 64: return launch_rows<T, 64>(q, k, v, pa, pm, bh, sq_p, skv_p, skv, group, causal, q_offset, splits, split_len, scale, s);
+    case 128: return launch_rows<T, 128>(q, k, v, pa, pm, bh, sq_p, skv_p, skv, group, causal, q_offset, splits, split_len, scale, s);
+    case 256: return launch_rows<T, 256>(q, k, v, pa, pm, bh, sq_p, skv_p, skv, group, causal, q_offset, splits, split_len, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+}  // namespace split
+
+template <int D>
+int launch_one_pass(int dtype, const void* q, const void* k, const void* v, void* o, int bh,
+                    int sq_p, int skv_p, int skv, int group, int causal, int q_offset,
+                    float scale, cudaStream_t s) {
+  if (dtype == 0)
+    return core::launch<float, D>(q, k, v, o, bh, sq_p, skv_p, skv, group, causal, q_offset, scale, s);
+  if (dtype == 1) return tc::launch<D>(q, k, v, o, bh, sq_p, skv_p, skv, group, causal, q_offset, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+bool bad_shape(int bh, int sq_p, int skv_p, int skv, int group, int causal, int q_offset) {
+  return bh < 1 || sq_p < 1 || skv < 1 || skv > skv_p || group < 1 || bh % group ||
+         bh > 65535 || sq_p > 65535 * 128 || (causal && q_offset < 0) || (!causal && skv != skv_p);
+}
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 float32, 1 bfloat16. q and o are (bh, sq_p, d); k and v are
+// One pass over the keys: dtype 0 (float32) runs the cuda_core body, dtype 1
+// (bfloat16) the tc_bf16 body. q and o are (bh, sq_p, d); k and v are
 // (bh / group, skv_p, d); keys at or beyond skv are padding (causal only).
 int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                            int dtype, int bh, int sq_p, int skv_p, int skv,
                            int d, int group, int causal, int q_offset,
                            float scale, void* stream) {
-  if (bh < 1 || sq_p < 1 || skv < 1 || skv > skv_p || group < 1 || bh % group ||
-      bh > 65535 || (causal && q_offset < 0) || (!causal && skv != skv_p) ||
-      !aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o))
+  if (bad_shape(bh, sq_p, skv_p, skv, group, causal, q_offset) || !aligned16(q) ||
+      !aligned16(k) || !aligned16(v) || !aligned16(o))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 32: return launch_one_pass<32>(dtype, q, k, v, o, bh, sq_p, skv_p, skv, group, causal, q_offset, scale, s);
+    case 64: return launch_one_pass<64>(dtype, q, k, v, o, bh, sq_p, skv_p, skv, group, causal, q_offset, scale, s);
+    case 128: return launch_one_pass<128>(dtype, q, k, v, o, bh, sq_p, skv_p, skv, group, causal, q_offset, scale, s);
+    case 256: return launch_one_pass<256>(dtype, q, k, v, o, bh, sq_p, skv_p, skv, group, causal, q_offset, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// split_kv pass 1 (dtype 0 float32, 1 bfloat16): the fp32 partials of
+// `splits` key ranges of split_len keys into part_acc (bh / group, splits,
+// group * sq_p, d) and part_ml (..., 2).
+int flash_split_launch(const void* q, const void* k, const void* v, void* part_acc,
+                       void* part_ml, int dtype, int bh, int sq_p, int skv_p, int skv, int d,
+                       int group, int causal, int q_offset, int splits, int split_len,
+                       float scale, void* stream) {
+  if (bad_shape(bh, sq_p, skv_p, skv, group, causal, q_offset) ||
+      group * sq_p > split::MAX_ROWS || splits < 1 || splits > split::MAX_SPLITS ||
+      bh / group > 65535 || split_len < 1 || (long long)splits * split_len < skv ||
+      !aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(part_acc) ||
+      !aligned16(part_ml))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* pa = static_cast<float*>(part_acc);
+  float* pm = static_cast<float*>(part_ml);
   if (dtype == 0)
-    return launch_d<float>(d, q, k, v, o, bh, sq_p, skv_p, skv, group, causal, q_offset, scale, s);
+    return split::launch_d<float>(d, q, k, v, pa, pm, bh, sq_p, skv_p, skv, group, causal, q_offset, splits, split_len, scale, s);
   if (dtype == 1)
-    return launch_d<__nv_bfloat16>(d, q, k, v, o, bh, sq_p, skv_p, skv, group, causal, q_offset, scale, s);
+    return split::launch_d<__nv_bfloat16>(d, q, k, v, pa, pm, bh, sq_p, skv_p, skv, group, causal, q_offset, splits, split_len, scale, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// split_kv pass 2: combines the partials into o (bh, sq_p, d), bh = hkv * group.
+int flash_combine_launch(const void* part_acc, const void* part_ml, void* o, int dtype,
+                         int hkv, int sq_p, int d, int group, int splits, void* stream) {
+  if (hkv < 1 || hkv > 65535 || sq_p < 1 || group < 1 || group * sq_p > split::MAX_ROWS ||
+      d < 1 || splits < 1 || splits > split::MAX_SPLITS)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(group * sq_p, hkv);
+  const float* pa = static_cast<const float*>(part_acc);
+  const float* pm = static_cast<const float*>(part_ml);
+  if (dtype == 0)
+    split::flash_kernel_combine<float><<<grid, split::THREADS, 0, s>>>(
+        pa, pm, static_cast<float*>(o), splits, d, sq_p, group);
+  else if (dtype == 1)
+    split::flash_kernel_combine<__nv_bfloat16><<<grid, split::THREADS, 0, s>>>(
+        pa, pm, static_cast<__nv_bfloat16*>(o), splits, d, sq_p, group);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
 }
 
 const char* kernel_error_string(int code) {

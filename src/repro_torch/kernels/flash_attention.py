@@ -4,11 +4,25 @@ accumulator acc) triple is the partial sum; it stays on chip across the kv
 blocks instead of materialising S = QK^T in device memory (which would be the
 passive schedule).
 
-On a CUDA tensor `flash_attention` runs the hand-written kernel in
-``csrc/flash_attention.cu``: the reference's sequential kv grid axis becomes
-a loop inside the CUDA block, and the fp32 (m, l, acc) of each q row stay in
-registers for all of it. On a CPU tensor it runs `flash_plain`, the
-reference's kv-block loop in plain PyTorch.
+On a CUDA tensor `flash_attention` runs the hand-written kernels in
+``csrc/flash_attention.cu``; `flash_launch_plan` picks one of three bodies
+from the dtype and the shape, and the plan names it:
+
+  ``tc_bf16``    bfloat16, one pass: 128 q rows per block, QK^T and PV on
+                 the tensor cores (wgmma), K/V tiles staged by TMA; P is
+                 rounded to bf16 before PV (the reference keeps it fp32).
+  ``cuda_core``  float32, one pass on the fp32 cores: 32 q rows per block.
+  ``split_kv``   either dtype, when the one-pass grid would not fill the
+                 card (at most SPLIT_ROWS rows of a kv head and fewer
+                 one-pass blocks than SMS): the keys are cut into ranges, a
+                 block per (kv head, range) writes its fp32 (m, l, acc) to
+                 device memory, and a second kernel combines them. That
+                 round trip is the passive half of the trade, on the split
+                 axis only; the plan lists it as device scratch.
+
+On a CPU tensor it runs `flash_plain`, the reference's kv-block loop in
+plain PyTorch, with the same key ranges and combine as ``split_kv`` when the
+plan splits.
 
 GQA: k and v may carry fewer heads than q. With ``kv_group = g`` query head
 ``bh`` reads kv head ``bh // g``; for a (B, Hq) head layout with Hq = g * Hkv
@@ -27,22 +41,101 @@ import torch.nn.functional as F
 from repro_torch.kernels import _build, launch
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128, 256)     # head dims the CUDA kernel is built for
+HEAD_DIMS = (32, 64, 128, 256)     # head dims the CUDA kernels are built for
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-QT = 32           # q rows per CUDA block
-THREADS = 128     # 8 row groups x 16 key / column groups
 KERNEL_SOURCE = "flash_attention"
+SMS = 132                          # streaming multiprocessors of an H100 SXM
 
-_C_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
-           + [ctypes.c_float, ctypes.c_void_p])
+# cuda_core: 32 q rows per block, 8 row groups x 16 key / column groups
+QT = 32
+THREADS = 128
+# tc_bf16: 128 q rows per block, two consumer warpgroups and a producer warp
+TC_QT = 128
+TC_THREADS = 288
+TC_STAGES = 2
+# split_kv: a block serves at most SPLIT_ROWS rows of one kv head; its keys
+# are staged SPLIT_KT at a time, and a split holds about SPLIT_UNIT keys or
+# more
+SPLIT_ROWS = 64
+SPLIT_THREADS = 128
+SPLIT_KT = 32
+SPLIT_UNIT = 64
+
+_C_ARGS = {
+    "flash_attention_launch": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+                               + [ctypes.c_float, ctypes.c_void_p]),
+    "flash_split_launch": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 11
+                           + [ctypes.c_float, ctypes.c_void_p]),
+    "flash_combine_launch": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+                             + [ctypes.c_void_p]),
+}
+
+
+@functools.cache
+def _entry_points() -> dict:
+    """The library's C entry points, built and typed once per process."""
+    lib = _build.load(KERNEL_SOURCE)
+    fns = {}
+    for name, argtypes in _C_ARGS.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        fns[name] = fn
+    return fns
 
 
 def smem_floats(d: int) -> int:
-    """fp32 values of shared memory one CUDA block uses: the q tile, one K and
-    one V tile of kt keys (rows padded by 4 against bank conflicts) and the
-    p tile; as ``Tile<D>`` in the CUDA source."""
+    """fp32 values of shared memory one cuda_core block uses: the q tile, one
+    K and one V tile of kt keys (rows padded by 4 against bank conflicts) and
+    the p tile; as ``Tile<D>`` in the CUDA source."""
     kt = 32 if d > 128 else 64
     return QT * (d + 4) + 2 * kt * (d + 4) + QT * (kt + 4)
+
+
+def tc_keys(d: int) -> int:
+    """Keys per K/V tile of the tc_bf16 body (``tc::Cfg<D>::KT``): at
+    D = 256 the O accumulator alone holds 128 fp32 registers of the 168 a
+    thread gets, so the S tile shrinks to 32 keys."""
+    return 32 if d > 128 else 128
+
+
+def tc_smem_bytes(d: int) -> int:
+    """Shared memory of one tc_bf16 block (``tc::Cfg<D>::SMEM``): 1024 bytes
+    to align to the swizzle pattern, the bf16 q tile, TC_STAGES K and V
+    tiles, and the mbarriers."""
+    return 1024 + 2 * d * (TC_QT + 2 * TC_STAGES * tc_keys(d)) + 8 * (1 + 3 * TC_STAGES)
+
+
+def split_smem_bytes(d: int, rows: int, dtype: torch.dtype) -> int:
+    """Shared memory of one split_kv block (``split::Cfg<T, D>::smem``): fp32
+    q rows, p rows and (m, l, alpha) per row, and two stages of K and V
+    tiles whose rows carry 16 bytes of padding."""
+    return 4 * rows * (d + 4 + SPLIT_KT + 4 + 3) + 4 * SPLIT_KT * (dtype.itemsize * d + 16)
+
+
+def split_keys(*, hkv: int, rows: int, skv: int, d: int) -> tuple[int, int]:
+    """(splits, keys per split) of a split_kv launch, from integers alone.
+
+    As many splits as make the hkv x splits blocks one wave of SMS, with at
+    least SPLIT_UNIT keys in each; but no more than keep a split's partials
+    (rows x (d + 2) fp32 words, written once and read once) within half the
+    bytes of the bf16 K and V it reads (2 x keys x d values), that is at
+    least 4 x rows x (d + 2) / d keys a split. The ranges cut [0, skv)
+    evenly and none is empty."""
+    units = -(-skv // SPLIT_UNIT)
+    wave = -(-SMS // hkv)
+    bounded = skv * d // (4 * rows * (d + 2))
+    split_len = -(-skv // max(1, min(units, wave, bounded)))
+    return -(-skv // split_len), split_len
+
+
+def flash_body(*, bh: int, sq_p: int, kv_group: int, dtype: torch.dtype) -> str:
+    """The kernel body a call takes: split_kv when its one-pass grid would
+    not fill the card and a block can hold all rows of a kv head, else the
+    one-pass body of its dtype."""
+    rows_per_block = TC_QT if dtype == torch.bfloat16 else QT
+    if sq_p * kv_group <= SPLIT_ROWS and bh * -(-sq_p // rows_per_block) < SMS:
+        return "split_kv"
+    return "tc_bf16" if dtype == torch.bfloat16 else "cuda_core"
 
 
 def check_flash_launch(bh: int, sq: int, skv: int, d: int, bq: int = 128,
@@ -66,29 +159,20 @@ def check_flash_launch(bh: int, sq: int, skv: int, d: int, bq: int = 128,
                          f"query ids before key id 0")
 
 
-def flash_plain(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor, *,
-                bq: int, bk: int, causal: bool, q_offset: int,
-                skv: int) -> torch.Tensor:
-    """The plain version: the reference kernel's kv-block loop over padded
-    operands, every (head, q block) at once. qp: (BH, Sq_p, D); kp/vp:
-    (BH / g, Skv_p, D). Per q row it carries an fp32 acc, m and l."""
-    bh, sq_p, d = qp.shape
-    hkv, skv_p, _ = kp.shape
-    g, gq = bh // hkv, sq_p // bq
-    scale = 1.0 / math.sqrt(d)
-    q = qp.float().reshape(hkv, g, gq, bq, d)
-    acc = torch.zeros(hkv, g, gq, bq, d, dtype=torch.float32, device=qp.device)
-    m = torch.full((hkv, g, gq, bq, 1), NEG_INF, dtype=torch.float32,
-                   device=qp.device)
+def _partials(q, kp, vp, q_ids, *, k_begin: int, k_end: int, bk: int,
+              causal: bool, skv: int, scale: float):
+    """The reference kernel's kv-block loop over keys [k_begin, k_end) from
+    its initial state: per q row an fp32 running max m, sum l and acc."""
+    acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    m = torch.full((*q.shape[:-1], 1), NEG_INF, dtype=torch.float32,
+                   device=q.device)
     l = torch.zeros_like(m)
-    q_ids = (torch.arange(gq, device=qp.device)[:, None] * bq
-             + torch.arange(bq, device=qp.device)[None, :] + q_offset)[..., None]
-    for k0 in range(0, skv_p, bk):
-        kb = kp[:, k0:k0 + bk].float()
-        vb = vp[:, k0:k0 + bk].float()
+    for k0 in range(k_begin, k_end, bk):
+        kb = kp[:, k0:min(k0 + bk, k_end)].float()
+        vb = vp[:, k0:min(k0 + bk, k_end)].float()
         s = torch.einsum("hgiqd,hkd->hgiqk", q, kb) * scale
         if causal:
-            k_ids = k0 + torch.arange(kb.shape[1], device=qp.device)
+            k_ids = k0 + torch.arange(kb.shape[1], device=q.device)
             s = torch.where((q_ids >= k_ids) & (k_ids < skv), s, NEG_INF)
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         p = torch.exp(s - m_new)
@@ -96,15 +180,57 @@ def flash_plain(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor, *,
         l = l * alpha + p.sum(-1, keepdim=True)
         acc = acc * alpha + torch.einsum("hgiqk,hkd->hgiqd", p, vb)
         m = m_new
+    return m, l, acc
+
+
+def flash_plain(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor, *,
+                bq: int, bk: int, causal: bool, q_offset: int,
+                skv: int, splits: int = 1) -> torch.Tensor:
+    """The plain version: the reference kernel's kv-block loop over padded
+    operands, every (head, q block) at once. qp: (BH, Sq_p, D); kp/vp:
+    (BH / g, Skv_p, D). Per q row it carries an fp32 acc, m and l.
+
+    With ``splits > 1`` the keys [0, skv) are cut into ranges of
+    ceil(skv / splits), as split_kv cuts them: each range runs the loop from
+    its own initial state, and the partials combine as split_kv's second
+    pass does (m* = max m_s, weights exp(m_s - m*)). ``splits = 1`` is the
+    reference's single walk over all Skv_p keys."""
+    bh, sq_p, d = qp.shape
+    hkv, skv_p, _ = kp.shape
+    g, gq = bh // hkv, sq_p // bq
+    q = qp.float().reshape(hkv, g, gq, bq, d)
+    q_ids = (torch.arange(gq, device=qp.device)[:, None] * bq
+             + torch.arange(bq, device=qp.device)[None, :] + q_offset)[..., None]
+    kw = dict(bk=bk, causal=causal, skv=skv, scale=1.0 / math.sqrt(d))
+    if splits == 1:
+        m, l, acc = _partials(q, kp, vp, q_ids, k_begin=0, k_end=skv_p, **kw)
+    else:
+        split_len = -(-skv // splits)
+        ms, ls, accs = zip(*(_partials(q, kp, vp, q_ids, k_begin=b,
+                                       k_end=min(skv, b + split_len), **kw)
+                             for b in range(0, splits * split_len, split_len)))
+        m_s = torch.stack(ms)
+        w = torch.exp(m_s - m_s.amax(0))      # a split that saw no key: 0
+        l = (torch.stack(ls) * w).sum(0)
+        acc = (torch.stack(accs) * w).sum(0)
     out = acc / torch.clamp_min(l, 1e-30)
     return out.reshape(bh, sq_p, d).to(qp.dtype)
 
 
 def _flash_cuda(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor, *,
-                causal: bool, q_offset: int, skv: int) -> torch.Tensor:
-    """Launch the Hopper kernel once over padded operands."""
+                causal: bool, q_offset: int, skv: int, splits: int = 0,
+                dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Launch the Hopper kernels over padded operands. ``splits = 0``: one
+    pass, the cuda_core body for float32 and tc_bf16 for bfloat16. Else
+    split_kv: pass 1 over `splits` key ranges into fp32 partials allocated
+    here, then the combine (counted as ``flash_attention/combine``).
+    ``dtype``, where given, is the dtype the launch plan chose its body for:
+    operands of another dtype raise."""
     name = "flash_attention"
     launch.check_operands(name, qp, kp, vp, dtypes=DTYPE_CODES)
+    if dtype is not None and qp.dtype != dtype:
+        raise ValueError(f"{name}: the plan chose its body for {dtype}, got "
+                         f"{qp.dtype} operands")
     bh, sq_p, d = qp.shape
     hkv, skv_p, _ = kp.shape
     if d not in HEAD_DIMS:
@@ -113,54 +239,116 @@ def _flash_cuda(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor, *,
     if bh % hkv or tuple(vp.shape) != tuple(kp.shape):
         raise ValueError(f"{name}: q heads {bh} over k {tuple(kp.shape)}, "
                          f"v {tuple(vp.shape)}")
+    group = bh // hkv
+    if splits and group * sq_p > SPLIT_ROWS:
+        raise ValueError(f"{name}: split_kv serves at most {SPLIT_ROWS} rows "
+                         f"of a kv head, got {group} heads x {sq_p} positions")
     out = torch.empty_like(qp)
     if any(t.data_ptr() % 16 for t in (qp, kp, vp, out)):
         raise ValueError(f"{name}: operands must start on 16-byte boundaries")
-    lib = _build.load(KERNEL_SOURCE)
-    fn = lib.flash_attention_launch
-    fn.argtypes = _C_ARGS
-    fn.restype = ctypes.c_int
+    fns, lib = _entry_points(), _build.load(KERNEL_SOURCE)
+    code, scale = DTYPE_CODES[qp.dtype], 1.0 / math.sqrt(d)
     stream = torch.cuda.current_stream(qp.device).cuda_stream
     with torch.cuda.device(qp.device):
-        rc = fn(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(),
-                DTYPE_CODES[qp.dtype], bh, sq_p, skv_p, skv, d, bh // hkv,
-                int(causal), q_offset, 1.0 / math.sqrt(d), stream)
+        if not splits:
+            rc = fns["flash_attention_launch"](
+                qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(),
+                code, bh, sq_p, skv_p, skv, d, group, int(causal), q_offset,
+                scale, stream)
+            _build.check(lib, rc, name)
+            launch.count_launch(name)
+            return out
+        # the partials in one buffer: acc (hkv, splits, rows, d), then
+        # (m, l) (hkv, splits, rows, 2); d >= 32 keeps the second 16-byte
+        # aligned
+        n_acc = hkv * splits * group * sq_p * d
+        part = torch.empty(n_acc + 2 * n_acc // d, dtype=torch.float32,
+                           device=qp.device)
+        acc_ptr, ml_ptr = part.data_ptr(), part[n_acc:].data_ptr()
+        rc = fns["flash_split_launch"](
+            qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), acc_ptr, ml_ptr, code,
+            bh, sq_p, skv_p, skv, d, group, int(causal), q_offset, splits,
+            -(-skv // splits), scale, stream)
         _build.check(lib, rc, name)
         launch.count_launch(name)
+        rc = fns["flash_combine_launch"](
+            acc_ptr, ml_ptr, out.data_ptr(), code, hkv, sq_p, d, group, splits,
+            stream)
+        _build.check(lib, rc, f"{name}/combine")
+        launch.count_launch(f"{name}/combine")
     return out
 
 
+@functools.lru_cache(maxsize=1024)
 def flash_launch_plan(*, bh: int, sq: int, skv: int, d: int, bq: int = 128,
                       bk: int = 128, causal: bool = True, q_offset: int = 0,
-                      kv_group: int = 1) -> launch.LaunchPlan:
+                      kv_group: int = 1,
+                      dtype: torch.dtype | None = None) -> launch.LaunchPlan:
     """The launch `flash_attention` executes, from plain integers: blocks
-    clamped and sequences padded exactly as the reference does. The CUDA grid
-    is (row tiles of QT over the padded q rows, BH); the kv blocks are the
-    loop inside each block."""
+    clamped and sequences padded exactly as the reference does, the body
+    picked by `flash_body` for ``dtype`` (float32 when None). The grid,
+    threads, shared memory and in-block loops are the body's:
+
+      tc_bf16    grid (BH, q tiles of TC_QT); loop over the kv tiles of
+                 `tc_keys(d)` keys that the longest block walks
+      cuda_core  grid (q tiles of QT, BH); loop over the reference's kv
+                 blocks
+      split_kv   grid (splits, BH / g), then the combine, grid (g x Sq_p,
+                 BH / g); loops: kv tiles of SPLIT_KT per split, and the
+                 splits; the fp32 partials are device scratch
+
+    A plan is a pure function of these arguments and is cached: the layers
+    of a serving step, which share a shape, build it once.
+    """
+    dtype = torch.float32 if dtype is None else dtype
     bq = max(1, min(bq, sq))
     bk = max(1, min(bk, skv))
     sq_p = sq + (-sq) % bq
     skv_p = skv + (-skv) % bk
     gk = skv_p // bk
-    kv_shape = (bh // kv_group, skv_p, d)
+    hkv = bh // kv_group
+    rows = kv_group * sq_p
+    body = flash_body(bh=bh, sq_p=sq_p, kv_group=kv_group, dtype=dtype)
+    splits = 0
+    scratch = (launch.ScratchPlan("acc", (bq, d), "registers"),
+               launch.ScratchPlan("m", (bq, 1), "registers"),
+               launch.ScratchPlan("l", (bq, 1), "registers"))
+    if body == "split_kv":
+        splits, split_len = split_keys(hkv=hkv, rows=rows, skv=skv, d=d)
+        grid, threads = (splits, hkv), SPLIT_THREADS
+        smem = split_smem_bytes(d, rows, dtype)
+        loops = (("kv", -(-split_len // SPLIT_KT)), ("splits", splits))
+        scratch = (launch.ScratchPlan("acc", (rows, d), "registers"),
+                   launch.ScratchPlan("m", (rows, 1), "shared"),
+                   launch.ScratchPlan("l", (rows, 1), "shared"),
+                   launch.ScratchPlan("part_acc", (hkv, splits, rows, d), "device"),
+                   launch.ScratchPlan("part_ml", (hkv, splits, rows, 2), "device"))
+    elif body == "tc_bf16":
+        grid, threads = (bh, -(-sq_p // TC_QT)), TC_THREADS
+        kv_end = min(skv, q_offset + sq_p) if causal else skv
+        smem, loops = tc_smem_bytes(d), (("kv", -(-kv_end // tc_keys(d))),)
+    else:
+        grid, threads = (-(-sq_p // QT), bh), THREADS
+        smem, loops = 4 * smem_floats(d), (("kv", gk),)
+    kv_shape = (hkv, skv_p, d)
     return launch.LaunchPlan(
         name="flash_attention",
-        grid=(-(-sq_p // QT), bh),
-        threads=THREADS,
-        smem_bytes=4 * smem_floats(d),
-        launches=1,
-        loops=(("kv", gk),),
+        grid=grid,
+        threads=threads,
+        smem_bytes=smem,
+        launches=2 if splits else 1,
+        loops=loops,
         inputs=(launch.OperandPlan("q", (bh, sq_p, d), (1, bq, d)),
                 launch.OperandPlan("k", kv_shape, (1, bk, d)),
                 launch.OperandPlan("v", kv_shape, (1, bk, d))),
         outputs=(launch.OperandPlan("out", (bh, sq_p, d), (1, bq, d)),),
-        scratch=(launch.ScratchPlan("acc", (bq, d), "registers"),
-                 launch.ScratchPlan("m", (bq, 1), "registers"),
-                 launch.ScratchPlan("l", (bq, 1), "registers")),
+        scratch=scratch,
         cuda=functools.partial(_flash_cuda, causal=causal, q_offset=q_offset,
-                               skv=skv),
+                               skv=skv, splits=splits, dtype=dtype),
         plain=functools.partial(flash_plain, bq=bq, bk=bk, causal=causal,
-                                q_offset=q_offset, skv=skv),
+                                q_offset=q_offset, skv=skv,
+                                splits=max(1, splits)),
+        body=body,
     )
 
 
@@ -180,7 +368,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
     plan = flash_launch_plan(bh=bh, sq=sq, skv=skv, d=d, bq=bq, bk=bk,
                              causal=causal, q_offset=q_offset,
-                             kv_group=bh // hkv)
+                             kv_group=bh // hkv, dtype=q.dtype)
     pq = plan.inputs[0].array_shape[1] - sq
     pk = plan.inputs[1].array_shape[1] - skv
     q, k, v = (F.pad(t, (0, 0, 0, p)).contiguous() if p else t.contiguous()

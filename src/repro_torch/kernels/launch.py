@@ -68,11 +68,12 @@ class OperandPlan:
 
 @dataclasses.dataclass(frozen=True)
 class ScratchPlan:
-    """One on-chip buffer a block keeps for the whole launch."""
+    """One buffer a block keeps for the whole launch: on chip, or in device
+    memory where the kernel spills its partial sums there."""
 
     name: str
     shape: tuple[int, ...]
-    where: str = "registers"      # "registers" | "shared"
+    where: str = "registers"      # "registers" | "shared" | "device"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,6 +85,7 @@ class LaunchPlan:
     launches kernel launches per call (the passive GEMM launches once per
              k-step)
     loops    (axis, trip count) of the loops inside a block, outermost first
+    body     which kernel body runs, where a source holds more than one
     """
 
     name: str
@@ -97,6 +99,7 @@ class LaunchPlan:
     scratch: tuple[ScratchPlan, ...]
     cuda: Callable[..., torch.Tensor]
     plain: Callable[..., torch.Tensor]
+    body: str = ""
 
 
 def run(plan: LaunchPlan, *operands: torch.Tensor) -> torch.Tensor:

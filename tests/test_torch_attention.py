@@ -4,6 +4,9 @@ interpret mode, `chunked_attention` at the serving call's shapes, and the
 oracle `attention_ref`, on the same numpy inputs. Tolerances are the
 reference's own (tests/test_kernels.py): fp32 2e-4, bf16 3e-2."""
 
+import functools
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -127,18 +130,34 @@ def test_launch_check_rejects_before_planning(kw, match):
                                jnp.asarray(k.numpy()), **opts)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("bh,sq,skv,d,bq,bk,q_offset", [
     (48, 1024, 1024, 128, 128, 128, 0), (48, 1, 1056, 128, 128, 128, 1055),
     (3, 100, 100, 64, 32, 32, 0), (1, 17, 17, 32, 16, 32, 0),
     (2, 8, 384, 128, 8, 128, 376)])
-def test_launch_plan_matches_reference_geometry(bh, sq, skv, d, bq, bk, q_offset):
+def test_launch_plan_matches_reference_geometry(bh, sq, skv, d, bq, bk, q_offset,
+                                                dtype):
+    """Operand shapes are the reference's; the grid and loops are the body's
+    own: one block per 32 (cuda_core) or 128 (tc_bf16) padded q rows of a
+    head, or one per (split, kv head) for split_kv."""
     kw = dict(bh=bh, sq=sq, skv=skv, d=d, bq=bq, bk=bk, q_offset=q_offset)
-    got, want = tflash.flash_launch_plan(**kw), jflash.flash_launch_plan(**kw)
+    got = tflash.flash_launch_plan(**kw, dtype=DTYPES[dtype][1])
+    want = jflash.flash_launch_plan(**kw)
     assert [o.array_shape for o in got.inputs + got.outputs] \
         == [o.array_shape for o in want.inputs + want.outputs]
-    assert got.loops == (("kv", want.grid[2]),)
     sq_p = want.inputs[0].array_shape[1]
-    assert got.grid == (-(-sq_p // tflash.QT), bh)
+    if got.body == "cuda_core":
+        assert got.loops == (("kv", want.grid[2]),)
+        assert got.grid == (-(-sq_p // tflash.QT), bh)
+    elif got.body == "tc_bf16":
+        assert got.loops == (("kv", -(-min(skv, q_offset + sq_p)
+                                      // tflash.tc_keys(d))),)
+        assert got.grid == (bh, -(-sq_p // tflash.TC_QT))
+    else:
+        splits, split_len = tflash.split_keys(hkv=bh, rows=sq_p, skv=skv, d=d)
+        assert got.loops == (("kv", -(-split_len // tflash.SPLIT_KT)),
+                             ("splits", splits))
+        assert got.grid == (splits, bh) and got.launches == 2
     assert got.smem_bytes <= 232_448           # one H100 block's shared memory
     gqa = tflash.flash_launch_plan(**kw, kv_group=bh if bh % 2 else 2)
     assert gqa.inputs[1].array_shape[0] == (1 if bh % 2 else bh // 2)
@@ -168,3 +187,206 @@ def test_cuda_wrapper_checks_before_launching():
     with pytest.raises(ValueError, match="2 kv heads"):
         tops.gqa_flash_attention(torch.zeros(1, 3, 4, 32), torch.zeros(1, 2, 4, 32),
                                  torch.zeros(1, 2, 4, 32))
+
+
+# ------------------------------------------------------------ split_kv decode
+_DECODE = dict(b=1, hq=6, hkv=1, d=32)     # GQA 6:1, as Qwen2-1.5B's 12:2
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_case(sq, skv, dtype):
+    """Decode-shaped inputs (q at positions skv - sq ..) as torch tensors
+    and the JAX `gqa_flash_attention` output on the same numbers."""
+    b, hq, hkv, d = (_DECODE[n] for n in ("b", "hq", "hkv", "d"))
+    rng = np.random.default_rng(sq * 10_000 + skv)
+    jq, tq = _pair(rng, (b, hq, sq, d), dtype)
+    jk, tk = _pair(rng, (b, hkv, skv, d), dtype)
+    jv, tv = _pair(rng, (b, hkv, skv, d), dtype)
+    want = jops.gqa_flash_attention(jq, jk, jv, causal=True, q_offset=skv - sq)
+    return tq, tk, tv, np.asarray(want, np.float32)
+
+
+def _plain_padded(q, k, v, *, splits, causal=True, q_offset, bq=128, bk=128):
+    """`flash_plain` on operands padded as the launch plan pads them.
+    q: (BH, Sq, D); k/v: (BH / g, Skv, D)."""
+    bh, sq, d = q.shape
+    skv = k.shape[1]
+    plan = tflash.flash_launch_plan(bh=bh, sq=sq, skv=skv, d=d, bq=bq, bk=bk,
+                                    causal=causal, q_offset=q_offset,
+                                    kv_group=bh // k.shape[0])
+    pq = plan.inputs[0].array_shape[1] - sq
+    pk = plan.inputs[1].array_shape[1] - skv
+    qp, kp, vp = (torch.nn.functional.pad(t, (0, 0, 0, p))
+                  for t, p in ((q, pq), (k, pk), (v, pk)))
+    bq, bk = plan.inputs[0].block_shape[1], plan.inputs[1].block_shape[1]
+    out = tflash.flash_plain(qp, kp, vp, bq=bq, bk=bk, causal=causal,
+                             q_offset=q_offset, skv=skv, splits=splits)
+    return out[:, :sq]
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 17])
+@pytest.mark.parametrize("sq,skv", [(1, 1056), (8, 1056), (1, 1001), (8, 1001)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_plain_splits_match_jax(splits, sq, skv, dtype):
+    """Each key range from its own (m, l, acc), combined as split_kv's second
+    pass combines them, against the reference's single walk."""
+    tq, tk, tv, want = _decode_case(sq, skv, dtype)
+    b, hq, hkv, d = (_DECODE[n] for n in ("b", "hq", "hkv", "d"))
+    got = _plain_padded(tq.reshape(b * hq, sq, d), tk.reshape(b * hkv, skv, d),
+                        tv.reshape(b * hkv, skv, d), splits=splits,
+                        q_offset=skv - sq)
+    assert got.dtype == tq.dtype
+    _close(got.reshape(b, hq, sq, d), want, TOL[dtype])
+
+
+@pytest.mark.parametrize("sq,skv,q_offset,splits", [
+    (8, 64, 0, 3),       # rows 0..7 see keys 0..7: splits 2 and 3 see none
+    (2, 10, 8, 6),       # ranges of 2 keys: the sixth range is empty
+    (1, 40, 3, 17)])     # one row, 4 visible keys, in the first two ranges
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_that_sees_no_key_has_weight_zero(sq, skv, q_offset, splits, dtype):
+    rng = np.random.default_rng(sq + skv + splits)
+    jq, tq = _pair(rng, (2, sq, 32), dtype)
+    jk, tk = _pair(rng, (2, skv, 32), dtype)
+    jv, tv = _pair(rng, (2, skv, 32), dtype)
+    want = jflash.flash_attention(jq, jk, jv, causal=True, bq=8, bk=16,
+                                  q_offset=q_offset)
+    got = _plain_padded(tq, tk, tv, splits=splits, q_offset=q_offset, bq=8,
+                        bk=16)
+    _close(got, want, TOL[dtype])
+    assert torch.isfinite(got.float()).all()
+
+
+def _one_pass_loop(qp, kp, vp, *, bq, bk, causal, q_offset, skv):
+    """The one-pass plain loop as the port had it before split_kv."""
+    bh, sq_p, d = qp.shape
+    hkv, skv_p, _ = kp.shape
+    g, gq = bh // hkv, sq_p // bq
+    scale = 1.0 / math.sqrt(d)
+    q = qp.float().reshape(hkv, g, gq, bq, d)
+    acc = torch.zeros(hkv, g, gq, bq, d, dtype=torch.float32)
+    m = torch.full((hkv, g, gq, bq, 1), tflash.NEG_INF, dtype=torch.float32)
+    l = torch.zeros_like(m)
+    q_ids = (torch.arange(gq)[:, None] * bq + torch.arange(bq)[None, :]
+             + q_offset)[..., None]
+    for k0 in range(0, skv_p, bk):
+        kb = kp[:, k0:k0 + bk].float()
+        vb = vp[:, k0:k0 + bk].float()
+        s = torch.einsum("hgiqd,hkd->hgiqk", q, kb) * scale
+        if causal:
+            k_ids = k0 + torch.arange(kb.shape[1])
+            s = torch.where((q_ids >= k_ids) & (k_ids < skv), s, tflash.NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("hgiqk,hkd->hgiqd", p, vb)
+        m = m_new
+    return (acc / torch.clamp_min(l, 1e-30)).reshape(bh, sq_p, d).to(qp.dtype)
+
+
+@pytest.mark.parametrize("causal,skv,skv_p", [(True, 100, 128), (False, 96, 96)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_one_split_is_bit_identical_to_the_one_pass_loop(causal, skv, skv_p, dtype):
+    gen = torch.Generator().manual_seed(skv)
+    td = DTYPES[dtype][1]
+    qp = torch.randn(6, 32, 64, generator=gen).to(td)
+    kp, vp = (torch.randn(2, skv_p, 64, generator=gen).to(td) for _ in range(2))
+    kw = dict(bq=16, bk=32, causal=causal, q_offset=skv - 32 if causal else 0,
+              skv=skv)
+    assert torch.equal(tflash.flash_plain(qp, kp, vp, splits=1, **kw),
+                       _one_pass_loop(qp, kp, vp, **kw))
+
+
+QWEN_PREFILL = dict(bh=48, sq=1024, skv=1024, d=128, q_offset=0, kv_group=6)
+QWEN_DECODE = dict(bh=48, sq=1, skv=1056, d=128, q_offset=1055, kv_group=6)
+
+
+@pytest.mark.parametrize("kw,dtype,body,grid,loops", [
+    (QWEN_PREFILL, "float32", "cuda_core", (32, 48), (("kv", 8),)),
+    (QWEN_PREFILL, "bfloat16", "tc_bf16", (48, 8), (("kv", 8),)),
+    (QWEN_DECODE, "float32", "split_kv", (17, 8), (("kv", 2), ("splits", 17))),
+    (QWEN_DECODE, "bfloat16", "split_kv", (17, 8), (("kv", 2), ("splits", 17))),
+])
+def test_plan_body_at_qwen2_serving_shapes(kw, dtype, body, grid, loops):
+    """Qwen2-1.5B at batch 4 (12 q heads over 2 kv heads, D 128): prefill of
+    1024 tokens takes the one-pass body of its dtype; decode against 1056
+    keys splits the keys of 8 kv heads 17 ways (136 blocks on 132 SMs) and
+    reads each kv head once for its 6 q heads."""
+    plan = tflash.flash_launch_plan(**kw, dtype=DTYPES[dtype][1])
+    assert (plan.body, plan.grid, plan.loops) == (body, grid, loops)
+    if body == "split_kv":
+        assert plan.launches == 2 and plan.threads == tflash.SPLIT_THREADS
+        scratch = {s.name: s for s in plan.scratch}
+        assert scratch["part_acc"].shape == (8, 17, 6, 128)
+        assert scratch["part_ml"].shape == (8, 17, 6, 2)
+        assert scratch["part_acc"].where == "device"
+    else:
+        assert plan.launches == 1
+        assert plan.threads == (tflash.TC_THREADS if body == "tc_bf16"
+                                else tflash.THREADS)
+
+
+@pytest.mark.parametrize("case,bodies", zip(ATTN_CASES, [
+    ("cuda_core", "tc_bf16"), ("split_kv", "split_kv"), ("cuda_core", "tc_bf16"),
+    ("split_kv", "split_kv"), ("split_kv", "split_kv")]))
+def test_plan_body_at_reference_cases(case, bodies):
+    """The reference's five cases: two are one-pass, three split (at most 64
+    rows of a kv head, and too few one-pass blocks to fill the card)."""
+    bh, sq, skv, d, causal, bq, bk = case
+    for dtype, body in zip((torch.float32, torch.bfloat16), bodies):
+        plan = tflash.flash_launch_plan(bh=bh, sq=sq, skv=skv, d=d, bq=bq,
+                                        bk=bk, causal=causal, dtype=dtype)
+        assert plan.body == body
+        if body == "split_kv":
+            assert plan.loops[1] == ("splits", tflash.split_keys(
+                hkv=bh, rows=plan.inputs[0].array_shape[1], skv=skv, d=d)[0])
+
+
+@pytest.mark.parametrize("hkv,rows,skv,d", [
+    (8, 6, 1056, 128), (8, 6, 1025, 128), (8, 48, 1056, 128), (1, 64, 8400, 256),
+    (2, 1, 256, 64), (1, 1, 10, 32), (132, 1, 4096, 64), (3, 20, 70, 32)])
+def test_split_keys_cover_the_keys_with_bounded_partials(hkv, rows, skv, d):
+    """Non-empty ranges that cover [0, skv); about a wave of blocks unless a
+    split would hold fewer than SPLIT_UNIT keys or its fp32 partials (rows x
+    (d + 2) words, written and read) would cost more than half the bytes of
+    the bf16 K and V it reads."""
+    splits, split_len = tflash.split_keys(hkv=hkv, rows=rows, skv=skv, d=d)
+    assert (splits - 1) * split_len < skv <= splits * split_len
+    units = -(-skv // tflash.SPLIT_UNIT)
+    assert 1 <= splits <= max(1, units)
+    assert splits == 1 or 2 * 4 * rows * (d + 2) * splits <= (2 * 2 * skv * d) // 2
+    if min(units, skv * d // (4 * rows * (d + 2))) * hkv >= tflash.SMS:
+        assert hkv * (splits + 1) >= tflash.SMS
+
+
+def test_split_kv_serving_path_matches_jax_decode():
+    """The public entry point at a decode shape takes split_kv on the CPU too
+    (its plain version with the plan's key ranges) and matches the JAX
+    reference."""
+    tq, tk, tv, want = _decode_case(1, 1056, "float32")
+    plan = tflash.flash_launch_plan(bh=6, sq=1, skv=1056, d=32, q_offset=1055,
+                                    kv_group=6)
+    assert plan.body == "split_kv" and plan.loops[1][1] > 1
+    got = tops.gqa_flash_attention(tq, tk, tv, causal=True, q_offset=1055)
+    _close(got, want, TOL["float32"])
+
+
+def test_split_wrapper_checks_rows_before_launching():
+    """A split launch holds every row of a kv head in one block: more than
+    SPLIT_ROWS raises before any library is loaded."""
+    q = torch.zeros(8, 16, 64)
+    kv = torch.zeros(1, 32, 64)
+    with pytest.raises(ValueError, match="at most 64 rows"):
+        tflash._flash_cuda(q, kv, kv, causal=True, q_offset=16, skv=32, splits=2)
+
+
+def test_plan_refuses_operands_of_another_dtype():
+    """The body is chosen for the plan's dtype; the CUDA callable refuses
+    operands of another dtype before any library is loaded."""
+    plan = tflash.flash_launch_plan(bh=4, sq=256, skv=256, d=64,
+                                    dtype=torch.bfloat16)
+    assert plan.body == "tc_bf16"
+    x = torch.zeros(plan.inputs[0].array_shape)
+    with pytest.raises(ValueError, match="chose its body for torch.bfloat16"):
+        plan.cuda(x, x, x)
