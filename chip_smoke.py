@@ -10,7 +10,13 @@
    main path's shapes, and times kernel, plain version, one library call
    (a yardstick the port never calls) and the card's lower bound:
      psum_matmul active/passive  4096 x 1536 x 8960 (the Qwen2-1.5B FFN
-                                 up-projection at 4096 tokens), fp32 and bf16
+                                 up-projection at 4096 tokens), fp32
+                                 (cuda_core body) and bf16 (tc_bf16 body);
+                                 kernel and torch.matmul times are replays
+                                 of a CUDA graph of 20 calls, so the 12
+                                 ctypes launches of a passive call do not
+                                 count; the passive rows add the bound of
+                                 their own C round trips
      conv2d_psum                 the 512 -> 512 3x3 layer of ResNet-18 at
                                  56 x 56 px under its exact_opt schedule,
                                  fp32 and bf16
@@ -23,19 +29,22 @@
                                  a CUDA graph of 20 calls, so the wrapper's
                                  Python does not count
    and runs the kernels' other cases at small shapes (every activation,
-   padded edges, odd channel blocks, stride 2, K in {1, 3, 7}; padded q and
+   padded edges, odd channel blocks, stride 2, K in {1, 3, 7}; for tc_bf16
+   ragged M, N and K, blocks of 64 and 128, a block under 64 rows, K of one
+   chunk, each plan's body checked; padded q and
    kv tails, decode, GQA, head dims 32 to 256, for each flash body; split_kv
    at Sq 1 and 8, GQA 4:1 and 6:1, fewer keys than a tile, keys not a
    multiple of the split)
-   against the plain versions on the CPU, and fails unless the flash
-   library's SASS holds tensor-core (HGMMA) instructions.
+   against the plain versions on the CPU, and fails unless the
+   psum_matmul and flash libraries' SASS hold tensor-core (HGMMA)
+   instructions.
 4. Drives the main paths, each with every launch count set to 0 just before
    it and read just after:
    a. ResNet-18 at full channel width
       (``NetworkGraph.from_cnn("resnet18").shrink(56, 1)``, exact_opt/active
       schedules at P = 2048 MACs) answers 4 seeded images through
       ``run_network_kernels``, and the GEMM above runs through ``ops.matmul``
-      under both controllers in fp32 and bf16;
+      under both controllers in fp32 (cuda_core) and bf16 (tc_bf16);
    b. ``repro_torch.launch.serve`` serves 8 requests of Qwen2-1.5B at full
       width (28 layers, bf16, seeded weights) in batches of 4, prompt 1024,
       32 generated tokens: every attention layer of prefill runs the flash
@@ -112,13 +121,14 @@ def main() -> None:
                 print(f"  {name}: {line.strip()}")
 
     cuobjdump = pathlib.Path(_build.nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(paths["flash_attention"])],
-                          capture_output=True, text=True, timeout=300,
-                          check=True).stdout
-    hgmma = sum("HGMMA" in line for line in sass.splitlines())
-    if not hgmma:
-        fail("flash_attention: no HGMMA instruction in the library's SASS")
-    print(f"flash_attention SASS: {hgmma} HGMMA instructions")
+    for name in ("psum_matmul", "flash_attention"):
+        sass = subprocess.run([str(cuobjdump), "-sass", str(paths[name])],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        hgmma = sum("HGMMA" in line for line in sass.splitlines())
+        if not hgmma:
+            fail(f"{name}: no HGMMA instruction in the library's SASS")
+        print(f"{name} SASS: {hgmma} HGMMA instructions")
 
     # 2. the card
     smi = subprocess.run(
@@ -159,10 +169,11 @@ def main() -> None:
     gen = torch.Generator(device="cpu").manual_seed(0)
     rows: dict[str, dict] = {}
 
-    # 3a. psum_matmul at the GEMM's planned blocks
+    # 3a. psum_matmul at the GEMM's planned blocks, as ops.matmul plans them
     wl = plan.MatmulWorkload(m=M, n=N, k=K)
-    sched = plan.plan(wl, plan.SMEM_BUDGET, "exhaustive_vmem", "active").schedule
+    sched = ops.matmul_schedule(M, K, N, vmem_budget=plan.SMEM_BUDGET)
     print(f"gemm {M}x{K}x{N}: blocks bm={sched.bm} bn={sched.bn} bk={sched.bk}")
+    body_for = {torch.float32: "cuda_core", torch.bfloat16: "tc_bf16"}
     gemm_in = {}
     for dtype in (torch.float32, torch.bfloat16):
         x = torch.randn(M, K, generator=gen).to(dev, dtype)
@@ -172,7 +183,11 @@ def main() -> None:
         for controller in ("active", "passive"):
             lp = psum_matmul.matmul_launch_plan(m=M, k=K, n=N, bm=sched.bm,
                                                 bn=sched.bn, bk=sched.bk,
-                                                controller=controller)
+                                                controller=controller,
+                                                dtype=dtype)
+            if lp.body != body_for[dtype]:
+                fail(f"{lp.name} {dname}: body {lp.body}, expected "
+                     f"{body_for[dtype]}")
             got = lp.cuda(x, w)
             want = lp.plain(x, w)
             torch.cuda.synchronize()
@@ -184,11 +199,23 @@ def main() -> None:
             b_ms, b_by = bound(float(wl.flops),
                                (M * K + K * N) * x.element_size() + M * N * out_size,
                                dtype)
-            stats = {"max_abs_err": err, "ms": time_ms(lambda: lp.cuda(x, w)),
+            stats = {"max_abs_err": err, "ms": graph_ms(lambda: lp.cuda(x, w)),
                      "plain_ms": time_ms(lambda: lp.plain(x, w)),
                      "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": time_ms(lambda: torch.matmul(x, w)),
+                     "library_ms": graph_ms(lambda: torch.matmul(x, w)),
+                     "eager_ms": time_ms(lambda: lp.cuda(x, w)),
+                     "eager_library_ms": time_ms(lambda: torch.matmul(x, w)),
+                     "body": lp.body, "threads": lp.threads,
+                     "smem_bytes": lp.smem_bytes,
                      "launches_per_call": lp.launches}
+            if controller == "passive":
+                # the passive schedule's own traffic: X and W once, and the
+                # fp32 C tile through device memory at every k-step,
+                # (2 gk - 1) M N words
+                s_ms, s_by = bound(float(wl.flops),
+                                   (M * K + K * N) * x.element_size()
+                                   + (2 * lp.launches - 1) * M * N * 4, dtype)
+                stats.update(spill_bound_ms=s_ms, spill_bound_by=s_by)
             print(f"{lp.name} {dname}: " + " ".join(
                 f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
                 for k, v in stats.items()))
@@ -258,6 +285,37 @@ def main() -> None:
                 if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
                     fail(f"psum_matmul {controller} {act} {dname} at 50x160x150")
                 cases += 1
+        # the 50 x 160 x 150 cases above take tc_bf16 in bf16 (a 32-row
+        # block, under one wgmma tile); these add ragged M, N and K at
+        # blocks of 64 and 128, and K of one chunk. W's blocks of 13
+        # columns start off 16 bytes, so that plan takes cuda_core.
+        if dtype == torch.bfloat16:
+            for (m_, k_, n_), (bm_, bn_, bk_), body in (
+                    ((200, 320, 300), (128, 128, 128), "tc_bf16"),
+                    ((200, 320, 300), (64, 128, 64), "tc_bf16"),
+                    ((100, 64, 72), (128, 128, 64), "tc_bf16"),
+                    ((8, 40, 24), (8, 8, 40), "tc_bf16"),
+                    ((70, 200, 104), (48, 13, 96), "cuda_core")):
+                xs = torch.randn(m_, k_, generator=gen).to(dtype)
+                ws = torch.randn(k_, n_, generator=gen).to(dtype)
+                for controller in ("active", "passive"):
+                    got_body = psum_matmul.matmul_launch_plan(
+                        m=m_, k=k_, n=n_, bm=bm_, bn=bn_, bk=bk_,
+                        controller=controller, dtype=dtype).body
+                    if got_body != body:
+                        fail(f"psum_matmul {(m_, k_, n_)} blocks "
+                             f"{(bm_, bn_, bk_)}: body {got_body}, expected {body}")
+                    for act in psum_matmul.ACTIVATIONS:
+                        kw = dict(bm=bm_, bn=bn_, bk=bk_, act=act,
+                                  controller=controller)
+                        got = psum_matmul.psum_matmul(xs.to(dev), ws.to(dev), **kw).cpu()
+                        want = psum_matmul.psum_matmul(xs, ws, **kw)
+                        tol = MATMUL_TOL[dname]
+                        if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+                            fail(f"psum_matmul {body} {controller} {act} at "
+                                 f"{(m_, k_, n_)} blocks {(bm_, bn_, bk_)}: max abs "
+                                 f"err {(got.float() - want.float()).abs().max().item()}")
+                        cases += 1
         for stride in (1, 2):
             for kk in (1, 3, 7):
                 hp = 9 + 2 * (kk // 2)
@@ -401,7 +459,17 @@ def main() -> None:
           f"versions on the CPU")
 
     # 4. the main path, counted (one image first, uncounted, loads every
-    #    kernel variant and warms the allocator)
+    #    kernel variant and warms the allocator). The GEMM's plans, as
+    #    ops.matmul makes them: bf16 on tc_bf16, fp32 on cuda_core.
+    for dtype in gemm_in:
+        for controller in ("active", "passive"):
+            s = ops.matmul_schedule(M, K, N, controller=controller,
+                                    vmem_budget=plan.SMEM_BUDGET)
+            body = psum_matmul.matmul_launch_plan(
+                m=M, k=K, n=N, bm=s.bm, bn=s.bn, bk=s.bk, controller=controller,
+                dtype=dtype).body
+            if body != body_for[dtype]:
+                fail(f"ops.matmul {controller} {dtype}: plan takes {body}")
     params = init_network_params(graph, seed=0, device=dev)
     images = [torch.randn(3, 56, 56, generator=torch.Generator().manual_seed(s))
               for s in range(IMAGES)]
@@ -638,6 +706,8 @@ def main() -> None:
             "max_abs_err": first["max_abs_err"], "ms": first["ms"],
             "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"], "library_ms": first["library_ms"],
+            **{k: first[k] for k in ("spill_bound_ms", "spill_bound_by")
+               if k in first},
             "dtype": "float32",
             "by_dtype": by_dtype})
     fl = rows["flash_attention"]

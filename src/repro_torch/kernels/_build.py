@@ -2,9 +2,9 @@
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds).
-Libraries are cached by the hash of their source and flags in
-``build/repro_torch_kernels/`` at the root of the checkout, which
-``.gitignore`` lists. `build` starts one ``nvcc`` per missing library, all
+Libraries are cached in ``build/repro_torch_kernels/`` at the root of the
+checkout, which ``.gitignore`` lists, by the hash of their source, the
+``csrc`` headers it includes (``hopper.cuh``) and the flags. `build` starts one ``nvcc`` per missing library, all
 at once, and waits for all of them.
 
 Every C entry point launches on the stream it is given, allocates nothing
@@ -18,6 +18,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 
@@ -26,6 +27,7 @@ SOURCES = ("psum_matmul", "conv2d_psum", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
@@ -46,10 +48,27 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def sources(name: str) -> list[str]:
+    """``<name>.cu`` and every ``csrc`` header it includes with
+    ``#include "..."``, directly or through another header."""
+    found, todo = [], [f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path not in found:
+            found.append(path)
+            todo.extend(_INCLUDE.findall((CSRC / path).read_text()))
+    return found
+
+
 def library_path(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return build_dir() / f"{name}-{digest[:16]}.so"
+    """The library's path in the cache, named by a digest of its source,
+    every header the source includes and the flags: a change to any of them
+    builds it anew."""
+    digest = hashlib.sha256()
+    for path in sources(name):
+        digest.update(path.encode() + b"\0" + (CSRC / path).read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names=SOURCES) -> dict[str, pathlib.Path]:

@@ -14,38 +14,58 @@
 //            (2*gk - 1)*M*N words for C, as the traffic model charges. The
 //            activation runs afterwards, outside the kernel.
 //
-// Bound on an H100: at the shapes of the main path (M=4096, K=1536, N=8960)
-// the product is compute-bound (about 500 flops per byte moved once in
-// fp32, 1,000 in bf16, against ridges of 20 and 295 on this card). This
-// first version runs on the fp32 CUDA cores for both fp32 and bf16 inputs:
+// Two bodies, chosen by `matmul_launch_plan` (src/repro_torch/kernels/
+// psum_matmul.py) from the dtype and the blocks, serve both controllers:
+//
+// tc_bf16 (bf16 with bm, bn <= 128 and bn, bk multiples of 8). TMA takes a
+// box only where its first column lies on a 16-byte boundary (a box of W at
+// column 13 faults with an illegal instruction), so the blocks' first
+// columns of X (multiples of bk) and of W (multiples of bn) must, and so
+// must the rows. At the main path's shapes (M=4096, K=1536, N=8960) the
+// active product is bound by tensor-core operations (about 1,000 flops per
+// byte moved once, against the card's ridge of 295); the passive schedule
+// is bound by the bytes of its C round trips (3.4 GB over 12 launches).
+//   block    the schedule's bm x bn tile. bm <= 64 takes one consumer
+//            warpgroup of 64 rows, else two; bn <= 64 takes wgmma n64, else
+//            n128. Rows and columns past bm and bn are computed from
+//            whatever the tile holds there and never stored. Two blocks
+//            share an SM, so one block's epilogue overlaps the other's
+//            products.
+//   loads    one producer warp, whose lane 0 issues TMA copies of k-chunks
+//            of 64 (one 128-byte swizzle span of bf16): a bm x 64 box of X
+//            and 64 x 64 boxes of W, into a ring of STAGES stages with full
+//            and empty mbarriers. The tensor maps end at k_end and at the
+//            padded rows and columns; TMA fills zeros past them.
+//   product  wgmma m64nBNk16, A = X K-major and B = W MN-major, both from
+//            shared memory; each warpgroup keeps its 64 x BN fp32 tile in
+//            registers for the whole k range, one wgmma group in flight.
+//   C        active: act(acc) rounded to bf16 and stored once. Passive:
+//            the fp32 tile is read into the accumulator fragment before
+//            the first chunk (skipped at k_begin == 0) and stored back.
+//
+// cuda_core (fp32, and bf16 outside tc_bf16's constraints): fp32 CUDA cores.
 // 256 threads each hold an 8 x 8 register tile of a 128 x 128 block tile,
-// fed from shared memory in k-chunks of 16. Tensor cores (wgmma) and TMA
-// staging are later work.
+// fed from shared memory in k-chunks of 16; bf16 is converted to fp32 as it
+// is staged. fp32 stays off the tensor cores: TF32 would not hold the
+// reference's 1e-3 tolerance.
 //
 // Operands arrive padded to block multiples: x (mp, kp), w (kp, np), row
 // major. C interface, loaded with ctypes; every entry point returns
-// cudaGetLastError() after its launch.
+// cudaGetLastError() after its launch. The Hopper building blocks (mbarriers,
+// TMA, wgmma) come from hopper.cuh.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int TILE = 128;      // the register tile: bm, bn <= TILE
-constexpr int KC = 16;         // k-chunk staged in shared memory per step
-constexpr int THREADS = 256;   // 16 x 16 threads
-constexpr int RT = 8;          // each thread: RT x RT outputs
-constexpr int APAD = 4;        // pad the transposed A tile against bank conflicts
+using namespace hopper;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
+constexpr int TILE = 128;   // bm, bn <= TILE in both bodies
 
 // 0 none, 1 relu, 2 silu, 3 gelu (tanh approximation, as jax.nn.gelu)
 __device__ __forceinline__ float activate(float v, int act) {
@@ -60,11 +80,28 @@ __device__ __forceinline__ float activate(float v, int act) {
   }
 }
 
+// -------------------------------------------------------------- cuda_core
+namespace core {
+
+constexpr int KC = 16;         // k-chunk staged in shared memory per step
+constexpr int THREADS = 256;   // 16 x 16 threads
+constexpr int RT = 8;          // each thread: RT x RT outputs
+constexpr int APAD = 4;        // pad the transposed A tile against bank conflicts
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
 template <typename T, bool PASSIVE>
 __global__ void __launch_bounds__(THREADS)
-psum_mm_kernel(const T* __restrict__ x, const T* __restrict__ w,
-               void* __restrict__ out, int np, int kp, int bm, int bn,
-               int k_begin, int k_end, int act) {
+psum_mm_core(const T* __restrict__ x, const T* __restrict__ w,
+             void* __restrict__ out, int np, int kp, int bm, int bn,
+             int k_begin, int k_end, int act) {
   __shared__ __align__(16) float As[KC][TILE + APAD];   // A chunk, transposed
   __shared__ __align__(16) float Bs[KC][TILE];
   const int row0 = blockIdx.y * bm;
@@ -151,32 +188,230 @@ void launch(const void* x, const void* w, void* out, int passive, int act,
   const T* xt = static_cast<const T*>(x);
   const T* wt = static_cast<const T*>(w);
   if (passive) {
-    psum_mm_kernel<T, true><<<grid, THREADS, 0, stream>>>(
+    psum_mm_core<T, true><<<grid, THREADS, 0, stream>>>(
         xt, wt, out, np, kp, bm, bn, k_begin, k_end, act);
   } else {
-    psum_mm_kernel<T, false><<<grid, THREADS, 0, stream>>>(
+    psum_mm_core<T, false><<<grid, THREADS, 0, stream>>>(
         xt, wt, out, np, kp, bm, bn, k_begin, k_end, act);
   }
 }
+
+}  // namespace core
+
+// ---------------------------------------------------------------- tc_bf16
+namespace tc {
+
+constexpr int KC = 64;         // k per staged chunk: 128 bytes of bf16
+constexpr int SW = 128;        // swizzle span, bytes
+constexpr int STAGES = 3;      // ring depth
+constexpr int MIN_BLOCKS = 2;  // blocks an SM holds at once: one's epilogue
+                               // overlaps the other's products
+
+template <int WGS, int BN>
+struct Cfg {
+  static constexpr int BM = 64 * WGS;            // rows the consumers cover
+  static constexpr int CONSUMERS = 128 * WGS;    // one warpgroup per 64 rows
+  static constexpr int THREADS = CONSUMERS + 32; // and one producer warp
+  static constexpr int A_BYTES = BM * SW;        // X: BM rows x 64 k
+  static constexpr int B_BYTES = BN * KC * 2;    // W: BN / 64 chunks of 64 k x 128 B
+  // 1024 bytes of slack to align the stages to the swizzle pattern, the
+  // stages, then the barriers full[STAGES] and empty[STAGES]
+  static constexpr int SMEM = 1024 + STAGES * (A_BYTES + B_BYTES) + 16 * STAGES;
+};
+
+template <int WGS, int BN, bool PASSIVE>
+__global__ void __launch_bounds__(Cfg<WGS, BN>::THREADS, MIN_BLOCKS)
+psum_mm_tc(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
+           void* __restrict__ out, int np, int bm, int bn, int k_begin, int k_end, int act) {
+  using C = Cfg<WGS, BN>;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* as = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* bs = as + STAGES * C::A_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(bs + STAGES * C::B_BYTES);
+  uint64_t* empty = full + STAGES;
+
+  const int row0 = blockIdx.y * bm, col0 = blockIdx.x * bn;
+  const int n_chunks = (k_end - k_begin + KC - 1) / KC;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, C::CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= C::CONSUMERS) {
+    // producer warp: its lane 0 issues every copy, chunk i into stage
+    // i % STAGES once the consumers have freed it
+    if (threadIdx.x == C::CONSUMERS) {
+      const int bytes = bm * SW + C::B_BYTES;
+      for (int i = 0; i < n_chunks; ++i) {
+        const int s = i % STAGES;
+        if (i >= STAGES) mbar_wait(empty + s, ((i / STAGES) - 1) & 1);
+        const int k0 = k_begin + i * KC;
+        mbar_expect_tx(full + s, bytes);
+        tma_load_2d(as + s * C::A_BYTES, &tx, k0, row0, full + s);
+#pragma unroll
+        for (int c = 0; c < BN / 64; ++c)
+          tma_load_2d(bs + s * C::B_BYTES + c * KC * SW, &tw, col0 + 64 * c, k0, full + s);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg owns tile rows 64 wg .. 64 wg + 63; in the wgmma
+  // fragment a thread holds rows r and r + 8 of them, columns 8j + c2 and
+  // 8j + c2 + 1
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128, lane = tid % 32;
+  const int r = wg * 64 + (tid / 32) * 16 + lane / 4;
+  const int c2 = (lane % 4) * 2;   // even, and bn a multiple of 8: a pair is
+                                   // in the tile or out of it
+
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  if (PASSIVE && k_begin > 0) {
+    // read-before-update: the partial sums come back from device memory
+    const float* c = static_cast<const float*>(out);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (r + 8 * h >= bm) continue;
+      const float* crow = c + (size_t)(row0 + r + 8 * h) * np + col0;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = 8 * j + c2;
+        if (col < bn) {
+          const float2 v = *reinterpret_cast<const float2*>(crow + col);
+          acc[4 * j + 2 * h] = v.x;
+          acc[4 * j + 2 * h + 1] = v.y;
+        }
+      }
+    }
+  }
+
+  for (int i = 0; i < n_chunks; ++i) {
+    const int s = i % STAGES;
+    mbar_wait(full + s, (i / STAGES) & 1);
+    const uint32_t a_tile = smem_u32(as + s * C::A_BYTES) + wg * 64 * SW;
+    const uint32_t b_tile = smem_u32(bs + s * C::B_BYTES);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KC / 16; ++kk)
+      // A: k-step kk is 32 bytes into each 128-byte row; 8-row groups 1024
+      // bytes apart. B: k-step kk is 16 rows further; 8-row groups 1024
+      // bytes apart, the 64-column chunks KC * SW bytes apart.
+      Wgmma<BN>::template ss<1>(acc, mat_desc<SW>(a_tile + kk * 32, 16, 8 * SW),
+                                mat_desc<SW>(b_tile + kk * 16 * SW, KC * SW, 8 * SW), 1);
+    wgmma_commit();
+    wgmma_wait<1>();   // the previous chunk's products are done: free its stage
+    fence_regs(acc);
+    if (i > 0) mbar_arrive(empty + (i - 1) % STAGES);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (r + 8 * h >= bm) continue;
+    const size_t at = (size_t)(row0 + r + 8 * h) * np + col0;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = 8 * j + c2;
+      if (col >= bn) continue;
+      const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+      if (PASSIVE)
+        *reinterpret_cast<float2*>(static_cast<float*>(out) + at + col) = make_float2(v0, v1);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) + at + col) =
+            __floats2bfloat162_rn(activate(v0, act), activate(v1, act));
+    }
+  }
+}
+
+// The tensor map of a (rows, cols) row-major bf16 array with `ld` elements
+// a row: boxes of box_rows rows by 64 columns (one 128-byte swizzle span),
+// zero-filled past the array's rows and columns.
+int tensor_map_2d(CUtensorMap* map, const void* base, int rows, int cols, int ld,
+                  int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return (int)cudaErrorSymbolNotFound;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)(SW / 2), (cuuint32_t)box_rows};
+  const cuuint32_t step[2] = {1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+                              dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int WGS, int BN>
+int launch(const void* x, const void* w, void* out, int passive, int act, int mp, int np,
+           int kp, int bm, int bn, int k_begin, int k_end, cudaStream_t stream) {
+  using C = Cfg<WGS, BN>;
+  // X's columns and W's rows end at k_end: the chunk past it reads zeros
+  CUtensorMap tx, tw;
+  int rc = tensor_map_2d(&tx, x, mp, k_end, kp, bm);
+  if (!rc) rc = tensor_map_2d(&tw, w, k_end, np, np, KC);
+  static bool configured[2] = {false, false};
+  if (!rc) rc = passive ? allow_smem(psum_mm_tc<WGS, BN, true>, C::SMEM, configured[1])
+                        : allow_smem(psum_mm_tc<WGS, BN, false>, C::SMEM, configured[0]);
+  if (rc) return rc;
+  const dim3 grid(np / bn, mp / bm);
+  if (passive)
+    psum_mm_tc<WGS, BN, true><<<grid, C::THREADS, C::SMEM, stream>>>(
+        tx, tw, out, np, bm, bn, k_begin, k_end, act);
+  else
+    psum_mm_tc<WGS, BN, false><<<grid, C::THREADS, C::SMEM, stream>>>(
+        tx, tw, out, np, bm, bn, k_begin, k_end, act);
+  return (int)cudaGetLastError();
+}
+
+int launch_blocks(const void* x, const void* w, void* out, int passive, int act, int mp,
+                  int np, int kp, int bm, int bn, int k_begin, int k_end, cudaStream_t s) {
+  if (bm <= 64 && bn <= 64)
+    return launch<1, 64>(x, w, out, passive, act, mp, np, kp, bm, bn, k_begin, k_end, s);
+  if (bm <= 64)
+    return launch<1, 128>(x, w, out, passive, act, mp, np, kp, bm, bn, k_begin, k_end, s);
+  if (bn <= 64)
+    return launch<2, 64>(x, w, out, passive, act, mp, np, kp, bm, bn, k_begin, k_end, s);
+  return launch<2, 128>(x, w, out, passive, act, mp, np, kp, bm, bn, k_begin, k_end, s);
+}
+
+}  // namespace tc
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 float32, 1 bfloat16. passive: 0 -> out is (mp, np) in the input
-// type; 1 -> out is the (mp, np) float32 partial sums, updated in place over
-// [k_begin, k_end).
-int psum_matmul_launch(const void* x, const void* w, void* out, int dtype,
+// dtype: 0 float32, 1 bfloat16. body: 0 cuda_core, 1 tc_bf16 (bfloat16
+// only; bn, kp, np and k_begin multiples of 8; x, w and out 16-byte
+// aligned). passive: 0 ->
+// out is (mp, np) in the input type; 1 -> out is the (mp, np) float32
+// partial sums, updated in place over [k_begin, k_end).
+int psum_matmul_launch(const void* x, const void* w, void* out, int dtype, int body,
                        int passive, int act, int mp, int np, int kp, int bm,
                        int bn, int k_begin, int k_end, void* stream) {
   if (bm < 1 || bm > TILE || bn < 1 || bn > TILE || mp % bm || np % bn ||
-      k_begin < 0 || k_end > kp || k_begin >= k_end || act < 0 || act > 3)
+      mp / bm > 65535 || k_begin < 0 || k_end > kp || k_begin >= k_end ||
+      act < 0 || act > 3)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (body == 1) {
+    if (dtype != 1 || bn % 8 || kp % 8 || np % 8 || k_begin % 8 || !aligned16(x) ||
+        !aligned16(w) || !aligned16(out))
+      return (int)cudaErrorInvalidValue;
+    return tc::launch_blocks(x, w, out, passive, act, mp, np, kp, bm, bn, k_begin, k_end, s);
+  }
+  if (body != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0) {
-    launch<float>(x, w, out, passive, act, mp, np, kp, bm, bn, k_begin, k_end, s);
+    core::launch<float>(x, w, out, passive, act, mp, np, kp, bm, bn, k_begin, k_end, s);
   } else if (dtype == 1) {
-    launch<__nv_bfloat16>(x, w, out, passive, act, mp, np, kp, bm, bn, k_begin, k_end, s);
+    core::launch<__nv_bfloat16>(x, w, out, passive, act, mp, np, kp, bm, bn, k_begin, k_end, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

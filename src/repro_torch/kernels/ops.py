@@ -16,24 +16,31 @@ from repro_torch.kernels import psum_matmul as _mm
 from repro_torch.plan import gemm_model as _gemm
 
 
-def matmul(x: torch.Tensor, w: torch.Tensor, *, act: str = "none",
-           controller: str = "active",
-           vmem_budget: int | None = None) -> torch.Tensor:
-    """Partial-sum-scheduled GEMM with planner-chosen blocks. The budget is
-    the bytes one block may hold on chip (default: one H100 block's shared
-    memory)."""
-    m, k = x.shape
-    n = w.shape[1]
+def matmul_schedule(m: int, k: int, n: int, *, controller: str = "active",
+                    vmem_budget: int | None = None) -> _plan.Schedule:
+    """The GEMM schedule `matmul` runs: the planner's exhaustive blocks under
+    the budget (the bytes one block may hold on chip; default one H100
+    block's shared memory), clamped to the rounded-up problem so tiny
+    shapes keep tiny grids."""
     wl = _plan.MatmulWorkload(m=m, n=n, k=k)
     sched = _gemm.plan_gemm(
         wl, vmem_budget if vmem_budget is not None else _plan.SMEM_BUDGET,
         _plan.Strategy.EXHAUSTIVE_VMEM, _plan.Controller.coerce(controller),
         max_block=512)
-    # clamp to the (rounded-up) problem so tiny shapes keep tiny grids
-    sched = dataclasses.replace(
+    return dataclasses.replace(
         sched, bm=min(sched.bm, _round_up(m, 8)),
         bn=min(sched.bn, _round_up(n, 128)),
         bk=min(sched.bk, _round_up(k, 128)))
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor, *, act: str = "none",
+           controller: str = "active",
+           vmem_budget: int | None = None) -> torch.Tensor:
+    """Partial-sum-scheduled GEMM with planner-chosen blocks
+    (`matmul_schedule`); `psum_matmul` picks the kernel body from the
+    blocks and the operands' dtype."""
+    sched = matmul_schedule(x.shape[0], x.shape[1], w.shape[1],
+                            controller=controller, vmem_budget=vmem_budget)
     return _mm.psum_matmul(x, w, schedule=sched, act=act)
 
 
