@@ -19,7 +19,12 @@
                                  their own C round trips
      conv2d_psum                 the 512 -> 512 3x3 layer of ResNet-18 at
                                  56 x 56 px under its exact_opt schedule,
-                                 fp32 and bf16
+                                 fp32 (cuda_core body) and bf16 (tc_bf16
+                                 body), the pack pass included; kernel and
+                                 cuDNN times are graph replays, eager
+                                 times beside them; then every ResNet-18
+                                 layer in both bodies against the plain
+                                 version, timed
      flash_attention             Qwen2-1.5B's attention (12 q heads over 2
                                  kv heads, head dim 128, batch 4): prefill
                                  at 1024 tokens (tc_bf16 / cuda_core body)
@@ -29,21 +34,24 @@
                                  a CUDA graph of 20 calls, so the wrapper's
                                  Python does not count
    and runs the kernels' other cases at small shapes (every activation,
-   padded edges, odd channel blocks, stride 2, K in {1, 3, 7}; for tc_bf16
+   padded edges, odd channel blocks, stride 2, K in {1, 3, 7}; for the conv
+   blocks of n in {8, 13, 17, 24, 64} and 1x1 blocks of 1280 and 2048
+   channels, wider than one thread block; for tc_bf16
    ragged M, N and K, blocks of 64 and 128, a block under 64 rows, K of one
    chunk, each plan's body checked; padded q and
-   kv tails, decode, GQA, head dims 32 to 256, for each flash body; split_kv
-   at Sq 1 and 8, GQA 4:1 and 6:1, fewer keys than a tile, keys not a
-   multiple of the split)
+   kv tails, decode, GQA, head dims 32 to 256 and StableLM-12B's 160 (padded
+   to 256), for each flash body; split_kv at Sq 1 and 8, GQA 4:1 and 6:1,
+   fewer keys than a tile, keys not a multiple of the split)
    against the plain versions on the CPU, and fails unless the
-   psum_matmul and flash libraries' SASS hold tensor-core (HGMMA)
-   instructions.
+   psum_matmul, conv2d_psum and flash libraries' SASS hold tensor-core
+   (HGMMA) instructions.
 4. Drives the main paths, each with every launch count set to 0 just before
    it and read just after:
    a. ResNet-18 at full channel width
       (``NetworkGraph.from_cnn("resnet18").shrink(56, 1)``, exact_opt/active
       schedules at P = 2048 MACs) answers 4 seeded images through
-      ``run_network_kernels``, and the GEMM above runs through ``ops.matmul``
+      ``run_network_kernels`` (fp32: every conv on the cuda_core body and
+      its pack pass), and the GEMM above runs through ``ops.matmul``
       under both controllers in fp32 (cuda_core) and bf16 (tc_bf16);
    b. ``repro_torch.launch.serve`` serves 8 requests of Qwen2-1.5B at full
       width (28 layers, bf16, seeded weights) in batches of 4, prompt 1024,
@@ -121,7 +129,7 @@ def main() -> None:
                 print(f"  {name}: {line.strip()}")
 
     cuobjdump = pathlib.Path(_build.nvcc()).with_name("cuobjdump")
-    for name in ("psum_matmul", "flash_attention"):
+    for name in ("psum_matmul", "conv2d_psum", "flash_attention"):
         sass = subprocess.run([str(cuobjdump), "-sass", str(paths[name])],
                               capture_output=True, text=True, timeout=300,
                               check=True).stdout
@@ -243,11 +251,18 @@ def main() -> None:
     wcp = torch.nn.functional.pad(
         wc, (0, 0, 0, 0, 0, cp.inputs[1].array_shape[1] - cw.cin,
              0, cp.inputs[1].array_shape[0] - cw.cout)).contiguous()
-    print(f"conv {cw.name} {cw.cin}->{cw.cout} k{cw.k} at {cw.hi}px: "
-          f"m={big.schedule.m} n={big.schedule.n} grid={cp.grid} "
-          f"threads={cp.threads} smem={cp.smem_bytes}")
+    conv_body = {torch.float32: "cuda_core", torch.bfloat16: "tc_bf16"}
     for dtype, tol in ((torch.float32, CONV_TOL), (torch.bfloat16, 5e-2)):
         dname = str(dtype).removeprefix("torch.")
+        cp = conv2d_psum.conv_launch_plan(
+            cin=cw.cin, hp=cw.hi + 2 * pad, wp=cw.wi + 2 * pad, cout=cw.cout,
+            kk=cw.k, block_m=big.schedule.m, block_n=big.schedule.n, dtype=dtype)
+        print(f"conv {cw.name} {cw.cin}->{cw.cout} k{cw.k} at {cw.hi}px {dname}: "
+              f"m={big.schedule.m} n={big.schedule.n} body={cp.body} "
+              f"grid={cp.grid} threads={cp.threads} smem={cp.smem_bytes} "
+              f"loops={cp.loops}")
+        if cp.body != conv_body[dtype]:
+            fail(f"conv2d_psum {dname}: body {cp.body}, expected {conv_body[dtype]}")
         xd, wd, xpd, wpd = (t.to(dtype) for t in (xc, wc, xcp, wcp))
         got = cp.cuda(xpd, wpd)
         want = cp.plain(xpd, wpd)
@@ -257,12 +272,16 @@ def main() -> None:
             fail(f"conv2d_psum {dname}: kernel vs plain max abs err {err}")
         b_ms, b_by = bound(2.0 * cw.macs, xd.element_size() * (
             xd.numel() + wd.numel() + cw.cout * cw.ho * cw.wo), dtype)
-        stats = {"max_abs_err": err, "ms": time_ms(lambda: cp.cuda(xpd, wpd)),
+        def cudnn():
+            return torch.nn.functional.conv2d(xd[None], wd)
+        stats = {"max_abs_err": err, "ms": graph_ms(lambda: cp.cuda(xpd, wpd)),
                  "plain_ms": time_ms(lambda: cp.plain(xpd, wpd)),
                  "bound_ms": b_ms, "bound_by": b_by,
-                 "library_ms": time_ms(
-                     lambda: torch.nn.functional.conv2d(xd[None], wd)),
-                 "launches_per_call": cp.launches}
+                 "library_ms": graph_ms(cudnn),
+                 "eager_ms": time_ms(lambda: cp.cuda(xpd, wpd), reps=20),
+                 "eager_library_ms": time_ms(cudnn, reps=20),
+                 "body": cp.body, "threads": cp.threads,
+                 "smem_bytes": cp.smem_bytes, "launches_per_call": cp.launches}
         print(f"conv2d_psum {dname}: " + " ".join(
             f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
             for k, v in stats.items()))
@@ -316,18 +335,35 @@ def main() -> None:
                                  f"{(m_, k_, n_)} blocks {(bm_, bn_, bk_)}: max abs "
                                  f"err {(got.float() - want.float()).abs().max().item()}")
                         cases += 1
-        for stride in (1, 2):
-            for kk in (1, 3, 7):
-                hp = 9 + 2 * (kk // 2)
-                xs = torch.randn(30, hp, hp, generator=gen).to(dtype)
-                ws = torch.randn(40, 30, kk, kk, generator=gen).to(dtype)
-                kw = dict(block_m=13, block_n=17, stride=stride, act="silu")
-                got = conv2d_psum.conv2d_psum(xs.to(dev), ws.to(dev), **kw).cpu()
-                want = conv2d_psum.conv2d_psum(xs, ws, **kw)
-                tol = CONV_TOL if dtype == torch.float32 else 5e-2
-                if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
-                    fail(f"conv2d_psum stride {stride} k{kk} {dname}")
-                cases += 1
+        # conv: stride 1 and 2, K in {1, 3, 7}, every activation at (13, 17)
+        # blocks; blocks of n in {8, 13, 17, 24, 64} over ragged cout; 1x1
+        # blocks of 1280 and 2048 channels, wider than one thread block
+        conv_cases = [(30, 40, kk, 9, stride, 13, 17, act) for stride in (1, 2)
+                      for kk in (1, 3, 7) for act in psum_matmul.ACTIVATIONS]
+        conv_cases += [(40, 2 * n + 3, 3, 12, 1, 20, n, "relu")
+                       for n in (8, 13, 17, 24, 64)]
+        conv_cases += [(64, 1280, 1, 7, 1, 64, 1280, "gelu"),
+                       (48, 2048, 1, 5, 1, 48, 2048, "none")]
+        for cin, cout, kk, hw, stride, bm, bn, act in conv_cases:
+            hp = hw + 2 * (kk // 2)
+            xs = torch.randn(cin, hp, hp, generator=gen).to(dtype)
+            ws = (torch.randn(cout, cin, kk, kk, generator=gen)
+                  / (cin * kk * kk) ** 0.5).to(dtype)
+            kw = dict(block_m=bm, block_n=bn, stride=stride, act=act)
+            body = conv2d_psum.conv_launch_plan(
+                cin=cin, hp=hp, wp=hp, cout=cout, kk=kk, stride=stride,
+                block_m=bm, block_n=bn, act=act, dtype=dtype).body
+            if body != conv_body[dtype]:
+                fail(f"conv2d_psum {(cin, cout, kk, stride, bm, bn)} {dname}: "
+                     f"body {body}")
+            got = conv2d_psum.conv2d_psum(xs.to(dev), ws.to(dev), **kw).cpu()
+            want = conv2d_psum.conv2d_psum(xs, ws, **kw)
+            tol = CONV_TOL if dtype == torch.float32 else 5e-2
+            if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+                fail(f"conv2d_psum {body} {(cin, cout, kk, hw, stride, bm, bn, act)} "
+                     f"{dname}: max abs err "
+                     f"{(got.float() - want.float()).abs().max().item()}")
+            cases += 1
     # 3d. flash_attention at Qwen2-1.5B's serving shapes
     qcfg = get_config(SERVE_ARCH)
     hq, hkv, hd = qcfg.n_heads, qcfg.n_kv_heads, qcfg.hd
@@ -387,7 +423,8 @@ def main() -> None:
     flash_small = [(2, 128, 128, 64, True, 64, 64, 1), (1, 64, 64, 32, False, 32, 32, 1),
                    (3, 100, 100, 64, True, 32, 32, 1), (2, 1, 256, 64, True, 1, 64, 1),
                    (2, 8, 384, 128, True, 8, 128, 1), (1, 17, 17, 32, True, 16, 32, 1),
-                   (8, 20, 52, 64, True, 16, 16, 4), (2, 40, 40, 256, True, 16, 16, 1)]
+                   (8, 20, 52, 64, True, 16, 16, 4), (2, 40, 40, 256, True, 16, 16, 1),
+                   (8, 200, 200, 160, True, 128, 128, 4)]
     for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         for bh, sq, skv, d, causal, bq, bk, grp in flash_small:
             q = torch.randn(bh, sq, d, generator=gen).to(dtype)
@@ -408,7 +445,8 @@ def main() -> None:
     tc_small = [(2, 128, 128, 32, True, 1), (2, 128, 128, 64, True, 1),
                 (2, 128, 128, 128, True, 1), (2, 512, 512, 256, True, 1),
                 (4, 300, 300, 128, True, 2), (4, 256, 256, 128, False, 1),
-                (2, 256, 1000, 128, True, 2), (200, 64, 64, 64, True, 1)]
+                (2, 256, 1000, 128, True, 2), (200, 64, 64, 64, True, 1),
+                (8, 300, 300, 160, True, 4)]
     for bh, sq, skv, d, causal, grp in tc_small:
         q_off = skv - sq if causal else 0
         tp = flash_attention.flash_launch_plan(bh=bh, sq=sq, skv=skv, d=d,
@@ -434,7 +472,7 @@ def main() -> None:
     #     head dims 64 to 256; each call must take the split_kv body
     split_small = [(1, 20, 64, 4), (8, 20, 128, 6), (1, 1001, 128, 6),
                    (8, 1001, 256, 4), (1, 300, 256, 6), (8, 77, 64, 4),
-                   (1, 1056, 128, 4), (8, 1056, 64, 6)]
+                   (1, 1056, 128, 4), (8, 1056, 64, 6), (1, 1056, 160, 4)]
     for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         for sq, skv, d, grp in split_small:
             bh, q_off = 2 * grp, skv - sq
@@ -498,8 +536,8 @@ def main() -> None:
 
     convs = len(graph.workload_nodes)
     gk = -(-K // sched.bk)
-    expect = {"conv2d_psum": convs * IMAGES, "psum_matmul/active": 2,
-              "psum_matmul/passive": 2 * gk}
+    expect = {"conv2d_psum": convs * IMAGES, "conv2d_psum/pack": convs * IMAGES,
+              "psum_matmul/active": 2, "psum_matmul/passive": 2 * gk}
     for name, n in expect.items():
         if counts.get(name, 0) != n:
             fail(f"{name} launched {counts.get(name, 0)} times on the main "
@@ -547,7 +585,7 @@ def main() -> None:
         wall = 1e3 * (time.perf_counter() - t0)
     # busy time sums the kernels themselves: a CPU op such as aten::cat
     # also reports the device time of the kernels it launched
-    busy, all_events, conv_busy = 0.0, 0.0, 0.0
+    busy, all_events, conv_busy, pack_busy = 0.0, 0.0, 0.0, 0.0
     for evt in prof.key_averages():
         dev_us = getattr(evt, "self_device_time_total", None)
         if dev_us is None:
@@ -556,25 +594,49 @@ def main() -> None:
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
         busy += dev_us / 1e3
-        if "conv_kernel" in evt.key:
+        if "conv_core" in evt.key or "conv_tc" in evt.key:
             conv_busy += dev_us / 1e3
+        elif "::pack" in evt.key:
+            pack_busy += dev_us / 1e3
     median_ms = sorted(image_ms)[len(image_ms) // 2]
     print(f"profile (one image): device busy {busy:.3f} ms (kernel events; "
           f"{all_events:.3f} ms summed over all events), conv2d_psum kernels "
-          f"{conv_busy:.3f} ms ({conv_busy / busy:.3f} of busy); wall "
+          f"{conv_busy:.3f} ms ({conv_busy / busy:.3f} of busy) and their pack "
+          f"passes {pack_busy:.3f} ms ({pack_busy / busy:.3f}); wall "
           f"{wall:.3f} ms profiled, {median_ms:.3f} ms unprofiled (median "
           f"image); idle share of the unprofiled wall {1 - busy / median_ms:.3f}")
+    # every layer in both bodies: held against the plain version on the
+    # same inputs, and timed (graph replays, the pack pass included)
+    layer_ms = {"float32": 0.0, "bfloat16": 0.0}
     for node, p in zip(graph.workload_nodes, plans):
         wl, pad = node.workload, node.workload.k // 2
-        lp = conv2d_psum.conv_launch_plan(
-            cin=wl.cin, hp=wl.hi + 2 * pad, wp=wl.wi + 2 * pad, cout=wl.cout,
-            kk=wl.k, block_m=p.schedule.m, block_n=p.schedule.n)
-        xl = torch.zeros(lp.inputs[0].array_shape, device=dev)
-        wt = torch.zeros(lp.inputs[1].array_shape, device=dev)
-        ms = time_ms(lambda: lp.cuda(xl, wt), reps=10)
-        print(f"layer {node.name}: {wl.cin}->{wl.cout} k{wl.k} m={p.schedule.m} "
-              f"n={p.schedule.n} grid={lp.grid} threads={lp.threads} "
-              f"ms={ms:.4f} gflops={2e-6 * wl.macs / ms:.1f}")
+        for dtype, tol in ((torch.float32, CONV_TOL), (torch.bfloat16, 5e-2)):
+            dname = str(dtype).removeprefix("torch.")
+            lp = conv2d_psum.conv_launch_plan(
+                cin=wl.cin, hp=wl.hi + 2 * pad, wp=wl.wi + 2 * pad, cout=wl.cout,
+                kk=wl.k, block_m=p.schedule.m, block_n=p.schedule.n, dtype=dtype)
+            if lp.body != conv_body[dtype]:
+                fail(f"layer {node.name} {dname}: body {lp.body}")
+            xl = torch.randn(lp.inputs[0].array_shape, generator=gen).to(dev, dtype)
+            wt = (torch.randn(lp.inputs[1].array_shape, generator=gen)
+                  / (wl.cin * wl.k ** 2) ** 0.5).to(dev, dtype)
+            got, want = lp.cuda(xl, wt), lp.plain(xl, wt)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+                fail(f"layer {node.name} {dname}: kernel vs plain max abs err {err}")
+            ms = graph_ms(lambda: lp.cuda(xl, wt))
+            lib = graph_ms(lambda: torch.nn.functional.conv2d(
+                xl[None, :wl.cin], wt[:wl.cout, :wl.cin]))
+            layer_ms[dname] += ms
+            print(f"layer {node.name} {dname}: {wl.cin}->{wl.cout} k{wl.k} "
+                  f"m={p.schedule.m} n={p.schedule.n} body={lp.body} "
+                  f"grid={lp.grid} threads={lp.threads} smem={lp.smem_bytes} "
+                  f"ms={ms:.4f} cudnn_ms={lib:.4f} tflops={2e-9 * wl.macs / ms:.2f} "
+                  f"max_abs_err={err:.3g}")
+            del got, want, xl, wt
+    print(f"layers summed (graph replays): fp32 {layer_ms['float32']:.4f} ms, "
+          f"bf16 {layer_ms['bfloat16']:.4f} ms")
 
     for (dtype, controller), y in gemm_out.items():
         x, w = gemm_in[dtype]
@@ -708,7 +770,10 @@ def main() -> None:
             "bound_by": first["bound_by"], "library_ms": first["library_ms"],
             **{k: first[k] for k in ("spill_bound_ms", "spill_bound_by")
                if k in first},
+            **({"pack_launches": counts["conv2d_psum/pack"]}
+               if name == "conv2d_psum" else {}),
             "dtype": "float32",
+            "body_by_dtype": {d: v["body"] for d, v in by_dtype.items()},
             "by_dtype": by_dtype})
     fl = rows["flash_attention"]
     head = fl["prefill"]["bfloat16"]            # the serving path's dtype

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.conv2d_psum import conv2d_psum
+from repro_torch.kernels.conv2d_psum import conv2d_psum, conv_refusal
 from repro_torch.kernels.launch import resolve_device
 from repro_torch.kernels.ref import conv2d_ref
 
@@ -54,8 +54,9 @@ def check_network(graph, schedules: Mapping, params: Mapping,
                   inputs: Mapping | None = None) -> None:
     """Reject a plan the runner cannot execute, before the first launch:
     a conv node without a schedule or weights, weights of the wrong shape, a
-    grouped conv, a conv that is not "same"-padded, or an input of the wrong
-    shape."""
+    grouped conv, a conv that is not "same"-padded, a schedule no kernel
+    body takes at the runner's float32 (`conv2d_psum.conv_refusal`), or an
+    input of the wrong shape."""
     problems = []
     for name, value in (inputs or {}).items():
         t = graph.tensors.get(name)
@@ -70,6 +71,14 @@ def check_network(graph, schedules: Mapping, params: Mapping,
         elif schedules[node.name].kind != "conv":
             problems.append(f"{node.name}: needs a conv schedule, got "
                             f"{schedules[node.name]}")
+        else:
+            sched, pad = schedules[node.name], wl.k // 2
+            refusal = conv_refusal(cin=wl.cin, hp=wl.hi + 2 * pad,
+                                   wp=wl.wi + 2 * pad, cout=wl.cout, kk=wl.k,
+                                   stride=wl.stride, block_m=sched.m,
+                                   block_n=sched.n, dtype=torch.float32)
+            if refusal:
+                problems.append(f"{node.name}: {refusal}")
         if node.name not in params:
             problems.append(f"{node.name}: conv node has no weights")
         elif tuple(params[node.name].shape) != (wl.cout, wl.cin, wl.k, wl.k):

@@ -24,6 +24,13 @@ On a CPU tensor it runs `flash_plain`, the reference's kv-block loop in
 plain PyTorch, with the same key ranges and combine as ``split_kv`` when the
 plan splits.
 
+Head dims: the CUDA kernels are built for HEAD_DIMS. A call at another d up
+to the widest (StableLM-12B's 160) is zero-padded in the wrapper to the next
+built dim (`built_head_dim`) and the output sliced back; the softmax scale
+stays 1/sqrt(d) of the logical d, and zero columns add nothing to q k^T or
+to the output's kept columns. The plan lists the padded copies as device
+scratch. At d = 160 that costs 256 / 160 = 1.6 x the arithmetic.
+
 GQA: k and v may carry fewer heads than q. With ``kv_group = g`` query head
 ``bh`` reads kv head ``bh // g``; for a (B, Hq) head layout with Hq = g * Hkv
 that is head ``h // g`` of the same batch row, so no kv head is copied.
@@ -81,6 +88,13 @@ def _entry_points() -> dict:
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
         fns[name] = fn
     return fns
+
+
+def built_head_dim(d: int) -> int:
+    """The head dim the CUDA kernels run a call of head dim d at: the
+    narrowest of HEAD_DIMS that holds it, or d itself past the widest
+    (which the wrapper then refuses)."""
+    return next((b for b in HEAD_DIMS if b >= d), d)
 
 
 def smem_floats(d: int) -> int:
@@ -220,22 +234,41 @@ def flash_plain(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor, *,
 def _flash_cuda(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor, *,
                 causal: bool, q_offset: int, skv: int, splits: int = 0,
                 dtype: torch.dtype | None = None) -> torch.Tensor:
-    """Launch the Hopper kernels over padded operands. ``splits = 0``: one
-    pass, the cuda_core body for float32 and tc_bf16 for bfloat16. Else
-    split_kv: pass 1 over `splits` key ranges into fp32 partials allocated
-    here, then the combine (counted as ``flash_attention/combine``).
-    ``dtype``, where given, is the dtype the launch plan chose its body for:
-    operands of another dtype raise."""
+    """Launch the Hopper kernels at the built head dim of the operands' d:
+    zero-pad q, k and v to it, keep the scale of the logical d, and slice
+    the output back. ``dtype``, where given, is the dtype the launch plan
+    chose its body for: operands of another dtype raise, before any copy or
+    library load."""
     name = "flash_attention"
     launch.check_operands(name, qp, kp, vp, dtypes=DTYPE_CODES)
     if dtype is not None and qp.dtype != dtype:
         raise ValueError(f"{name}: the plan chose its body for {dtype}, got "
                          f"{qp.dtype} operands")
-    bh, sq_p, d = qp.shape
+    d = qp.shape[-1]
+    d_run = built_head_dim(d)
+    if d_run == d:
+        return _flash_launch(qp, kp, vp, causal=causal, q_offset=q_offset,
+                             skv=skv, splits=splits, d=d)
+    qp, kp, vp = (F.pad(t, (0, d_run - d)) for t in (qp, kp, vp))
+    return _flash_launch(qp, kp, vp, causal=causal, q_offset=q_offset, skv=skv,
+                         splits=splits, d=d)[..., :d]
+
+
+def _flash_launch(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor, *,
+                  causal: bool, q_offset: int, skv: int, splits: int,
+                  d: int) -> torch.Tensor:
+    """Launch the Hopper kernels over padded operands. ``splits = 0``: one
+    pass, the cuda_core body for float32 and tc_bf16 for bfloat16. Else
+    split_kv: pass 1 over `splits` key ranges into fp32 partials allocated
+    here, then the combine (counted as ``flash_attention/combine``).
+    ``d`` is the logical head dim, whose 1/sqrt(d) scales the scores; the
+    operands may be zero-padded past it."""
+    name = "flash_attention"
+    bh, sq_p, d_run = qp.shape
     hkv, skv_p, _ = kp.shape
-    if d not in HEAD_DIMS:
+    if d_run not in HEAD_DIMS or d > d_run:
         raise ValueError(f"{name}: head dim {d}; the kernel is built for "
-                         f"{HEAD_DIMS}")
+                         f"{HEAD_DIMS} and pads up to the widest")
     if bh % hkv or tuple(vp.shape) != tuple(kp.shape):
         raise ValueError(f"{name}: q heads {bh} over k {tuple(kp.shape)}, "
                          f"v {tuple(vp.shape)}")
@@ -253,26 +286,26 @@ def _flash_cuda(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor, *,
         if not splits:
             rc = fns["flash_attention_launch"](
                 qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(),
-                code, bh, sq_p, skv_p, skv, d, group, int(causal), q_offset,
+                code, bh, sq_p, skv_p, skv, d_run, group, int(causal), q_offset,
                 scale, stream)
             _build.check(lib, rc, name)
             launch.count_launch(name)
             return out
-        # the partials in one buffer: acc (hkv, splits, rows, d), then
-        # (m, l) (hkv, splits, rows, 2); d >= 32 keeps the second 16-byte
-        # aligned
-        n_acc = hkv * splits * group * sq_p * d
-        part = torch.empty(n_acc + 2 * n_acc // d, dtype=torch.float32,
+        # the partials in one buffer: acc (hkv, splits, rows, d_run), then
+        # (m, l) (hkv, splits, rows, 2); d_run >= 32 keeps the second
+        # 16-byte aligned
+        n_acc = hkv * splits * group * sq_p * d_run
+        part = torch.empty(n_acc + 2 * n_acc // d_run, dtype=torch.float32,
                            device=qp.device)
         acc_ptr, ml_ptr = part.data_ptr(), part[n_acc:].data_ptr()
         rc = fns["flash_split_launch"](
             qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), acc_ptr, ml_ptr, code,
-            bh, sq_p, skv_p, skv, d, group, int(causal), q_offset, splits,
+            bh, sq_p, skv_p, skv, d_run, group, int(causal), q_offset, splits,
             -(-skv // splits), scale, stream)
         _build.check(lib, rc, name)
         launch.count_launch(name)
         rc = fns["flash_combine_launch"](
-            acc_ptr, ml_ptr, out.data_ptr(), code, hkv, sq_p, d, group, splits,
+            acc_ptr, ml_ptr, out.data_ptr(), code, hkv, sq_p, d_run, group, splits,
             stream)
         _build.check(lib, rc, f"{name}/combine")
         launch.count_launch(f"{name}/combine")
@@ -297,6 +330,9 @@ def flash_launch_plan(*, bh: int, sq: int, skv: int, d: int, bq: int = 128,
                  BH / g); loops: kv tiles of SPLIT_KT per split, and the
                  splits; the fp32 partials are device scratch
 
+    Each body runs at `built_head_dim(d)`; where that is wider than d, the
+    zero-padded copies of q, k and v are device scratch too.
+
     A plan is a pure function of these arguments and is cached: the layers
     of a serving step, which share a shape, build it once.
     """
@@ -308,29 +344,34 @@ def flash_launch_plan(*, bh: int, sq: int, skv: int, d: int, bq: int = 128,
     gk = skv_p // bk
     hkv = bh // kv_group
     rows = kv_group * sq_p
+    d_run = built_head_dim(d)
     body = flash_body(bh=bh, sq_p=sq_p, kv_group=kv_group, dtype=dtype)
     splits = 0
-    scratch = (launch.ScratchPlan("acc", (bq, d), "registers"),
+    scratch = (launch.ScratchPlan("acc", (bq, d_run), "registers"),
                launch.ScratchPlan("m", (bq, 1), "registers"),
                launch.ScratchPlan("l", (bq, 1), "registers"))
     if body == "split_kv":
-        splits, split_len = split_keys(hkv=hkv, rows=rows, skv=skv, d=d)
+        splits, split_len = split_keys(hkv=hkv, rows=rows, skv=skv, d=d_run)
         grid, threads = (splits, hkv), SPLIT_THREADS
-        smem = split_smem_bytes(d, rows, dtype)
+        smem = split_smem_bytes(d_run, rows, dtype)
         loops = (("kv", -(-split_len // SPLIT_KT)), ("splits", splits))
-        scratch = (launch.ScratchPlan("acc", (rows, d), "registers"),
+        scratch = (launch.ScratchPlan("acc", (rows, d_run), "registers"),
                    launch.ScratchPlan("m", (rows, 1), "shared"),
                    launch.ScratchPlan("l", (rows, 1), "shared"),
-                   launch.ScratchPlan("part_acc", (hkv, splits, rows, d), "device"),
+                   launch.ScratchPlan("part_acc", (hkv, splits, rows, d_run), "device"),
                    launch.ScratchPlan("part_ml", (hkv, splits, rows, 2), "device"))
     elif body == "tc_bf16":
         grid, threads = (bh, -(-sq_p // TC_QT)), TC_THREADS
         kv_end = min(skv, q_offset + sq_p) if causal else skv
-        smem, loops = tc_smem_bytes(d), (("kv", -(-kv_end // tc_keys(d))),)
+        smem, loops = tc_smem_bytes(d_run), (("kv", -(-kv_end // tc_keys(d_run))),)
     else:
         grid, threads = (-(-sq_p // QT), bh), THREADS
-        smem, loops = 4 * smem_floats(d), (("kv", gk),)
+        smem, loops = 4 * smem_floats(d_run), (("kv", gk),)
     kv_shape = (hkv, skv_p, d)
+    if d_run != d:
+        scratch += (launch.ScratchPlan("q_padded", (bh, sq_p, d_run), "device"),
+                    launch.ScratchPlan("k_padded", (hkv, skv_p, d_run), "device"),
+                    launch.ScratchPlan("v_padded", (hkv, skv_p, d_run), "device"))
     return launch.LaunchPlan(
         name="flash_attention",
         grid=grid,

@@ -173,10 +173,11 @@ def test_cpu_tensors_run_the_plain_version_uncounted():
 
 def test_cuda_wrapper_checks_before_launching():
     """The CUDA wrapper refuses what the kernel does not take before any
-    library is loaded: head dims it is not built for, mixed or unsupported
+    library is loaded: head dims wider than the widest it is built for
+    (narrower ones are padded up to a built one), mixed or unsupported
     dtypes, kv heads that do not divide the q heads."""
-    x = torch.zeros(4, 8, 48)
-    with pytest.raises(ValueError, match="head dim 48"):
+    x = torch.zeros(4, 8, 320)
+    with pytest.raises(ValueError, match="head dim 320"):
         tflash._flash_cuda(x, x, x, causal=True, q_offset=0, skv=8)
     y = torch.zeros(4, 8, 64)
     with pytest.raises(ValueError, match="operands of one type"):
@@ -390,3 +391,73 @@ def test_plan_refuses_operands_of_another_dtype():
     x = torch.zeros(plan.inputs[0].array_shape)
     with pytest.raises(ValueError, match="chose its body for torch.bfloat16"):
         plan.cuda(x, x, x)
+
+
+# ------------------------------------------------- head dims not built (C2)
+def test_plan_pads_stablelm_head_dim_160():
+    """StableLM-12B's head dim 160 (5120 / 32) runs at the built dim 256 in
+    every body: the plan sizes the body for 256 and lists the zero-padded
+    copies of q, k and v as device scratch; 32 q heads over 8 kv heads."""
+    assert tflash.built_head_dim(160) == 256
+    assert [tflash.built_head_dim(d) for d in (32, 48, 64, 100, 128, 256, 320)] \
+        == [32, 64, 64, 128, 128, 256, 320]
+    kw = dict(bh=2 * 32, d=160, kv_group=4)
+    cases = {"tc_bf16": dict(sq=1024, skv=1024, dtype=torch.bfloat16),
+             "cuda_core": dict(sq=1024, skv=1024, dtype=torch.float32),
+             "split_kv": dict(sq=1, skv=1056, q_offset=1055, dtype=torch.bfloat16)}
+    for body, case in cases.items():
+        plan = tflash.flash_launch_plan(**kw, **case)
+        assert plan.body == body
+        assert plan.inputs[0].array_shape[-1] == 160
+        padded = {s.name: s.shape for s in plan.scratch if s.name.endswith("_padded")}
+        assert padded == {"q_padded": (64, plan.inputs[0].array_shape[1], 256),
+                          "k_padded": (16, plan.inputs[1].array_shape[1], 256),
+                          "v_padded": (16, plan.inputs[1].array_shape[1], 256)}
+        assert all(s.where == "device" for s in plan.scratch if s.name.endswith("_padded"))
+    assert tflash.flash_launch_plan(**kw, **cases["tc_bf16"]).smem_bytes \
+        == tflash.tc_smem_bytes(256)
+    assert tflash.flash_launch_plan(**kw, **cases["cuda_core"]).smem_bytes \
+        == 4 * tflash.smem_floats(256)
+    no_pad = tflash.flash_launch_plan(bh=64, sq=1024, skv=1024, d=128, kv_group=4)
+    assert not any(s.name.endswith("_padded") for s in no_pad.scratch)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_plain_matches_jax_at_head_dim_160(dtype):
+    """The plain version against the JAX kernel in interpret mode at d = 160
+    (scale 1/sqrt(160)), GQA 4:1 through the ops wrapper."""
+    rng = np.random.default_rng(160)
+    b, hq, hkv, sq, skv = 1, 4, 1, 24, 24
+    jq, tq = _pair(rng, (b, hq, sq, 160), dtype)
+    jk, tk = _pair(rng, (b, hkv, skv, 160), dtype)
+    jv, tv = _pair(rng, (b, hkv, skv, 160), dtype)
+    want = jops.gqa_flash_attention(jq, jk, jv, causal=True, q_offset=0)
+    got = tops.gqa_flash_attention(tq, tk, tv, causal=True, q_offset=0)
+    _close(got, want, TOL[dtype])
+
+
+def test_cuda_wrapper_pads_head_dim_and_keeps_the_scale(monkeypatch):
+    """The CUDA wrapper hands the launch q, k and v zero-padded to the
+    built dim with the logical d for the scale, and slices the output
+    back: with the launch replaced by exact attention over what it is
+    given, scaled by 1/sqrt(d), the result is the oracle's at d = 160."""
+    seen = []
+
+    def exact(qp, kp, vp, *, causal, q_offset, skv, splits, d):
+        seen.append((tuple(qp.shape), tuple(kp.shape), d))
+        g = qp.shape[0] // kp.shape[0]
+        k, v = (t.repeat_interleave(g, dim=0).float() for t in (kp, vp))
+        s = torch.einsum("bqd,bkd->bqk", qp.float(), k) / math.sqrt(d)
+        qi = torch.arange(qp.shape[1])[:, None] + q_offset
+        s = torch.where(qi >= torch.arange(k.shape[1])[None, :], s, -torch.inf)
+        return torch.einsum("bqk,bkd->bqd", torch.softmax(s, -1), v).to(qp.dtype)
+
+    monkeypatch.setattr(tflash, "_flash_launch", exact)
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               for shape in ((8, 16, 160), (2, 16, 160), (2, 16, 160)))
+    got = tflash._flash_cuda(q, k, v, causal=True, q_offset=0, skv=16)
+    assert seen == [((8, 16, 256), (2, 16, 256), 160)]
+    want = tref.attention_ref(q, k.repeat_interleave(4, 0), v.repeat_interleave(4, 0))
+    assert got.shape == (8, 16, 160)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)

@@ -135,31 +135,47 @@ def test_conv_launch_plan_matches_reference_geometry(kk, stride):
     got, want = tconv.conv_launch_plan(**kw), jconv.conv_launch_plan(**kw)
     assert [o.array_shape for o in got.inputs + got.outputs] \
         == [o.array_shape for o in want.inputs + want.outputs]
-    assert got.grid[1] == want.grid[0]           # cout blocks
-    assert got.loops[0] == ("cin", want.grid[1])  # cin blocks, in the block
+    # cout blocks (each over n_split thread blocks along N where the kernel
+    # splits one), and the cin blocks walked inside the block
+    assert got.grid[1] == want.grid[0] * got.cuda.keywords["geo"]["n_split"]
+    assert got.loops[0] == ("cin", want.grid[1])
 
 
 def test_conv_tile_geometry_fits_the_card():
     """Every ResNet-18 layer at 56 px under its exact_opt schedule gets a
-    launch the kernel accepts: a block covers its n channels, stays within
-    256 threads and 96 KiB of shared memory, and the tiles cover the map."""
+    launch a body accepts, in both dtypes: the thread blocks along N cover
+    its n channels, a block is 64 to 256 threads in whole warps within the
+    card's shared memory, and the spatial tiles cover the map."""
     from repro_torch import plan
     g = plan.NetworkGraph.from_cnn("resnet18").shrink(56, 1)
     for p in plan.plan_many(g.workloads, 2048, "exact_opt", "active"):
         wl, pad = p.workload, p.workload.k // 2
-        lp = tconv.conv_launch_plan(cin=wl.cin, hp=56 + 2 * pad, wp=56 + 2 * pad,
-                                    cout=wl.cout, kk=wl.k, block_m=p.schedule.m,
-                                    block_n=p.schedule.n)
-        geo = tconv.tile_geometry(hp=56 + 2 * pad, wp=56 + 2 * pad, ho=56, wo=56,
-                                  kk=wl.k, stride=1, bm=p.schedule.m,
-                                  bn=p.schedule.n, n_co=lp.grid[1])
-        assert geo["g_c"] * tconv.CPT >= p.schedule.n
-        assert geo["g_c"] * geo["g_s"] <= lp.threads <= tconv.THREADS
-        assert lp.threads % 32 == 0
-        assert 1 <= geo["mc"] <= p.schedule.m
-        assert lp.smem_bytes <= tconv.SMEM_CAP
-        assert geo["n_tiles"] * geo["tile"] >= 56 * 56
-        assert geo["rows_in"] <= 56 + 2 * pad
+        kw = dict(hp=56 + 2 * pad, wp=56 + 2 * pad, ho=56, wo=56, kk=wl.k,
+                  stride=1, bm=p.schedule.m, bn=p.schedule.n)
+        for dtype in (torch.float32, torch.bfloat16):
+            lp = tconv.conv_launch_plan(cin=wl.cin, hp=56 + 2 * pad,
+                                        wp=56 + 2 * pad, cout=wl.cout,
+                                        kk=wl.k, block_m=p.schedule.m,
+                                        block_n=p.schedule.n, dtype=dtype)
+            n_co = lp.outputs[0].array_shape[0] // p.schedule.n
+            body, geo = tconv.conv_body(**kw, n_co=n_co, dtype=dtype)
+            assert body == lp.body
+            assert 64 <= lp.threads <= 256 and lp.threads % 32 == 0
+            assert lp.smem_bytes <= tconv.SMEM_LIMIT
+            assert lp.grid == (geo["n_tiles"], geo["n_cos"])
+            assert geo["rows_in"] <= 56 + 2 * pad
+            if body == "tc_bf16":
+                # cpb whole cout blocks per thread block (none is split at
+                # ResNet-18's widths), each of nb >= n rows
+                assert geo["n_split"] == 1 and geo["nb"] >= p.schedule.n
+                assert geo["cpb"] * geo["nb"] <= geo["nw"]
+                assert geo["n_cos"] * geo["cpb"] >= n_co
+                assert 1 <= geo["gcs"] <= geo["kg"] == -(-p.schedule.m // tconv.TC_KG)
+                assert geo["n_tiles"] * tconv.TC_ROWS_M >= 56 * 56
+            else:
+                assert geo["n_split"] * geo["gpb"] * tconv.CORE_NC >= p.schedule.n
+                assert 1 <= geo["mc"] <= p.schedule.m
+                assert geo["n_tiles"] * geo["ti"] >= 56 * geo["cols"]
 
 
 def test_off_device_operands_are_rejected_not_run():

@@ -140,11 +140,15 @@ def test_library_path_covers_included_headers(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "CSRC", csrc)
     assert "hopper.cuh" in _build.sources("psum_matmul")
     assert "hopper.cuh" in _build.sources("flash_attention")
-    assert _build.sources("conv2d_psum") == ["conv2d_psum.cu"]
-    before = {name: _build.library_path(name).name for name in _build.SOURCES}
+    assert "hopper.cuh" in _build.sources("conv2d_psum")
+    (csrc / "plain.cu").write_text("// includes no header\n")
+    assert _build.sources("plain") == ["plain.cu"]
+    names = (*_build.SOURCES, "plain")
+    before = {name: _build.library_path(name).name for name in names}
     header = csrc / "hopper.cuh"
     header.write_text(header.read_text() + "\n// changed\n")
-    after = {name: _build.library_path(name).name for name in _build.SOURCES}
+    after = {name: _build.library_path(name).name for name in names}
     assert after["psum_matmul"] != before["psum_matmul"]
     assert after["flash_attention"] != before["flash_attention"]
-    assert after["conv2d_psum"] == before["conv2d_psum"]
+    assert after["conv2d_psum"] != before["conv2d_psum"]
+    assert after["plain"] == before["plain"]
