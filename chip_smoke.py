@@ -11,12 +11,17 @@
    (a yardstick the port never calls) and the card's lower bound:
      psum_matmul active/passive  4096 x 1536 x 8960 (the Qwen2-1.5B FFN
                                  up-projection at 4096 tokens), fp32
-                                 (cuda_core body) and bf16 (tc_bf16 body);
-                                 kernel and torch.matmul times are replays
-                                 of a CUDA graph of 20 calls, so the 12
-                                 ctypes launches of a passive call do not
-                                 count; the passive rows add the bound of
-                                 their own C round trips
+                                 (tc_3xtf32 body, its pack pass included,
+                                 and cuda_core asked for by name) and bf16
+                                 (tc_bf16 body); kernel and torch.matmul
+                                 times are replays of a CUDA graph of 20
+                                 calls, so the 12 ctypes launches of a
+                                 passive call do not count; the passive
+                                 rows add the bound of their own C round
+                                 trips, the tc_3xtf32 rows the bound of
+                                 three TF32 passes beside the fp32 cores';
+                                 the pack pass's four arrays are held bit
+                                 for bit against `tf32_split`
      conv2d_psum                 the 512 -> 512 3x3 layer of ResNet-18 at
                                  56 x 56 px under its exact_opt schedule,
                                  fp32 (cuda_core body) and bf16 (tc_bf16
@@ -36,15 +41,16 @@
    and runs the kernels' other cases at small shapes (every activation,
    padded edges, odd channel blocks, stride 2, K in {1, 3, 7}; for the conv
    blocks of n in {8, 13, 17, 24, 64} and 1x1 blocks of 1280 and 2048
-   channels, wider than one thread block; for tc_bf16
+   channels, wider than one thread block; for tc_bf16 and tc_3xtf32
    ragged M, N and K, blocks of 64 and 128, a block under 64 rows, K of one
-   chunk, each plan's body checked; padded q and
+   chunk, K not a multiple of a chunk, odd bn, each plan's body checked;
+   padded q and
    kv tails, decode, GQA, head dims 32 to 256 and StableLM-12B's 160 (padded
    to 256), for each flash body; split_kv at Sq 1 and 8, GQA 4:1 and 6:1,
    fewer keys than a tile, keys not a multiple of the split)
    against the plain versions on the CPU, and fails unless the
    psum_matmul, conv2d_psum and flash libraries' SASS hold tensor-core
-   (HGMMA) instructions.
+   (HGMMA) instructions, and psum_matmul's TF32 ones.
 4. Drives the main paths, each with every launch count set to 0 just before
    it and read just after:
    a. ResNet-18 at full channel width
@@ -52,7 +58,8 @@
       schedules at P = 2048 MACs) answers 4 seeded images through
       ``run_network_kernels`` (fp32: every conv on the cuda_core body and
       its pack pass), and the GEMM above runs through ``ops.matmul``
-      under both controllers in fp32 (cuda_core) and bf16 (tc_bf16);
+      under both controllers in fp32 (tc_3xtf32 and its pack pass) and
+      bf16 (tc_bf16);
    b. ``repro_torch.launch.serve`` serves 8 requests of Qwen2-1.5B at full
       width (28 layers, bf16, seeded weights) in batches of 4, prompt 1024,
       32 generated tokens: every attention layer of prefill runs the flash
@@ -116,7 +123,8 @@ def main() -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    peak = {torch.float32: 67e12, torch.bfloat16: 989e12}  # H100 SXM, dense
+    # H100 SXM, dense; "tf32x3" is three TF32 passes (tc_3xtf32)
+    peak = {torch.float32: 67e12, torch.bfloat16: 989e12, "tf32x3": 494.7e12 / 3}
     dev = torch.device("cuda", 0)
 
     # 1. build
@@ -133,10 +141,16 @@ def main() -> None:
         sass = subprocess.run([str(cuobjdump), "-sass", str(paths[name])],
                               capture_output=True, text=True, timeout=300,
                               check=True).stdout
-        hgmma = sum("HGMMA" in line for line in sass.splitlines())
+        hgmma = [line for line in sass.splitlines() if "HGMMA" in line]
         if not hgmma:
             fail(f"{name}: no HGMMA instruction in the library's SASS")
-        print(f"{name} SASS: {hgmma} HGMMA instructions")
+        print(f"{name} SASS: {len(hgmma)} HGMMA instructions")
+        if name == "psum_matmul":
+            tf32 = [line for line in hgmma if "TF32" in line]
+            if not tf32:
+                fail(f"{name}: no TF32 HGMMA instruction in the library's SASS")
+            print(f"{name} SASS: {len(tf32)} TF32 HGMMA instructions, e.g. "
+                  f"{tf32[0].split(';')[0].strip()}")
 
     # 2. the card
     smi = subprocess.run(
@@ -171,6 +185,8 @@ def main() -> None:
         return ms
 
     def bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:
+        """The card's least time: the larger of the operations at the
+        dtype's peak rate and the bytes at the memory's."""
         t_ops, t_mem = flops / peak[dtype], nbytes / HBM_BYTES_PER_S
         return (1e3 * max(t_ops, t_mem), "operations" if t_ops >= t_mem else "bytes")
 
@@ -181,7 +197,10 @@ def main() -> None:
     wl = plan.MatmulWorkload(m=M, n=N, k=K)
     sched = ops.matmul_schedule(M, K, N, vmem_budget=plan.SMEM_BUDGET)
     print(f"gemm {M}x{K}x{N}: blocks bm={sched.bm} bn={sched.bn} bk={sched.bk}")
-    body_for = {torch.float32: "cuda_core", torch.bfloat16: "tc_bf16"}
+    # the body each dtype's plan takes, then bodies asked for by name
+    body_for = {torch.float32: "tc_3xtf32", torch.bfloat16: "tc_bf16"}
+    forced = {torch.float32: ("cuda_core",), torch.bfloat16: ()}
+    gk = -(-K // sched.bk)
     gemm_in = {}
     for dtype in (torch.float32, torch.bfloat16):
         x = torch.randn(M, K, generator=gen).to(dev, dtype)
@@ -189,46 +208,87 @@ def main() -> None:
         gemm_in[dtype] = (x, w)
         dname = str(dtype).removeprefix("torch.")
         for controller in ("active", "passive"):
-            lp = psum_matmul.matmul_launch_plan(m=M, k=K, n=N, bm=sched.bm,
-                                                bn=sched.bn, bk=sched.bk,
-                                                controller=controller,
-                                                dtype=dtype)
-            if lp.body != body_for[dtype]:
-                fail(f"{lp.name} {dname}: body {lp.body}, expected "
-                     f"{body_for[dtype]}")
-            got = lp.cuda(x, w)
-            want = lp.plain(x, w)
-            torch.cuda.synchronize()
-            tol = MATMUL_TOL[dname]
-            err = (got.float() - want.float()).abs().max().item()
-            if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
-                fail(f"{lp.name} {dname}: kernel vs plain max abs err {err}")
-            out_size = 4 if controller == "passive" else x.element_size()
-            b_ms, b_by = bound(float(wl.flops),
-                               (M * K + K * N) * x.element_size() + M * N * out_size,
-                               dtype)
-            stats = {"max_abs_err": err, "ms": graph_ms(lambda: lp.cuda(x, w)),
-                     "plain_ms": time_ms(lambda: lp.plain(x, w)),
-                     "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": graph_ms(lambda: torch.matmul(x, w)),
-                     "eager_ms": time_ms(lambda: lp.cuda(x, w)),
-                     "eager_library_ms": time_ms(lambda: torch.matmul(x, w)),
-                     "body": lp.body, "threads": lp.threads,
-                     "smem_bytes": lp.smem_bytes,
-                     "launches_per_call": lp.launches}
-            if controller == "passive":
-                # the passive schedule's own traffic: X and W once, and the
-                # fp32 C tile through device memory at every k-step,
-                # (2 gk - 1) M N words
-                s_ms, s_by = bound(float(wl.flops),
-                                   (M * K + K * N) * x.element_size()
-                                   + (2 * lp.launches - 1) * M * N * 4, dtype)
-                stats.update(spill_bound_ms=s_ms, spill_bound_by=s_by)
-            print(f"{lp.name} {dname}: " + " ".join(
-                f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
-                for k, v in stats.items()))
-            rows.setdefault(lp.name, {})[dname] = stats
-            del got, want
+            for body in (None, *forced[dtype]):
+                lp = psum_matmul.matmul_launch_plan(m=M, k=K, n=N, bm=sched.bm,
+                                                    bn=sched.bn, bk=sched.bk,
+                                                    controller=controller,
+                                                    dtype=dtype, body=body)
+                if lp.body != (body or body_for[dtype]):
+                    fail(f"{lp.name} {dname}: body {lp.body}, expected "
+                         f"{body or body_for[dtype]}")
+                got = lp.cuda(x, w)
+                want = lp.plain(x, w)
+                torch.cuda.synchronize()
+                tol = MATMUL_TOL[dname]
+                err = (got.float() - want.float()).abs().max().item()
+                if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+                    fail(f"{lp.name} {dname} {lp.body}: kernel vs plain max abs err {err}")
+                out_size = 4 if controller == "passive" else x.element_size()
+                nbytes = (M * K + K * N) * x.element_size() + M * N * out_size
+                b_ms, b_by = bound(float(wl.flops), nbytes, dtype)
+                stats = {"max_abs_err": err, "ms": graph_ms(lambda: lp.cuda(x, w)),
+                         "plain_ms": time_ms(lambda: lp.plain(x, w)),
+                         "bound_ms": b_ms, "bound_by": b_by,
+                         "library_ms": graph_ms(lambda: torch.matmul(x, w)),
+                         "eager_ms": time_ms(lambda: lp.cuda(x, w)),
+                         "eager_library_ms": time_ms(lambda: torch.matmul(x, w)),
+                         "body": lp.body, "threads": lp.threads,
+                         "smem_bytes": lp.smem_bytes,
+                         "launches_per_call": lp.launches}
+                if lp.body == "tc_3xtf32":
+                    # three TF32 passes bound this body; the fp32 cores'
+                    # bound beside it
+                    t_ms, t_by = bound(float(wl.flops), nbytes, "tf32x3")
+                    stats.update(bound_ms=t_ms, bound_by=t_by,
+                                 fp32_bound_ms=b_ms, fp32_bound_by=b_by,
+                                 pack_ms=graph_ms(lambda: psum_matmul.tf32_pack(x, w)),
+                                 pack_bound_ms=1e3 * 3 * (M * K + K * N) * 4
+                                 / HBM_BYTES_PER_S)
+                if controller == "passive":
+                    # the passive schedule's own traffic: X and W once, and the
+                    # fp32 C tile through device memory at every k-step,
+                    # (2 gk - 1) M N words
+                    s_ms, s_by = bound(float(wl.flops),
+                                       (M * K + K * N) * x.element_size()
+                                       + (2 * gk - 1) * M * N * 4,
+                                       "tf32x3" if lp.body == "tc_3xtf32" else dtype)
+                    stats.update(spill_bound_ms=s_ms, spill_bound_by=s_by)
+                print(f"{lp.name} {dname}: " + " ".join(
+                    f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
+                    for k, v in stats.items()))
+                key = dname if body is None else f"{dname}/{body}"
+                rows.setdefault(lp.name, {})[key] = stats
+                del got, want
+
+    # the pack pass's four arrays, bit for bit against tf32_split: at the
+    # GEMM's operands, and at rounding ties, zeros, subnormals and infinities
+    def int32_words(words):
+        return torch.tensor([v - (1 << 32) if v >= 1 << 31 else v for v in words],
+                            dtype=torch.int32)
+
+    special = int32_words([0x00000000, 0x80000000, 0x00000001, 0x80000FFF,
+                           0x00001000, 0x00001001, 0x00002FFF, 0x007FFFFF,
+                           0x807FF000, 0x3F801000, 0xBF801000, 0x3F800FFF,
+                           0x3F803000, 0xC0001001, 0x7F800000, 0xFF800000])
+    xs_small = torch.randn(64, 96, generator=gen)
+    ws_small = torch.randn(96, 80, generator=gen)
+    for t in (xs_small, ws_small):
+        t.view(-1).view(torch.int32)[:special.numel()] = special
+    for what, (xa, wa) in {"gemm": gemm_in[torch.float32],
+                           "specials": (xs_small.to(dev), ws_small.to(dev))}.items():
+        xs, wts = psum_matmul.tf32_pack(xa, wa)
+        want = (*psum_matmul.tf32_split(xa), *psum_matmul.tf32_split(wa.t()))
+        for part, got, ref_part in zip(("X_hi", "X_lo", "Wt_hi", "Wt_lo"),
+                                       (*xs, *wts), want):
+            if not torch.equal(got.view(torch.int32),
+                               ref_part.contiguous().view(torch.int32)):
+                bad = (got.view(torch.int32)
+                       != ref_part.contiguous().view(torch.int32)).sum().item()
+                fail(f"psum_matmul/pack {what}: {part} differs from tf32_split "
+                     f"in {bad} words")
+        del xs, wts, want
+    print("psum_matmul/pack: X_hi, X_lo, Wt_hi, Wt_lo equal tf32_split bit for "
+          "bit (GEMM operands and special values)")
 
     # 3b. conv2d_psum on the 512 -> 512 3x3 layer at 56 px
     graph = NetworkGraph.from_cnn("resnet18").shrink(56, 1)
@@ -304,37 +364,45 @@ def main() -> None:
                 if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
                     fail(f"psum_matmul {controller} {act} {dname} at 50x160x150")
                 cases += 1
-        # the 50 x 160 x 150 cases above take tc_bf16 in bf16 (a 32-row
-        # block, under one wgmma tile); these add ragged M, N and K at
-        # blocks of 64 and 128, and K of one chunk. W's blocks of 13
-        # columns start off 16 bytes, so that plan takes cuda_core.
-        if dtype == torch.bfloat16:
-            for (m_, k_, n_), (bm_, bn_, bk_), body in (
-                    ((200, 320, 300), (128, 128, 128), "tc_bf16"),
-                    ((200, 320, 300), (64, 128, 64), "tc_bf16"),
-                    ((100, 64, 72), (128, 128, 64), "tc_bf16"),
-                    ((8, 40, 24), (8, 8, 40), "tc_bf16"),
-                    ((70, 200, 104), (48, 13, 96), "cuda_core")):
-                xs = torch.randn(m_, k_, generator=gen).to(dtype)
-                ws = torch.randn(k_, n_, generator=gen).to(dtype)
-                for controller in ("active", "passive"):
-                    got_body = psum_matmul.matmul_launch_plan(
-                        m=m_, k=k_, n=n_, bm=bm_, bn=bn_, bk=bk_,
-                        controller=controller, dtype=dtype).body
-                    if got_body != body:
-                        fail(f"psum_matmul {(m_, k_, n_)} blocks "
-                             f"{(bm_, bn_, bk_)}: body {got_body}, expected {body}")
-                    for act in psum_matmul.ACTIVATIONS:
-                        kw = dict(bm=bm_, bn=bn_, bk=bk_, act=act,
-                                  controller=controller)
-                        got = psum_matmul.psum_matmul(xs.to(dev), ws.to(dev), **kw).cpu()
-                        want = psum_matmul.psum_matmul(xs, ws, **kw)
-                        tol = MATMUL_TOL[dname]
-                        if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
-                            fail(f"psum_matmul {body} {controller} {act} at "
-                                 f"{(m_, k_, n_)} blocks {(bm_, bn_, bk_)}: max abs "
-                                 f"err {(got.float() - want.float()).abs().max().item()}")
-                        cases += 1
+        # the 50 x 160 x 150 cases above take tc_bf16 in bf16 and tc_3xtf32
+        # in fp32 (a 32-row block, under one wgmma tile); these add ragged M,
+        # N and K at blocks of 64 and 128, K of one chunk, and (fp32) K and
+        # k-steps that are not a multiple of a chunk and odd bn. In bf16, W's
+        # blocks of 13 columns start off 16 bytes, and in fp32 k-steps of 90
+        # columns do, so those plans take cuda_core.
+        small_gemms = {
+            torch.bfloat16: (((200, 320, 300), (128, 128, 128), "tc_bf16"),
+                             ((200, 320, 300), (64, 128, 64), "tc_bf16"),
+                             ((100, 64, 72), (128, 128, 64), "tc_bf16"),
+                             ((8, 40, 24), (8, 8, 40), "tc_bf16"),
+                             ((70, 200, 104), (48, 13, 96), "cuda_core")),
+            torch.float32: (((200, 320, 300), (128, 128, 128), "tc_3xtf32"),
+                            ((200, 300, 300), (64, 128, 100), "tc_3xtf32"),
+                            ((100, 36, 72), (128, 128, 36), "tc_3xtf32"),
+                            ((8, 40, 24), (8, 8, 40), "tc_3xtf32"),
+                            ((70, 200, 104), (50, 13, 100), "tc_3xtf32"),
+                            ((50, 90, 77), (50, 77, 90), "cuda_core"))}
+        for (m_, k_, n_), (bm_, bn_, bk_), body in small_gemms[dtype]:
+            xs = torch.randn(m_, k_, generator=gen).to(dtype)
+            ws = torch.randn(k_, n_, generator=gen).to(dtype)
+            for controller in ("active", "passive"):
+                got_body = psum_matmul.matmul_launch_plan(
+                    m=m_, k=k_, n=n_, bm=bm_, bn=bn_, bk=bk_,
+                    controller=controller, dtype=dtype).body
+                if got_body != body:
+                    fail(f"psum_matmul {(m_, k_, n_)} blocks "
+                         f"{(bm_, bn_, bk_)} {dname}: body {got_body}, expected {body}")
+                for act in psum_matmul.ACTIVATIONS:
+                    kw = dict(bm=bm_, bn=bn_, bk=bk_, act=act,
+                              controller=controller)
+                    got = psum_matmul.psum_matmul(xs.to(dev), ws.to(dev), **kw).cpu()
+                    want = psum_matmul.psum_matmul(xs, ws, **kw)
+                    tol = MATMUL_TOL[dname]
+                    if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+                        fail(f"psum_matmul {body} {controller} {act} {dname} at "
+                             f"{(m_, k_, n_)} blocks {(bm_, bn_, bk_)}: max abs "
+                             f"err {(got.float() - want.float()).abs().max().item()}")
+                    cases += 1
         # conv: stride 1 and 2, K in {1, 3, 7}, every activation at (13, 17)
         # blocks; blocks of n in {8, 13, 17, 24, 64} over ragged cout; 1x1
         # blocks of 1280 and 2048 channels, wider than one thread block
@@ -498,7 +566,7 @@ def main() -> None:
 
     # 4. the main path, counted (one image first, uncounted, loads every
     #    kernel variant and warms the allocator). The GEMM's plans, as
-    #    ops.matmul makes them: bf16 on tc_bf16, fp32 on cuda_core.
+    #    ops.matmul makes them: bf16 on tc_bf16, fp32 on tc_3xtf32.
     for dtype in gemm_in:
         for controller in ("active", "passive"):
             s = ops.matmul_schedule(M, K, N, controller=controller,
@@ -535,9 +603,9 @@ def main() -> None:
     print(f"main path launches: {counts}")
 
     convs = len(graph.workload_nodes)
-    gk = -(-K // sched.bk)
     expect = {"conv2d_psum": convs * IMAGES, "conv2d_psum/pack": convs * IMAGES,
-              "psum_matmul/active": 2, "psum_matmul/passive": 2 * gk}
+              "psum_matmul/active": 2, "psum_matmul/passive": 2 * gk,
+              "psum_matmul/pack": 2}            # once per fp32 call
     for name, n in expect.items():
         if counts.get(name, 0) != n:
             fail(f"{name} launched {counts.get(name, 0)} times on the main "
@@ -770,8 +838,7 @@ def main() -> None:
             "bound_by": first["bound_by"], "library_ms": first["library_ms"],
             **{k: first[k] for k in ("spill_bound_ms", "spill_bound_by")
                if k in first},
-            **({"pack_launches": counts["conv2d_psum/pack"]}
-               if name == "conv2d_psum" else {}),
+            "pack_launches": counts[f"{name.split('/')[0]}/pack"],
             "dtype": "float32",
             "body_by_dtype": {d: v["body"] for d, v in by_dtype.items()},
             "by_dtype": by_dtype})

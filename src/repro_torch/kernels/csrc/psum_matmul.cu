@@ -14,7 +14,7 @@
 //            (2*gk - 1)*M*N words for C, as the traffic model charges. The
 //            activation runs afterwards, outside the kernel.
 //
-// Two bodies, chosen by `matmul_launch_plan` (src/repro_torch/kernels/
+// Three bodies, chosen by `matmul_launch_plan` (src/repro_torch/kernels/
 // psum_matmul.py) from the dtype and the blocks, serve both controllers:
 //
 // tc_bf16 (bf16 with bm, bn <= 128 and bn, bk multiples of 8). TMA takes a
@@ -43,16 +43,54 @@
 //            the fp32 tile is read into the accumulator fragment before
 //            the first chunk (skipped at k_begin == 0) and stored back.
 //
-// cuda_core (fp32, and bf16 outside tc_bf16's constraints): fp32 CUDA cores.
-// 256 threads each hold an 8 x 8 register tile of a 128 x 128 block tile,
-// fed from shared memory in k-chunks of 16; bf16 is converted to fp32 as it
-// is staged. fp32 stays off the tensor cores: TF32 would not hold the
-// reference's 1e-3 tolerance.
+// tc_3xtf32 (fp32 with bm, bn <= 128 and kp, bk multiples of 4): the
+// product on TF32 tensor cores in three passes. One TF32 pass rounds every
+// operand to 11 significant bits and misses the reference's 1e-3 tolerance
+// at K = 1536 (errors up to 0.05); splitting each operand v = hi + lo
+// (hi = tf32(v), lo = tf32(v - hi)) and summing lo*hi + hi*lo + hi*hi keeps
+// about 22 bits of each operand (1e-5 in exact sums). The three passes run
+// at 495 / 3 TFLOP/s, over twice the fp32 cores' 67.
+//   pack     one launch a call, before the body's (once for all the passive
+//            launches): X -> X_hi, X_lo, each (mp, kp); W -> Wt_hi, Wt_lo,
+//            each (np, kp), transposed through shared memory, because TF32
+//            wgmma takes both operands K-major and has no transpose. The
+//            rounding happens here: the tensor cores drop a TF32 operand's
+//            low 13 bits rather than round them.
+//   block    as tc_bf16's (consumer warpgroups of 64 rows, n64 or n128, one
+//            producer warp), but one block an SM: a stage holds a bm x 32
+//            box of X_hi and of X_lo and a bn x 32 box of Wt_hi and of Wt_lo,
+//            64 KiB at 128 x 128, in a ring of three. Active blocks take
+//            their tiles in groups of 8 tile rows, so a wave's operands stay
+//            in L2; passive ones in launch order, which keeps their C
+//            traffic in neighbouring rows.
+//   product  per k8 step three wgmma m64nBNk8.tf32, A and B both K-major from
+//            shared memory by the same descriptor form, the small terms
+//            first: lo*hi, hi*lo, hi*hi. The tensor cores' fp32 adds
+//            truncate, so they sum FOLD chunks (128 of k) from zero into a
+//            second register tile, and the block adds that into its
+//            accumulator with fp32 adds that round: the error then stays
+//            near an fp32 FMA loop's.
+//   C        stored as tc_bf16's, in fp32. A passive launch loads its C
+//            tile into the accumulator before the first wait on the ring,
+//            so it travels while the first chunks land; the tensor cores
+//            never write that tile, so ptxas does not serialize the wgmmas
+//            as it does tc_bf16's passive ones (C7515).
+// At the main shape the four operand boxes bring about 7 GB from L2 into
+// shared memory in an active call (2240 blocks x 48 chunks x 64 KiB), four
+// times tc_bf16's traffic, yet on an H100 they cost under 0.1 ms of the
+// call's 1.2: without any operand load the body still takes 1.02 ms
+// against the 0.684 ms of three TF32 passes at the card's peak
+// (tools/psum_tf32_variants.py).
+//
+// cuda_core (fp32 and bf16 outside the tensor-core bodies' constraints, or
+// when asked for by name): fp32 CUDA cores. 256 threads each hold an 8 x 8
+// register tile of a 128 x 128 block tile, fed from shared memory in
+// k-chunks of 16; bf16 is converted to fp32 as it is staged.
 //
 // Operands arrive padded to block multiples: x (mp, kp), w (kp, np), row
 // major. C interface, loaded with ctypes; every entry point returns
 // cudaGetLastError() after its launch. The Hopper building blocks (mbarriers,
-// TMA, wgmma) come from hopper.cuh.
+// TMA, wgmma, tensor maps) come from hopper.cuh.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -65,7 +103,7 @@ namespace {
 
 using namespace hopper;
 
-constexpr int TILE = 128;   // bm, bn <= TILE in both bodies
+constexpr int TILE = 128;   // bm, bn <= TILE in every body
 
 // 0 none, 1 relu, 2 silu, 3 gelu (tanh approximation, as jax.nn.gelu)
 __device__ __forceinline__ float activate(float v, int act) {
@@ -331,32 +369,14 @@ psum_mm_tc(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUten
   }
 }
 
-// The tensor map of a (rows, cols) row-major bf16 array with `ld` elements
-// a row: boxes of box_rows rows by 64 columns (one 128-byte swizzle span),
-// zero-filled past the array's rows and columns.
-int tensor_map_2d(CUtensorMap* map, const void* base, int rows, int cols, int ld,
-                  int box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (!encode) return (int)cudaErrorSymbolNotFound;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)(SW / 2), (cuuint32_t)box_rows};
-  const cuuint32_t step[2] = {1, 1};
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
-                              dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
-
 template <int WGS, int BN>
 int launch(const void* x, const void* w, void* out, int passive, int act, int mp, int np,
            int kp, int bm, int bn, int k_begin, int k_end, cudaStream_t stream) {
   using C = Cfg<WGS, BN>;
   // X's columns and W's rows end at k_end: the chunk past it reads zeros
   CUtensorMap tx, tw;
-  int rc = tensor_map_2d(&tx, x, mp, k_end, kp, bm);
-  if (!rc) rc = tensor_map_2d(&tw, w, k_end, np, np, KC);
+  int rc = tensor_map_2d(&tx, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, mp, k_end, kp, bm);
+  if (!rc) rc = tensor_map_2d(&tw, w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, k_end, np, np, KC);
   static bool configured[2] = {false, false};
   if (!rc) rc = passive ? allow_smem(psum_mm_tc<WGS, BN, true>, C::SMEM, configured[1])
                         : allow_smem(psum_mm_tc<WGS, BN, false>, C::SMEM, configured[0]);
@@ -384,15 +404,302 @@ int launch_blocks(const void* x, const void* w, void* out, int passive, int act,
 
 }  // namespace tc
 
+// -------------------------------------------------------------- tc_3xtf32
+namespace tf {
+
+constexpr int KC = 32;         // k per staged chunk: 128 bytes of fp32
+constexpr int SW = 128;        // swizzle span, bytes
+constexpr int STAGES = 3;      // ring depth of tc_3xtf32
+constexpr int MIN_BLOCKS = 1;  // a 128 x 128 block's three stages fill an SM
+// The tensor cores' fp32 sums drop bits rather than round (a bias toward
+// zero at each add): summed over all 48 chunks of K = 1536 in one
+// accumulator, it reaches 2.8e-3 of a product of about 40 and misses 1e-3.
+// So they sum FOLD chunks at a time, from zero, and the block adds each sum
+// into its accumulator in fp32.
+constexpr int FOLD = 4;
+constexpr int GROUP = 8;       // tile rows an active launch walks together
+constexpr int PACK_THREADS = 256;
+constexpr int PACK_BLOCKS = 132 * 8;
+
+// round to TF32 (nearest, ties away from zero): the low 13 bits cleared
+__device__ __forceinline__ float rna_tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+  return __uint_as_float(r);
+}
+
+// v = hi + lo + e, |e| <= 2^-22 |v| for a normal v: hi = rna(v) and lo =
+// rna(v - hi), where v - hi is exact in fp32; an infinite hi has lo = 0.
+__device__ __forceinline__ void split(float v, float& hi, float& lo) {
+  hi = rna_tf32(v);
+  lo = isinf(hi) ? 0.f : rna_tf32(v - hi);
+}
+
+// The pack pass, one launch a call. blockIdx.y 0: x (mp, kp) -> xs = X_hi,
+// X_lo, each (mp, kp), four elements a thread a step. blockIdx.y 1: w (kp,
+// np) -> wts = Wt_hi, Wt_lo, each (np, kp): the transpose goes through 32 x
+// 32 tiles of shared memory, so reads and writes both run along memory.
+__global__ void __launch_bounds__(PACK_THREADS)
+pack(const float* __restrict__ x, const float* __restrict__ w, float* __restrict__ xs,
+     float* __restrict__ wts, int mp, int np, int kp) {
+  if (blockIdx.y == 0) {
+    const size_t n4 = (size_t)mp * kp / 4;
+    const float4* src = reinterpret_cast<const float4*>(x);
+    float4* hi = reinterpret_cast<float4*>(xs);
+    float4* lo = hi + n4;
+    for (size_t u = (size_t)blockIdx.x * blockDim.x + threadIdx.x; u < n4;
+         u += (size_t)gridDim.x * blockDim.x) {
+      const float4 v = src[u];
+      float4 h, l;
+      split(v.x, h.x, l.x);
+      split(v.y, h.y, l.y);
+      split(v.z, h.z, l.z);
+      split(v.w, h.w, l.w);
+      hi[u] = h;
+      lo[u] = l;
+    }
+  } else {
+    __shared__ float tile[32][33];
+    const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+    const int tn = (np + 31) / 32;
+    float* hi = wts;
+    float* lo = wts + (size_t)np * kp;
+    for (size_t t = blockIdx.x; t < (size_t)((kp + 31) / 32) * tn; t += gridDim.x) {
+      const int k0 = (int)(t / tn) * 32, n0 = (int)(t % tn) * 32;
+      for (int r = ty; r < 32; r += 8) {           // rows k0 + r of w, columns n0 + tx
+        const int k = k0 + r, n = n0 + tx;
+        tile[r][tx] = k < kp && n < np ? w[(size_t)k * np + n] : 0.f;
+      }
+      __syncthreads();
+      for (int r = ty; r < 32; r += 8) {           // rows n0 + r of Wt, columns k0 + tx
+        const int n = n0 + r, k = k0 + tx;
+        if (n < np && k < kp) {
+          float h, l;
+          split(tile[tx][r], h, l);
+          hi[(size_t)n * kp + k] = h;
+          lo[(size_t)n * kp + k] = l;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+template <int WGS, int BN>
+struct Cfg {
+  static constexpr int BM = 64 * WGS;            // rows the consumers cover
+  static constexpr int CONSUMERS = 128 * WGS;    // one warpgroup per 64 rows
+  static constexpr int THREADS = CONSUMERS + 32; // and one producer warp
+  static constexpr int A_BYTES = BM * SW;        // X_hi or X_lo: BM rows x 32 k
+  static constexpr int B_BYTES = BN * SW;        // Wt_hi or Wt_lo: BN rows x 32 k
+  static constexpr int STAGE = 2 * (A_BYTES + B_BYTES);
+  // 1024 bytes of slack to align the stages to the swizzle pattern, the
+  // stages, then the barriers full[STAGES] and empty[STAGES]
+  static constexpr int SMEM = 1024 + STAGES * STAGE + 16 * STAGES;
+};
+
+// A stage holds [X_hi | X_lo | Wt_hi | Wt_lo]. The tensor map tx covers the
+// X pair as one (2 mp, k_end) array, tw the Wt pair as one (2 np, k_end)
+// array: the lo halves start mp (np) rows further.
+template <int WGS, int BN, bool PASSIVE>
+__global__ void __launch_bounds__(Cfg<WGS, BN>::THREADS, MIN_BLOCKS)
+psum_mm_tf32(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
+             float* __restrict__ out, int mp, int np, int bm, int bn, int k_begin, int k_end,
+             int act) {
+  using C = Cfg<WGS, BN>;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * C::STAGE);
+  uint64_t* empty = full + STAGES;
+
+  // The block's tile. A passive launch takes them in launch order, so that
+  // neighbouring blocks read and write neighbouring C rows. An active one
+  // takes them in groups of GROUP tile rows, column by column, so that a
+  // wave's X and Wt rows stay in L2: in launch order a wave of 132 blocks
+  // reads 1.9 tile rows of X and all of Wt (110 MB at the main shape).
+  int ti = blockIdx.y, tj = blockIdx.x;
+  if (!PASSIVE) {
+    const int span = GROUP * gridDim.x;
+    const int b = blockIdx.y * gridDim.x + blockIdx.x;
+    const int first = b / span * GROUP, rows = min((int)gridDim.y - first, GROUP);
+    ti = first + b % span % rows;
+    tj = b % span / rows;
+  }
+  const int row0 = ti * bm, col0 = tj * bn;
+  const int n_chunks = (k_end - k_begin + KC - 1) / KC;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, C::CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= C::CONSUMERS) {
+    // producer warp: its lane 0 issues every copy, chunk i into stage
+    // i % STAGES once the consumers have freed it
+    if (threadIdx.x == C::CONSUMERS) {
+      const int bytes = 2 * (bm + bn) * SW;
+      for (int i = 0; i < n_chunks; ++i) {
+        const int s = i % STAGES;
+        if (i >= STAGES) mbar_wait(empty + s, ((i / STAGES) - 1) & 1);
+        const int k0 = k_begin + i * KC;
+        uint8_t* st = ring + s * C::STAGE;
+        mbar_expect_tx(full + s, bytes);
+        tma_load_2d(st, &tx, k0, row0, full + s);
+        tma_load_2d(st + C::A_BYTES, &tx, k0, mp + row0, full + s);
+        tma_load_2d(st + 2 * C::A_BYTES, &tw, k0, col0, full + s);
+        tma_load_2d(st + 2 * C::A_BYTES + C::B_BYTES, &tw, k0, np + col0, full + s);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg owns tile rows 64 wg .. 64 wg + 63; in the wgmma
+  // fragment a thread holds rows r and r + 8 of them, columns 8j + c2 and
+  // 8j + c2 + 1
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128, lane = tid % 32;
+  const int r = wg * 64 + (tid / 32) * 16 + lane / 4;
+  const int c2 = (lane % 4) * 2;
+  const bool pairs = ((np | bn) & 1) == 0;   // a column pair is one 8-byte word
+
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  if (PASSIVE && k_begin > 0) {
+    // read-before-update: the partial sums come back from device memory.
+    // The loads are issued before the first wait on the ring, so they
+    // travel while the first chunks land.
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (r + 8 * h >= bm) continue;
+      const float* crow = out + (size_t)(row0 + r + 8 * h) * np + col0;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = 8 * j + c2;
+        if (pairs && col < bn) {
+          const float2 v = *reinterpret_cast<const float2*>(crow + col);
+          acc[4 * j + 2 * h] = v.x;
+          acc[4 * j + 2 * h + 1] = v.y;
+        } else if (!pairs) {
+          if (col < bn) acc[4 * j + 2 * h] = crow[col];
+          if (col + 1 < bn) acc[4 * j + 2 * h + 1] = crow[col + 1];
+        }
+      }
+    }
+  }
+
+  // The tensor cores sum a group of FOLD chunks into part, from zero; acc
+  // takes each group's sum with an fp32 add that rounds to nearest.
+  float part[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) part[i] = 0.f;
+  for (int i = 0; i < n_chunks; ++i) {
+    const int s = i % STAGES;
+    mbar_wait(full + s, (i / STAGES) & 1);
+    const uint32_t xh = smem_u32(ring + s * C::STAGE) + wg * 64 * SW;
+    const uint32_t xl = xh + C::A_BYTES;
+    const uint32_t wh = smem_u32(ring + s * C::STAGE + 2 * C::A_BYTES);
+    const uint32_t wl = wh + C::B_BYTES;
+    fence_regs(part);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KC / 8; ++kk) {
+      // k-step kk is 32 bytes into each 128-byte row of every operand;
+      // 8-row groups 1024 bytes apart. The small terms first; a group's
+      // first product overwrites part.
+      const uint64_t dxh = mat_desc<SW>(xh + kk * 32, 16, 8 * SW);
+      const uint64_t dxl = mat_desc<SW>(xl + kk * 32, 16, 8 * SW);
+      const uint64_t dwh = mat_desc<SW>(wh + kk * 32, 16, 8 * SW);
+      const uint64_t dwl = mat_desc<SW>(wl + kk * 32, 16, 8 * SW);
+      WgmmaTf32<BN>::ss(part, dxl, dwh, kk > 0 || i % FOLD > 0);
+      WgmmaTf32<BN>::ss(part, dxh, dwl, 1);
+      WgmmaTf32<BN>::ss(part, dxh, dwh, 1);
+    }
+    wgmma_commit();
+    if (i % FOLD == FOLD - 1 || i == n_chunks - 1) {
+      wgmma_wait<0>();   // the group is summed: fold it
+      fence_regs(part);
+#pragma unroll
+      for (int j = 0; j < BN / 2; ++j) acc[j] += part[j];
+    } else {
+      wgmma_wait<1>();   // the previous chunk's products are done
+      fence_regs(part);
+    }
+    if (i > 0) mbar_arrive(empty + (i - 1) % STAGES);   // free its stage
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (r + 8 * h >= bm) continue;
+    float* crow = out + (size_t)(row0 + r + 8 * h) * np + col0;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = 8 * j + c2;
+      float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+      if (!PASSIVE) {
+        v0 = activate(v0, act);
+        v1 = activate(v1, act);
+      }
+      if (pairs) {
+        if (col < bn) *reinterpret_cast<float2*>(crow + col) = make_float2(v0, v1);
+      } else {
+        if (col < bn) crow[col] = v0;
+        if (col + 1 < bn) crow[col + 1] = v1;
+      }
+    }
+  }
+}
+
+template <int WGS, int BN>
+int launch(const float* xs, const float* wts, float* out, int passive, int act, int mp,
+           int np, int kp, int bm, int bn, int k_begin, int k_end, cudaStream_t stream) {
+  using C = Cfg<WGS, BN>;
+  // the packed columns end at k_end: the chunk past it reads zeros
+  CUtensorMap tx, tw;
+  int rc = tensor_map_2d(&tx, xs, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, 2 * mp, k_end, kp, bm);
+  if (!rc) rc = tensor_map_2d(&tw, wts, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, 2 * np, k_end, kp, bn);
+  static bool configured[2] = {false, false};
+  if (!rc) rc = passive ? allow_smem(psum_mm_tf32<WGS, BN, true>, C::SMEM, configured[1])
+                        : allow_smem(psum_mm_tf32<WGS, BN, false>, C::SMEM, configured[0]);
+  if (rc) return rc;
+  const dim3 grid(np / bn, mp / bm);
+  if (passive)
+    psum_mm_tf32<WGS, BN, true><<<grid, C::THREADS, C::SMEM, stream>>>(
+        tx, tw, out, mp, np, bm, bn, k_begin, k_end, act);
+  else
+    psum_mm_tf32<WGS, BN, false><<<grid, C::THREADS, C::SMEM, stream>>>(
+        tx, tw, out, mp, np, bm, bn, k_begin, k_end, act);
+  return (int)cudaGetLastError();
+}
+
+int launch_blocks(const float* xs, const float* wts, float* out, int passive, int act, int mp,
+                  int np, int kp, int bm, int bn, int k_begin, int k_end, cudaStream_t s) {
+  if (bm <= 64 && bn <= 64)
+    return launch<1, 64>(xs, wts, out, passive, act, mp, np, kp, bm, bn, k_begin, k_end, s);
+  if (bm <= 64)
+    return launch<1, 128>(xs, wts, out, passive, act, mp, np, kp, bm, bn, k_begin, k_end, s);
+  if (bn <= 64)
+    return launch<2, 64>(xs, wts, out, passive, act, mp, np, kp, bm, bn, k_begin, k_end, s);
+  return launch<2, 128>(xs, wts, out, passive, act, mp, np, kp, bm, bn, k_begin, k_end, s);
+}
+
+}  // namespace tf
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 float32, 1 bfloat16. body: 0 cuda_core, 1 tc_bf16 (bfloat16
+// dtype: 0 float32, 1 bfloat16. body: 0 cuda_core; 1 tc_bf16 (bfloat16
 // only; bn, kp, np and k_begin multiples of 8; x, w and out 16-byte
-// aligned). passive: 0 ->
-// out is (mp, np) in the input type; 1 -> out is the (mp, np) float32
-// partial sums, updated in place over [k_begin, k_end).
+// aligned); 2 tc_3xtf32 (float32 only; kp and k_begin multiples of 4; x, w
+// and out 16-byte aligned): x is then the pack's X pair (X_hi, then X_lo,
+// each (mp, kp)) and w its Wt pair (Wt_hi, then Wt_lo, each (np, kp)), as
+// psum_matmul_pack writes them. passive: 0 -> out is (mp, np) in the input
+// type; 1 -> out is the (mp, np) float32 partial sums, updated in place over
+// [k_begin, k_end).
 int psum_matmul_launch(const void* x, const void* w, void* out, int dtype, int body,
                        int passive, int act, int mp, int np, int kp, int bm,
                        int bn, int k_begin, int k_end, void* stream) {
@@ -407,6 +714,14 @@ int psum_matmul_launch(const void* x, const void* w, void* out, int dtype, int b
       return (int)cudaErrorInvalidValue;
     return tc::launch_blocks(x, w, out, passive, act, mp, np, kp, bm, bn, k_begin, k_end, s);
   }
+  if (body == 2) {
+    if (dtype != 0 || kp % 4 || k_begin % 4 || !aligned16(x) || !aligned16(w) ||
+        !aligned16(out))
+      return (int)cudaErrorInvalidValue;
+    return tf::launch_blocks(static_cast<const float*>(x), static_cast<const float*>(w),
+                             static_cast<float*>(out), passive, act, mp, np, kp, bm, bn,
+                             k_begin, k_end, s);
+  }
   if (body != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0) {
     core::launch<float>(x, w, out, passive, act, mp, np, kp, bm, bn, k_begin, k_end, s);
@@ -415,6 +730,21 @@ int psum_matmul_launch(const void* x, const void* w, void* out, int dtype, int b
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+// tc_3xtf32's pack pass: x (mp, kp) and w (kp, np), float32, row major ->
+// xs = X_hi, X_lo (each (mp, kp)) and wts = Wt_hi, Wt_lo (each (np, kp)),
+// hi = rna_tf32(v), lo = rna_tf32(v - hi). kp a multiple of 4; x, xs and
+// wts 16-byte aligned.
+int psum_matmul_pack(const void* x, const void* w, void* xs, void* wts, int mp, int np,
+                     int kp, void* stream) {
+  if (mp < 1 || np < 1 || kp < 4 || kp % 4 || !aligned16(x) || !aligned16(xs) ||
+      !aligned16(wts))
+    return (int)cudaErrorInvalidValue;
+  tf::pack<<<dim3(tf::PACK_BLOCKS, 2), tf::PACK_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w), static_cast<float*>(xs),
+      static_cast<float*>(wts), mp, np, kp);
   return (int)cudaGetLastError();
 }
 

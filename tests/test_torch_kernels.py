@@ -122,9 +122,12 @@ def test_matmul_launch_plan_matches_reference_geometry(controller):
     assert [o.array_shape for o in got.inputs + got.outputs] \
         == [o.array_shape for o in want.inputs + want.outputs]
     gk = want.grid[2] if controller == "active" else want.grid[0]
-    # passive: one launch per k-step; active: the k loop runs in the block
-    assert got.launches == (gk if controller == "passive" else 1)
-    assert got.loops == (() if controller == "passive" else (("k", gk),))
+    # float32 takes tc_3xtf32: its pack pass, then one launch per k-step
+    # (passive) or one whose k loop runs in the block over chunks of TF_KC
+    assert got.body == "tc_3xtf32"
+    assert got.launches == 1 + (gk if controller == "passive" else 1)
+    kc = 64 if controller == "passive" else 64 * gk
+    assert got.loops == (("k", -(-kc // tmm.TF_KC)),)
     assert got.grid == (3, 2)
 
 

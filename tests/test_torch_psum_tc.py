@@ -33,10 +33,11 @@ def test_main_path_plans_pick_their_body(controller):
     assert bf.launches == (12 if controller == "passive" else 1)
     f32 = tmm.matmul_launch_plan(**MAIN, controller=controller,
                                  dtype=torch.float32)
-    assert f32.body == "cuda_core"
-    assert (f32.grid, f32.threads, f32.smem_bytes) == ((70, 32), tmm.THREADS, 0)
-    assert f32.launches == bf.launches
-    assert tmm.matmul_launch_plan(**MAIN, controller=controller).body == "cuda_core"
+    assert f32.body == "tc_3xtf32"
+    assert (f32.grid, f32.threads) == ((70, 32), 288)
+    assert f32.smem_bytes == tmm.tf_smem_bytes(128, 128) <= plan.SMEM_BUDGET
+    assert f32.launches == bf.launches + 1     # and the pack pass
+    assert tmm.matmul_launch_plan(**MAIN, controller=controller).body == "tc_3xtf32"
 
 
 @pytest.mark.parametrize("blocks,body", [
