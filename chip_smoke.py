@@ -32,12 +32,18 @@
                                  version, timed
      flash_attention             Qwen2-1.5B's attention (12 q heads over 2
                                  kv heads, head dim 128, batch 4): prefill
-                                 at 1024 tokens (tc_bf16 / cuda_core body)
-                                 and decode of one token against 1056 keys
-                                 (split_kv body and its combine), fp32 and
-                                 bf16; kernel and SDPA times are replays of
-                                 a CUDA graph of 20 calls, so the wrapper's
-                                 Python does not count
+                                 at 1024 tokens (tc_bf16 body in bf16;
+                                 tc_3xtf32 in fp32, its pack pass
+                                 included, and cuda_core asked for by
+                                 name) and decode of one token against 1056
+                                 keys (split_kv body and its combine), fp32
+                                 and bf16; kernel and SDPA times are
+                                 replays of a CUDA graph of 20 calls, so
+                                 the wrapper's Python does not count; the
+                                 tc_3xtf32 row adds the bound of three TF32
+                                 passes beside the fp32 cores'; its pack
+                                 pass's four arrays are held bit for bit
+                                 against `tf32_split`
    and runs the kernels' other cases at small shapes (every activation,
    padded edges, odd channel blocks, stride 2, K in {1, 3, 7}; for the conv
    blocks of n in {8, 13, 17, 24, 64} and 1x1 blocks of 1280 and 2048
@@ -46,11 +52,13 @@
    chunk, K not a multiple of a chunk, odd bn, each plan's body checked;
    padded q and
    kv tails, decode, GQA, head dims 32 to 256 and StableLM-12B's 160 (padded
-   to 256), for each flash body; split_kv at Sq 1 and 8, GQA 4:1 and 6:1,
-   fewer keys than a tile, keys not a multiple of the split)
+   to 256), for each flash body; tc_3xtf32 at head dims 32, 64, 100 and
+   128, GQA 4:1 and 6:1, non-causal, a q offset, odd lengths, and V = I so
+   that the output is softmax(S) key by key; split_kv at Sq 1 and 8, GQA
+   4:1 and 6:1, fewer keys than a tile, keys not a multiple of the split)
    against the plain versions on the CPU, and fails unless the
    psum_matmul, conv2d_psum and flash libraries' SASS hold tensor-core
-   (HGMMA) instructions, and psum_matmul's TF32 ones.
+   (HGMMA) instructions, and psum_matmul's and flash's TF32 ones.
 4. Drives the main paths, each with every launch count set to 0 just before
    it and read just after:
    a. ResNet-18 at full channel width
@@ -65,10 +73,15 @@
       32 generated tokens: every attention layer of prefill runs the flash
       kernel's one-pass body, and every decode layer its split_kv body and
       combine.
+   c. the same model in fp32 (``dtype="float32"``, 28 layers, full width)
+      runs one forward over the serve batch (4 prompts of 1024): every
+      attention layer runs the flash kernel's tc_3xtf32 body and its pack
+      pass (28 launches each).
    Every output is checked against a library reference (the served logits
    against the model with `ref.attention_ref` as its attention, and against
-   one full forward of prompt plus generated tokens), and every kernel of a
-   path must have launched on it.
+   one full forward of prompt plus generated tokens; the fp32 forward's
+   logits against the same forward with `ref.attention_ref`), and every
+   kernel of a path must have launched on it.
 5. Prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 Any failed check exits non-zero. Without a CUDA device, or without the
@@ -80,6 +93,7 @@ from __future__ import annotations
 
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -96,6 +110,12 @@ NETWORK_REL_TOL = 1e-3
 FLASH_TOL = {"float32": 2e-4, "bfloat16": 3e-2}
 SERVE_ARCH, REQUESTS, SERVE_BATCH, PROMPT, GEN = "qwen2-1.5b", 8, 4, 1024, 32
 SERVE_REL_TOL = 5e-2
+
+
+def kernel_name(mangled: str) -> str:
+    """A kernel's mangled name without its anonymous namespace's token."""
+    m = re.match(r"_ZN(\d+)_GLOBAL__N_", mangled)
+    return mangled[m.end(1) + int(m.group(1)):][:72] if m else mangled[:72]
 
 
 def fail(msg: str) -> None:
@@ -132,9 +152,26 @@ def main() -> None:
     paths = _build.build()
     print(f"build: {len(paths)} libraries in {time.perf_counter() - t0:.1f} s")
     for name, path in paths.items():
-        for line in path.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+        log = path.with_suffix(".log").read_text().splitlines()
+        regs, spills, fn = {}, {}, ""
+        for line in log:
+            if m := re.search(r"Function properties for (\S+)", line):
+                fn = m.group(1)
+            elif m := re.search(r"(\d+) bytes spill stores", line):
+                spills[fn] = int(m.group(1))
+            elif m := re.search(r"Used (\d+) registers", line):
+                regs[fn] = int(m.group(1))
+        print(f"  {name}: {len(regs)} kernels, at most {max(regs.values())} "
+              f"registers a thread")
+        for fn, n in spills.items():
+            if n:
+                print(f"  {name}: {kernel_name(fn)}: {regs.get(fn)} registers, "
+                      f"{n} bytes spill stores")
+        # ptxas serializes wgmmas whose accumulator other code writes
+        # between their issue and their wait (C7515)
+        serialized = [line.rsplit("'", 2)[-2] for line in log if "C7515" in line]
+        print(f"  {name}: {len(serialized)} kernels with serialized wgmma (C7515)"
+              + "".join(f"\n    {kernel_name(fn)}" for fn in serialized))
 
     cuobjdump = pathlib.Path(_build.nvcc()).with_name("cuobjdump")
     for name in ("psum_matmul", "conv2d_psum", "flash_attention"):
@@ -145,7 +182,7 @@ def main() -> None:
         if not hgmma:
             fail(f"{name}: no HGMMA instruction in the library's SASS")
         print(f"{name} SASS: {len(hgmma)} HGMMA instructions")
-        if name == "psum_matmul":
+        if name in ("psum_matmul", "flash_attention"):
             tf32 = [line for line in hgmma if "TF32" in line]
             if not tf32:
                 fail(f"{name}: no TF32 HGMMA instruction in the library's SASS")
@@ -432,59 +469,109 @@ def main() -> None:
                      f"{dname}: max abs err "
                      f"{(got.float() - want.float()).abs().max().item()}")
             cases += 1
-    # 3d. flash_attention at Qwen2-1.5B's serving shapes
+    # 3d. flash_attention at Qwen2-1.5B's serving shapes: the body each
+    #     plan takes, and fp32 prefill on cuda_core asked for by name
     qcfg = get_config(SERVE_ARCH)
     hq, hkv, hd = qcfg.n_heads, qcfg.n_kv_heads, qcfg.hd
+    flash_body_for = {("prefill", torch.float32): "tc_3xtf32",
+                      ("prefill", torch.bfloat16): "tc_bf16",
+                      ("decode", torch.float32): "split_kv",
+                      ("decode", torch.bfloat16): "split_kv"}
     for case, (sq, skv, q_off) in {"prefill": (PROMPT, PROMPT, 0),
                                    "decode": (1, PROMPT + GEN, PROMPT + GEN - 1)
                                    }.items():
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).removeprefix("torch.")
-            fp = flash_attention.flash_launch_plan(
-                bh=SERVE_BATCH * hq, sq=sq, skv=skv, d=hd, q_offset=q_off,
-                kv_group=hq // hkv, dtype=dtype)
-            print(f"flash {case} {dname}: B={SERVE_BATCH} Hq={hq} Hkv={hkv} "
-                  f"Sq={sq} Skv={skv} D={hd} q_offset={q_off} body={fp.body} "
-                  f"grid={fp.grid} threads={fp.threads} smem={fp.smem_bytes} "
-                  f"loops={fp.loops}")
             q = torch.randn(SERVE_BATCH * hq, sq, hd, generator=gen).to(dev, dtype)
             k, v = (torch.randn(SERVE_BATCH * hkv, skv, hd, generator=gen)
                     .to(dev, dtype) for _ in range(2))
-            kp, vp = (torch.nn.functional.pad(
-                t, (0, 0, 0, fp.inputs[1].array_shape[1] - skv)).contiguous()
-                for t in (k, v))
-            got = fp.cuda(q, kp, vp)
-            want = fp.plain(q, kp, vp)
-            torch.cuda.synchronize()
-            tol = FLASH_TOL[dname]
-            err = (got.float() - want.float()).abs().max().item()
-            if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
-                fail(f"flash_attention {case} {dname}: kernel vs plain max abs "
-                     f"err {err}")
-            # SDPA, the yardstick: q heads grouped over repeated kv heads
-            q4 = q.view(SERVE_BATCH, hq, sq, hd)
-            k4, v4 = (t.view(SERVE_BATCH, hkv, skv, hd)
-                      .repeat_interleave(hq // hkv, dim=1) for t in (k, v))
-            flops = 4.0 * SERVE_BATCH * hq * sq * skv * hd
-            if case == "prefill":
-                flops /= 2                                  # causal
-            b_ms, b_by = bound(flops, q.element_size() * (
-                2 * q.numel() + k.numel() + v.numel()), dtype)
-            def sdpa():
-                return torch.nn.functional.scaled_dot_product_attention(
-                    q4, k4, v4, is_causal=case == "prefill")
-            stats = {"max_abs_err": err, "ms": graph_ms(lambda: fp.cuda(q, kp, vp)),
-                     "plain_ms": time_ms(lambda: fp.plain(q, kp, vp)),
-                     "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": graph_ms(sdpa),
-                     "eager_ms": time_ms(lambda: fp.cuda(q, kp, vp), reps=20),
-                     "eager_library_ms": time_ms(sdpa, reps=20),
-                     "body": fp.body, "launches_per_call": fp.launches}
-            print(f"flash_attention {case} {dname}: " + " ".join(
-                f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
-                for k, v in stats.items()))
-            rows.setdefault("flash_attention", {}).setdefault(case, {})[dname] = stats
-            del got, want, q, k, v, kp, vp, q4, k4, v4
+            forced_flash = ("cuda_core",) if (case, dtype) == ("prefill", torch.float32) \
+                else ()
+            for body in (None, *forced_flash):
+                fp = flash_attention.flash_launch_plan(
+                    bh=SERVE_BATCH * hq, sq=sq, skv=skv, d=hd, q_offset=q_off,
+                    kv_group=hq // hkv, dtype=dtype, body=body)
+                want_body = body or flash_body_for[(case, dtype)]
+                if fp.body != want_body:
+                    fail(f"flash_attention {case} {dname}: body {fp.body}, expected "
+                         f"{want_body}")
+                print(f"flash {case} {dname}: B={SERVE_BATCH} Hq={hq} Hkv={hkv} "
+                      f"Sq={sq} Skv={skv} D={hd} q_offset={q_off} body={fp.body} "
+                      f"grid={fp.grid} threads={fp.threads} smem={fp.smem_bytes} "
+                      f"loops={fp.loops}")
+                kp, vp = (torch.nn.functional.pad(
+                    t, (0, 0, 0, fp.inputs[1].array_shape[1] - skv)).contiguous()
+                    for t in (k, v))
+                got = fp.cuda(q, kp, vp)
+                want = fp.plain(q, kp, vp)
+                torch.cuda.synchronize()
+                tol = FLASH_TOL[dname]
+                err = (got.float() - want.float()).abs().max().item()
+                if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+                    fail(f"flash_attention {case} {dname} {fp.body}: kernel vs plain "
+                         f"max abs err {err}")
+                # SDPA, the yardstick: q heads grouped over repeated kv heads
+                q4 = q.view(SERVE_BATCH, hq, sq, hd)
+                k4, v4 = (t.view(SERVE_BATCH, hkv, skv, hd)
+                          .repeat_interleave(hq // hkv, dim=1) for t in (k, v))
+                flops = 4.0 * SERVE_BATCH * hq * sq * skv * hd
+                if case == "prefill":
+                    flops /= 2                                  # causal
+                nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+                b_ms, b_by = bound(flops, nbytes, dtype)
+                def sdpa():
+                    return torch.nn.functional.scaled_dot_product_attention(
+                        q4, k4, v4, is_causal=case == "prefill")
+                stats = {"max_abs_err": err, "ms": graph_ms(lambda: fp.cuda(q, kp, vp)),
+                         "plain_ms": time_ms(lambda: fp.plain(q, kp, vp)),
+                         "bound_ms": b_ms, "bound_by": b_by,
+                         "library_ms": graph_ms(sdpa),
+                         "eager_ms": time_ms(lambda: fp.cuda(q, kp, vp), reps=20),
+                         "eager_library_ms": time_ms(sdpa, reps=20),
+                         "body": fp.body, "launches_per_call": fp.launches}
+                if fp.body == "tc_3xtf32":
+                    # three TF32 passes bound this body; the fp32 cores'
+                    # bound beside it. The pack reads K and V once and
+                    # writes K_hi, K_lo, Vt_hi and Vt_lo.
+                    skv_t = -(-kp.shape[1] // flash_attention.TF_KT) * flash_attention.TF_KT
+                    t_ms, t_by = bound(flops, nbytes, "tf32x3")
+                    stats.update(bound_ms=t_ms, bound_by=t_by,
+                                 fp32_bound_ms=b_ms, fp32_bound_by=b_by,
+                                 pack_ms=graph_ms(lambda: flash_attention.tf32_pack_kv(
+                                     kp, vp, skv_t=skv_t)),
+                                 pack_bound_ms=1e3 * 3 * 4 * (k.numel() + v.numel())
+                                 / HBM_BYTES_PER_S)
+                print(f"flash_attention {case} {dname}: " + " ".join(
+                    f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
+                    for k, v in stats.items()))
+                key = dname if body is None else f"{dname}/{body}"
+                rows.setdefault("flash_attention", {}).setdefault(case, {})[key] = stats
+                del got, want, kp, vp, q4, k4, v4
+            if (case, dtype) == ("prefill", torch.float32):
+                flash_kv = (k, v)
+            del q, k, v
+
+    # tc_3xtf32's pack pass, bit for bit against tf32_split: at the prefill's
+    # K and V, and at rounding ties, zeros, subnormals and infinities
+    ks_small = torch.randn(2, 40, 64, generator=gen)
+    vs_small = torch.randn(2, 40, 64, generator=gen)
+    for t in (ks_small, vs_small):
+        t.view(-1).view(torch.int32)[:special.numel()] = special
+    for what, (ka, va) in {"prefill": flash_kv,
+                           "specials": (ks_small.to(dev), vs_small.to(dev))}.items():
+        skv_t = -(-ka.shape[1] // flash_attention.TF_KT) * flash_attention.TF_KT
+        got = flash_attention.tf32_pack_kv(ka, va, skv_t=skv_t)
+        want = flash_attention.tf32_pack_kv(ka.cpu(), va.cpu(), skv_t=skv_t)
+        for part, g, w in zip(("K", "Vt"), got, want):
+            for half, gh, wh in zip(("hi", "lo"), g.cpu(), w):
+                if not torch.equal(gh.view(torch.int32), wh.contiguous().view(torch.int32)):
+                    bad = (gh.view(torch.int32) != wh.contiguous().view(torch.int32)).sum()
+                    fail(f"flash_attention/pack {what}: {part}_{half} differs from "
+                         f"tf32_split in {bad.item()} words")
+        del got, want
+    del flash_kv
+    print("flash_attention/pack: K_hi, K_lo, Vt_hi, Vt_lo equal tf32_split bit for "
+          "bit (prefill K and V, and special values)")
 
     # 3e. flash_attention's other cases, small: the reference's cases
     #     (tests/test_kernels.py), odd blocks, GQA, head dims 32 to 256
@@ -535,7 +622,46 @@ def main() -> None:
                  f"abs err {(got.float() - want.float()).abs().max().item()}")
         cases += 1
 
-    # 3g. split_kv, small: Sq 1 and 8, GQA 4:1 and 6:1 over 2 kv heads,
+    # 3g. tc_3xtf32, small: head dims 32, 64, 100 (padded to 128) and 128,
+    #     padded q and kv tails, GQA 4:1 and 6:1, a non-causal call, a q
+    #     offset, 64-row heads in a grid of 200; and V = I (one kv head per
+    #     q head), where the output is softmax(S) itself, so a wrong map of
+    #     P's registers onto V^T's permuted keys shows as errors of order 1
+    tf_small = [(2, 128, 128, 32, True, 1), (2, 128, 128, 64, True, 1),
+                (2, 128, 128, 128, True, 1), (4, 300, 300, 128, True, 2),
+                (4, 256, 256, 128, False, 1), (2, 256, 1000, 128, True, 2),
+                (200, 64, 64, 64, True, 1), (8, 300, 300, 100, True, 4),
+                (12, 130, 170, 128, True, 6), (8, 77, 77, 32, True, 4),
+                (2, 128, 128, 128, False, "eye")]
+    for bh, sq, skv, d, causal, grp in tf_small:
+        q_off = skv - sq if causal else 0
+        eye = grp == "eye"
+        grp = 1 if eye else grp
+        tp = flash_attention.flash_launch_plan(bh=bh, sq=sq, skv=skv, d=d,
+                                               causal=causal, q_offset=q_off,
+                                               kv_group=grp, dtype=torch.float32)
+        if tp.body != "tc_3xtf32":
+            fail(f"flash_attention {(bh, sq, skv, d, causal, grp)}: body {tp.body}")
+        q = torch.randn(bh, sq, d, generator=gen)
+        k, v = (torch.randn(bh // grp, skv, d, generator=gen) for _ in range(2))
+        if eye:
+            v = torch.eye(skv, d).expand(bh, skv, d).contiguous()
+        kw = dict(causal=causal, q_offset=q_off)
+        got = flash_attention.flash_attention(q.to(dev), k.to(dev), v.to(dev),
+                                              **kw).cpu()
+        want = flash_attention.flash_attention(q, k, v, **kw)
+        if eye:
+            s = q @ k.mT / d ** 0.5
+            want_p = torch.softmax(s, -1)
+            if not torch.allclose(want.float(), want_p, rtol=1e-5, atol=1e-5):
+                fail("flash_attention plain version with V = I is not softmax(S)")
+        tol = FLASH_TOL["float32"]
+        if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+            fail(f"flash_attention tc_3xtf32 {(bh, sq, skv, d, causal, grp, eye)}: "
+                 f"max abs err {(got.float() - want.float()).abs().max().item()}")
+        cases += 1
+
+    # 3h. split_kv, small: Sq 1 and 8, GQA 4:1 and 6:1 over 2 kv heads,
     #     fewer keys than a staged tile, keys not a multiple of the split,
     #     head dims 64 to 256; each call must take the split_kv body
     split_small = [(1, 20, 64, 4), (8, 20, 128, 6), (1, 1001, 128, 6),
@@ -821,6 +947,64 @@ def main() -> None:
                 print(f"  {phase} device time {ms:.3f} ms in {n} calls: {key}")
         del caches
 
+    # 4c. the fp32 model, counted: Qwen2-1.5B at full width in float32 (the
+    #     config's dtype field), one forward over batch 0's prompts. Every
+    #     attention layer runs tc_3xtf32 and its pack pass; the logits are
+    #     held against the same forward with `ref.attention_ref`.
+    import dataclasses
+
+    from repro_torch.models.transformer import init_lm
+    prompts = b0["prompts"]
+    del record, sparams, b0
+    fcfg = dataclasses.replace(scfg, dtype="float32")
+    with torch.inference_mode():
+        fparams = init_lm(fcfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+        launch.reset_launches()
+        t0 = time.perf_counter()
+        f_logits = forward(fparams, fcfg, prompts)[0]
+        torch.cuda.synchronize()
+        f_wall = 1e3 * (time.perf_counter() - t0)
+        fp32_counts = dict(launch.LAUNCHES)
+        print(f"fp32 forward launches: {fp32_counts}")
+        expect = {"flash_attention": fcfg.n_layers,
+                  "flash_attention/pack": fcfg.n_layers}
+        if fp32_counts != expect:
+            fail(f"fp32 forward launched {fp32_counts}, expected {expect} (one "
+                 f"tc_3xtf32 launch and one pack a layer)")
+        with mock.patch.object(ops, "gqa_flash_attention", ref_attention):
+            f_rel = serve_err(f_logits, forward(fparams, fcfg, prompts)[0],
+                              "fp32 forward logits")
+        del f_logits
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            forward(fparams, fcfg, prompts)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+        busy, flash_busy, pack_busy = 0.0, 0.0, 0.0
+        for evt in prof.key_averages():
+            if evt.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            dev_us = getattr(evt, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(evt, "self_cuda_time_total", 0.0)
+            busy += dev_us / 1e3
+            if "flash_kernel" in evt.key:
+                flash_busy += dev_us / 1e3
+            elif "::pack" in evt.key:
+                pack_busy += dev_us / 1e3
+        del fparams
+    print(f"fp32 forward (Qwen2-1.5B, {fcfg.n_layers} layers, batch "
+          f"{SERVE_BATCH} x {PROMPT}): logits vs attention_ref {f_rel:.3g} "
+          f"(max-abs-err/max-abs, limit {SERVE_REL_TOL}); wall {f_wall:.3f} ms "
+          f"unprofiled; device busy {busy:.3f} ms (kernel events), "
+          f"flash_attention kernels {flash_busy:.3f} ms ({flash_busy / busy:.3f} "
+          f"of busy) and their pack passes {pack_busy:.3f} ms "
+          f"({pack_busy / busy:.3f}); wall {wall:.3f} ms profiled; idle share "
+          f"{1 - busy / wall:.3f}")
+
     # 5. result lines
     sources = {"psum_matmul/active": ("psum_matmul", "src/repro/kernels/psum_matmul.py:48"),
                "psum_matmul/passive": ("psum_matmul", "src/repro/kernels/psum_matmul.py:66"),
@@ -854,6 +1038,17 @@ def main() -> None:
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],
         "dtype": "bfloat16", "case": "prefill", "by_case": fl})
+    tf = fl["prefill"]["float32"]               # the fp32 model's body
+    kernels.append({
+        "name": "flash_attention/tc_3xtf32", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:26",
+        "launches": fp32_counts["flash_attention"],
+        "pack_launches": fp32_counts["flash_attention/pack"],
+        **{key: tf[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms", "fp32_bound_ms",
+                                    "pack_ms", "eager_ms")},
+        "dtype": "float32", "case": "prefill", "body": tf["body"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,8 @@
 // flash_attention for NVIDIA Hopper (sm_90a): online-softmax attention with
 // the fp32 (m, l, acc) partial sums of every q row kept on chip across the
-// kv walk. Three bodies, chosen by `flash_launch_plan`
+// kv walk. Four bodies, chosen by `flash_launch_plan`
 // (src/repro_torch/kernels/flash_attention.py) from the dtype and the shape;
-// all three replace the TPU kernel `_flash_kernel` of
+// all four replace the TPU kernel `_flash_kernel` of
 // src/repro/kernels/flash_attention.py, where the kv blocks are the
 // sequential, innermost grid axis and (m, l, acc) live in VMEM scratch from
 // one grid step to the next. Hopper blocks carry nothing between them, so
@@ -34,8 +34,49 @@
 //            skips the math of a tile none of its rows sees.
 //   epilogue O / max(l, 1e-30), written once in bf16.
 //
-// cuda_core (fp32 prefill; TF32 would not hold the reference's fp32
-// tolerance, so fp32 stays exact on the fp32 cores: 67 TFLOP/s)
+// tc_3xtf32 (fp32 one pass at d 32, 64 or 128; bound by tensor-core
+// operations: three TF32 passes of 12.9 GFLOP take 0.078 ms at Qwen2-1.5B's
+// prefill, the fp32 cores' one pass 0.192 ms). One TF32 pass keeps 11
+// significant bits of each operand and misses the reference's fp32
+// tolerance of 2e-4 (9e-4 at S = 1024, D = 128); splitting each operand
+// v = hi + lo (hi = tf32(v), lo = tf32(v - hi)) and summing lo*hi + hi*lo +
+// hi*hi keeps about 22 bits and holds it.
+//   pack     one launch a call, before the body: K -> K_hi, K_lo, each
+//            (hkv, skv_p, D); V -> Vt_hi, Vt_lo, each (hkv, D, skv_t),
+//            transposed because TF32 wgmma takes B only K-major and the
+//            keys are the PV product's K, with each group of 8 keys
+//            stored in the order 0, 2, 4, 6, 1, 3, 5, 7 (key_at) and zero
+//            past skv_p. Q is not packed: a block splits its Q tile in
+//            shared memory, as it reads it once (K and V tiles are read by
+//            every q tile of their q heads).
+//   grid     as tc_bf16's: (BH, q tiles of 128 rows), longest causal walks
+//            first; 288 threads, two consumer warpgroups of 64 q rows and
+//            one producer warp.
+//   smem     Q_hi and Q_lo (128 KiB at D = 128), then STAGES stages of
+//            K_hi, K_lo, Vt_hi and Vt_lo tiles of KT = 32 keys (64 KiB at
+//            D = 128): one stage at D = 128 (197,672 bytes), two below.
+//            With one stage K and V^T have their own barriers: K of tile
+//            i + 1 lands during the softmax and PV of tile i, V^T of tile
+//            i + 1 during the S product of tile i + 1.
+//   S = QK^T per k8 step three wgmma m64nKTk8.tf32, A and B by descriptor
+//            (128-byte swizzle, as TMA lands them), the small terms first
+//            (lo hi, hi lo, hi hi), summed from zero per tile.
+//   softmax  as tc_bf16's, on S's own columns (masks before any split).
+//   P        split into TF32 hi and lo in registers (cvt.rna); the S
+//            accumulator's registers of a group of 8 keys are wgmma's A
+//            fragment against V^T's permuted keys as they stand.
+//   O += PV  three wgmma m64nDk8.tf32 per k8 step, A = P from registers, B
+//            = V^T by descriptor; O stays in fp32 registers, accumulated in
+//            place by the tensor cores over the whole walk.
+//   skip     as tc_bf16's. K and V^T have barriers of their own, so a
+//            warpgroup that skips a tile still waits for its V^T before it
+//            frees the stage: its arrival then counts toward that tile.
+//   epilogue O / max(l, 1e-30), written once in fp32.
+// Kept out: lo*lo and the split's residue (2^-22 of each operand), and the
+// tensor cores' sums, which truncate rather than round.
+//
+// cuda_core (fp32 one pass outside tc_3xtf32's head dims, i.e. 256, or
+// when asked for by name; exact fp32 on the fp32 cores: 67 TFLOP/s)
 //   grid     (row tiles of QT = 32 q rows, BH); 128 threads = 8 row groups
 //            x 16 lanes. Thread (ty, tx) owns rows ty + 8i (i < 4), and for
 //            each row its fp32 m, l and D/16 columns of acc in registers.
@@ -77,7 +118,8 @@
 // with ctypes; each entry point returns cudaGetLastError() after its launch.
 // TMA descriptors are encoded through the runtime's entry-point lookup, so
 // the library is not linked against libcuda. The Hopper building blocks
-// (mbarriers, TMA, wgmma) come from hopper.cuh, shared with psum_matmul.cu.
+// (mbarriers, TMA, wgmma, the TF32 split) come from hopper.cuh, shared
+// with psum_matmul.cu and conv2d_psum.cu.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -527,31 +569,15 @@ flash_kernel_tc(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   }
 }
 
-// The tensor map of a (heads, rows, d) bf16 array: boxes of box_rows rows
-// by one swizzle span of columns, zero-filled past the array's rows.
-int tensor_map(CUtensorMap* map, const void* base, int heads, int rows, int d, int box_rows,
-               int sw) {
-  const EncodeTiled encode = encode_tiled();
-  if (!encode) return (int)cudaErrorSymbolNotFound;
-  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows, (cuuint64_t)heads};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)d * 2 * rows};
-  const cuuint32_t box[3] = {(cuuint32_t)(sw / 2), (cuuint32_t)box_rows, 1};
-  const cuuint32_t step[3] = {1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
-                            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            sw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
-
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int bh, int sq_p, int skv_p,
            int skv, int group, int causal, int q_offset, float scale, cudaStream_t stream) {
   using C = Cfg<D>;
+  constexpr CUtensorMapDataType BF16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap tq, tk, tv;
-  int rc = tensor_map(&tq, q, bh, sq_p, D, QROWS, C::SW);
-  if (!rc) rc = tensor_map(&tk, k, bh / group, skv_p, D, C::KT, C::SW);
-  if (!rc) rc = tensor_map(&tv, v, bh / group, skv_p, D, C::KT, C::SW);
+  int rc = tensor_map_3d(&tq, q, BF16, 2, bh, sq_p, D, QROWS, C::SW);
+  if (!rc) rc = tensor_map_3d(&tk, k, BF16, 2, bh / group, skv_p, D, C::KT, C::SW);
+  if (!rc) rc = tensor_map_3d(&tv, v, BF16, 2, bh / group, skv_p, D, C::KT, C::SW);
   static bool configured = false;
   if (!rc) rc = allow_smem(flash_kernel_tc<D>, C::SMEM, configured);
   if (rc) return rc;
@@ -563,6 +589,363 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh, int sq_
 }
 
 }  // namespace tc
+
+// ---------------------------------------------------------------- tc_3xtf32
+namespace tf {
+
+constexpr int KT = 32;         // keys per K and V^T tile
+constexpr int WGS = 2;         // consumer warpgroups of 64 q rows a block
+constexpr int PACK_THREADS = 256;
+constexpr int PACK_BLOCKS = 132 * 8;
+
+// The key the pack stores at position pos of V^T's rows. The S accumulator
+// holds columns 2t and 2t + 1 of each group of 8 keys (t = lane % 4); the
+// TF32 A fragment of a k8 step holds columns t and t + 4. Stored in the
+// order 0, 2, 4, 6, 1, 3, 5, 7, A's column c is key 2c (c < 4) or
+// 2(c - 4) + 1, so the S registers (d0, d2, d1, d3) of a group are the A
+// registers (a0, a1, a2, a3) as they stand: P stays in registers without a
+// shuffle, and no quad shuffle is needed.
+__device__ __forceinline__ int key_at(int pos) {
+  const int c = pos & 7;
+  return (pos & ~7) + (c < 4 ? 2 * c : 2 * c - 7);
+}
+
+// The pack pass, one launch a call. blockIdx.y 0: k (hkv, skv_p, d) -> ks =
+// K_hi, K_lo, each (hkv, skv_p, d), four elements a thread a step.
+// blockIdx.y 1: v (hkv, skv_p, d) -> vts = Vt_hi, Vt_lo, each (hkv, d,
+// skv_t): transposed through 32 x 32 tiles of shared memory, each group of
+// 8 keys in the order of key_at, zero from skv_p on. hi = tf32_rna(x), lo =
+// tf32_rna(x - hi).
+__global__ void __launch_bounds__(PACK_THREADS)
+pack(const float* __restrict__ k, const float* __restrict__ v, float* __restrict__ ks,
+     float* __restrict__ vts, int hkv, int skv_p, int skv_t, int d) {
+  if (blockIdx.y == 0) {
+    const size_t n4 = (size_t)hkv * skv_p * d / 4;
+    const float4* src = reinterpret_cast<const float4*>(k);
+    float4* hi = reinterpret_cast<float4*>(ks);
+    float4* lo = hi + n4;
+    for (size_t u = (size_t)blockIdx.x * blockDim.x + threadIdx.x; u < n4;
+         u += (size_t)gridDim.x * blockDim.x) {
+      const float4 x = src[u];
+      float4 h, l;
+      tf32_split(x.x, h.x, l.x);
+      tf32_split(x.y, h.y, l.y);
+      tf32_split(x.z, h.z, l.z);
+      tf32_split(x.w, h.w, l.w);
+      hi[u] = h;
+      lo[u] = l;
+    }
+  } else {
+    __shared__ float tile[32][33];
+    const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+    const int tk = skv_t / 32, td = d / 32;
+    float* hi = vts;
+    float* lo = vts + (size_t)hkv * d * skv_t;
+    for (size_t t = blockIdx.x; t < (size_t)hkv * tk * td; t += gridDim.x) {
+      const int h = (int)(t / ((size_t)tk * td));
+      const int k0 = (int)(t / td % tk) * 32, d0 = (int)(t % td) * 32;
+      const float* vb = v + (size_t)h * skv_p * d;
+      for (int r = ty; r < 32; r += 8) {           // keys k0 + r, columns d0 + tx of v
+        const int key = k0 + r;
+        tile[r][tx] = key < skv_p ? vb[(size_t)key * d + d0 + tx] : 0.f;
+      }
+      __syncthreads();
+      for (int r = ty; r < 32; r += 8) {           // row d0 + r of Vt, position k0 + tx
+        float hv, lv;
+        tf32_split(tile[key_at(tx)][r], hv, lv);
+        const size_t at = ((size_t)h * d + d0 + r) * skv_t + k0 + tx;
+        hi[at] = hv;
+        lo[at] = lv;
+      }
+      __syncthreads();
+    }
+  }
+}
+
+template <int D>
+struct Cfg {
+  static constexpr int QROWS = 64 * WGS;              // q rows per block
+  static constexpr int CONSUMERS = 128 * WGS;         // one warpgroup per 64 rows
+  static constexpr int THREADS = CONSUMERS + 32;      // and one producer warp
+  static constexpr int VSW = KT >= 32 ? 128 : 4 * KT; // swizzle span of a V^T row
+  static constexpr int Q_BYTES = QROWS * D * 4;       // Q_hi or Q_lo
+  static constexpr int KV_BYTES = KT * D * 4;         // K_hi, K_lo, Vt_hi or Vt_lo
+  static constexpr int STAGE = 4 * KV_BYTES;
+  // 1024 bytes of slack to align the tiles to the swizzle pattern, Q_hi and
+  // Q_lo, STAGES stages of (K_hi, K_lo, Vt_hi, Vt_lo), then the barriers
+  // q_full, k_full[STAGES], v_full[STAGES], k_empty[STAGES], v_empty[STAGES].
+  // Two stages where they fit in one block's 232,448 bytes, else one.
+  static constexpr int fixed = 1024 + 2 * Q_BYTES;
+  static constexpr int STAGES = fixed + 2 * STAGE + 8 * 9 <= 232448 ? 2 : 1;
+  static constexpr int SMEM = fixed + STAGES * STAGE + 8 * (1 + 4 * STAGES);
+};
+
+// A K-major operand (Q of `rows` rows, or K of KT) staged as D / 32 chunks of
+// rows x 128 bytes: k-step kk (8 columns) starts in chunk kk / 4, 32 bytes
+// further per k-step inside the swizzle span; 8-row groups 1024 bytes apart.
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int rows, int kk) {
+  return mat_desc<128>(tile + (kk / 4) * rows * 128 + (kk % 4) * 32, 16, 1024);
+}
+
+// V^T (D rows of KT keys) staged as chunks of D rows x VSW bytes: k-step kk
+// (8 keys) starts in chunk kk / (VSW / 32), 32 bytes further per k-step.
+template <int D>
+__device__ __forceinline__ uint64_t vt_desc(uint32_t tile, int kk) {
+  constexpr int VSW = Cfg<D>::VSW, PER = VSW / 32;
+  return mat_desc<VSW>(tile + (kk / PER) * D * VSW + (kk % PER) * 32, 16, 8 * VSW);
+}
+
+template <int D>
+__global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
+flash_kernel_tf32(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv, float* __restrict__ o, int sq_p,
+                  int skv, int hkv, int group, int causal, int q_offset, float scale_log2) {
+  using C = Cfg<D>;
+  constexpr int STAGES = C::STAGES;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* qs = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);   // Q_hi, Q_lo
+  uint8_t* kv = qs + 2 * C::Q_BYTES;             // stage s: K_hi, K_lo, Vt_hi, Vt_lo
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(kv + STAGES * C::STAGE);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + STAGES;
+  uint64_t* k_empty = v_full + STAGES;
+  uint64_t* v_empty = k_empty + STAGES;
+
+  const int bh = blockIdx.x;
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * C::QROWS;   // longest causal walks first
+  const int kv_end = causal ? min(skv, q_offset + min(row0 + C::QROWS, sq_p)) : skv;
+  const int n_tiles = (kv_end + KT - 1) / KT;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full + s, 1);
+      mbar_init(v_full + s, 1);
+      mbar_init(k_empty + s, C::CONSUMERS);
+      mbar_init(v_empty + s, C::CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= C::CONSUMERS) {
+    // producer warp: its lane 0 issues every copy. K of tile i goes into
+    // stage i % STAGES once the consumers' S products have read the tile
+    // before it there, V^T once their PV products have: with one stage, K
+    // of tile i + 1 lands during the softmax and PV of tile i.
+    if (threadIdx.x == C::CONSUMERS) {
+      const int hk = bh / group;
+      mbar_expect_tx(q_full, C::Q_BYTES);
+      for (int c = 0; c < D / 32; ++c)
+        tma_load(qs + c * C::QROWS * 128, &tq, c * 32, row0, bh, q_full);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % STAGES;
+        uint8_t* st = kv + s * C::STAGE;
+        if (i >= STAGES) mbar_wait(k_empty + s, ((i / STAGES) - 1) & 1);
+        mbar_expect_tx(k_full + s, 2 * C::KV_BYTES);
+        for (int c = 0; c < D / 32; ++c) {
+          tma_load(st + c * KT * 128, &tk, c * 32, i * KT, hk, k_full + s);
+          tma_load(st + C::KV_BYTES + c * KT * 128, &tk, c * 32, i * KT, hkv + hk, k_full + s);
+        }
+        if (i >= STAGES) mbar_wait(v_empty + s, ((i / STAGES) - 1) & 1);
+        mbar_expect_tx(v_full + s, 2 * C::KV_BYTES);
+        for (int c = 0; c < 4 * KT / C::VSW; ++c) {
+          const int key = i * KT + c * C::VSW / 4;
+          tma_load(st + 2 * C::KV_BYTES + c * D * C::VSW, &tv, key, 0, hk, v_full + s);
+          tma_load(st + 3 * C::KV_BYTES + c * D * C::VSW, &tv, key, 0, hkv + hk, v_full + s);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg owns rows wrow0 .. wrow0 + 63; in the wgmma
+  // fragments a thread holds rows r_a and r_a + 8 of them, columns
+  // 8j + c2 and 8j + c2 + 1
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int lane = tid % 32;
+  const int wrow0 = row0 + wg * 64;
+  const int r_a = (tid / 32) * 16 + lane / 4;
+  const int c2 = (lane % 4) * 2;
+  const int q_id[2] = {q_offset + wrow0 + r_a, q_offset + wrow0 + r_a + 8};
+  const int wg_last = q_offset + wrow0 + 63;   // the last key a causal row here sees
+  const uint32_t q_hi = smem_u32(qs) + wg * 64 * 128;
+  const uint32_t q_lo = q_hi + C::Q_BYTES;
+
+  // Q lands in fp32 where Q_hi goes; each warpgroup splits its own 64 rows
+  // in place, element by element (the swizzle places Q_hi's and Q_lo's
+  // elements alike), and hands them to the tensor cores' proxy
+  mbar_wait(q_full, 0);
+#pragma unroll
+  for (int c = 0; c < D / 32; ++c) {
+    float4* hi = reinterpret_cast<float4*>(qs + c * C::QROWS * 128 + wg * 64 * 128);
+    float4* lo = reinterpret_cast<float4*>(qs + C::Q_BYTES + c * C::QROWS * 128 + wg * 64 * 128);
+#pragma unroll
+    for (int u = tid; u < 64 * 128 / 16; u += 128) {
+      const float4 x = hi[u];
+      float4 h, l;
+      tf32_split(x.x, h.x, l.x);
+      tf32_split(x.y, h.y, l.y);
+      tf32_split(x.z, h.z, l.z);
+      tf32_split(x.w, h.w, l.w);
+      hi[u] = h;
+      lo[u] = l;
+    }
+  }
+  fence_proxy_async();
+  bar_sync(1 + wg, 128);
+
+  float oacc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % STAGES;
+    const uint32_t phase = (i / STAGES) & 1;
+    const int k0 = i * KT;
+    mbar_wait(k_full + s, phase);
+    if (causal && k0 > wg_last) {
+      // no row of this warpgroup sees the tile. It still waits for the
+      // tile's V^T: that lands only once both warpgroups have freed the
+      // stage's previous V^T, so this arrival on v_empty counts toward this
+      // tile's phase and not toward one the other warpgroup is still in
+      mbar_wait(v_full + s, phase);
+      mbar_arrive(k_empty + s);
+      mbar_arrive(v_empty + s);
+      continue;
+    }
+    // S = Q K^T in fp32 registers: per k8 step three TF32 products, the
+    // small terms first (lo hi, hi lo, hi hi), summed from zero per tile
+    const uint32_t k_hi = smem_u32(kv + s * C::STAGE), k_lo = k_hi + C::KV_BYTES;
+    float sacc[KT / 2];
+#pragma unroll
+    for (int j = 0; j < KT / 2; ++j) sacc[j] = 0.f;
+    fence_regs(sacc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const uint64_t qh = kmajor_desc(q_hi, C::QROWS, kk), ql = kmajor_desc(q_lo, C::QROWS, kk);
+      const uint64_t kh = kmajor_desc(k_hi, KT, kk), kl = kmajor_desc(k_lo, KT, kk);
+      WgmmaTf32<KT>::ss(sacc, ql, kh, kk > 0);
+      WgmmaTf32<KT>::ss(sacc, qh, kl, 1);
+      WgmmaTf32<KT>::ss(sacc, qh, kh, 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sacc);
+    mbar_arrive(k_empty + s);   // this warpgroup is done with K_hi and K_lo
+
+    // scale into the log2 domain, mask, and the online softmax, all on S's
+    // own columns: a masked or padded key gets p = 0
+    const bool edge = k0 + KT > skv || (causal && k0 + KT - 1 > q_offset + wrow0);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = sacc[4 * j + e] * scale_log2;
+        if (edge) {
+          const int col = k0 + 8 * j + c2 + (e & 1);
+          if (col >= skv || (causal && col > q_id[e / 2])) x = NEG_INF;
+        }
+        sacc[4 * j + e] = x;
+        mx[e / 2] = fmaxf(mx[e / 2], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      alpha[h] = exp2f(m[h] - mx[h]);   // rescale the old partial sums
+      m[h] = mx[h];
+      l[h] *= alpha[h];
+    }
+    // P split into TF32 hi and lo in registers; k-step j takes keys
+    // 8j .. 8j + 7, and the S registers (d0, d2, d1, d3) of that group are
+    // the A registers (a0, a1, a2, a3) against V^T's permuted keys (key_at)
+    uint32_t ph[KT / 8][4], pl[KT / 8][4];
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float p0 = exp2f(sacc[4 * j + 2 * h] - m[h]);
+        const float p1 = exp2f(sacc[4 * j + 2 * h + 1] - m[h]);
+        l[h] += p0 + p1;
+        float h0, l0, h1, l1;
+        tf32_split(p0, h0, l0);
+        tf32_split(p1, h1, l1);
+        ph[j][h] = __float_as_uint(h0);
+        pl[j][h] = __float_as_uint(l0);
+        ph[j][2 + h] = __float_as_uint(h1);
+        pl[j][2 + h] = __float_as_uint(l1);
+      }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) oacc[4 * j + e] *= alpha[e / 2];
+
+    // O += P V in place: three TF32 products per k8 step, A from registers
+    const uint32_t v_hi = k_hi + 2 * C::KV_BYTES, v_lo = k_hi + 3 * C::KV_BYTES;
+    mbar_wait(v_full + s, phase);
+    fence_regs(oacc);
+    fence_regs(ph);
+    fence_regs(pl);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j) {
+      const uint64_t vh = vt_desc<D>(v_hi, j), vl = vt_desc<D>(v_lo, j);
+      WgmmaTf32<D>::rs(oacc, pl[j], vh, 1);
+      WgmmaTf32<D>::rs(oacc, ph[j], vl, 1);
+      WgmmaTf32<D>::rs(oacc, ph[j], vh, 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(oacc);
+    fence_regs(ph);
+    fence_regs(pl);
+    mbar_arrive(v_empty + s);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const int r = wrow0 + r_a + 8 * h;
+    if (r >= sq_p) continue;
+    const float den = fmaxf(l[h], 1e-30f);
+    float* orow = o + ((size_t)bh * sq_p + r) * D + c2;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(orow + 8 * j) =
+          make_float2(oacc[4 * j + 2 * h] / den, oacc[4 * j + 2 * h + 1] / den);
+  }
+}
+
+template <int D>
+int launch(const void* q, const void* ks, const void* vts, void* o, int bh, int sq_p,
+           int skv_p, int skv_t, int skv, int group, int causal, int q_offset, float scale,
+           cudaStream_t stream) {
+  using C = Cfg<D>;
+  constexpr CUtensorMapDataType F32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  const int hkv = bh / group;
+  // Q (bh, sq_p, D); the K pair as one (2 hkv, skv_p, D) array and the V^T
+  // pair as one (2 hkv, D, skv_t) array: the lo halves start hkv heads on
+  CUtensorMap tq, tk, tv;
+  int rc = tensor_map_3d(&tq, q, F32, 4, bh, sq_p, D, C::QROWS, 128);
+  if (!rc) rc = tensor_map_3d(&tk, ks, F32, 4, 2 * hkv, skv_p, D, KT, 128);
+  if (!rc) rc = tensor_map_3d(&tv, vts, F32, 4, 2 * hkv, D, skv_t, D, C::VSW);
+  static bool configured = false;
+  if (!rc) rc = allow_smem(flash_kernel_tf32<D>, C::SMEM, configured);
+  if (rc) return rc;
+  const dim3 grid(bh, (sq_p + C::QROWS - 1) / C::QROWS);
+  flash_kernel_tf32<D><<<grid, C::THREADS, C::SMEM, stream>>>(
+      tq, tk, tv, static_cast<float*>(o), sq_p, skv, hkv, group, causal, q_offset,
+      scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tf
 
 // ----------------------------------------------------------------- split_kv
 namespace split {
@@ -870,6 +1253,42 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
     case 256: return launch_one_pass<256>(dtype, q, k, v, o, bh, sq_p, skv_p, skv, group, causal, q_offset, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// One pass on the tc_3xtf32 body (float32; d 32, 64 or 128): q and o are
+// (bh, sq_p, d); ks is the pack's K_hi then K_lo, each (bh / group, skv_p,
+// d), and vts its Vt_hi then Vt_lo, each (bh / group, d, skv_t) with skv_t
+// a multiple of the key tile, at least skv_p, as flash_attention_pack
+// writes them.
+int flash_tf32_launch(const void* q, const void* ks, const void* vts, void* o, int bh,
+                      int sq_p, int skv_p, int skv_t, int skv, int d, int group, int causal,
+                      int q_offset, float scale, void* stream) {
+  if (bad_shape(bh, sq_p, skv_p, skv, group, causal, q_offset) || skv_t < skv_p ||
+      skv_t % tf::KT || !aligned16(q) || !aligned16(ks) || !aligned16(vts) || !aligned16(o))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 32: return tf::launch<32>(q, ks, vts, o, bh, sq_p, skv_p, skv_t, skv, group, causal, q_offset, scale, s);
+    case 64: return tf::launch<64>(q, ks, vts, o, bh, sq_p, skv_p, skv_t, skv, group, causal, q_offset, scale, s);
+    case 128: return tf::launch<128>(q, ks, vts, o, bh, sq_p, skv_p, skv_t, skv, group, causal, q_offset, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// tc_3xtf32's pack pass: k and v (hkv, skv_p, d), float32, row major -> ks
+// = K_hi, K_lo (each (hkv, skv_p, d)) and vts = Vt_hi, Vt_lo (each (hkv, d,
+// skv_t)), V transposed, each group of 8 keys in the order 0, 2, 4, 6, 1,
+// 3, 5, 7, zero from key skv_p on. d and skv_t multiples of 32; k and ks
+// 16-byte aligned.
+int flash_attention_pack(const void* k, const void* v, void* ks, void* vts, int hkv, int skv_p,
+                         int skv_t, int d, void* stream) {
+  if (hkv < 1 || skv_p < 1 || skv_t < skv_p || skv_t % 32 || d < 32 || d % 32 ||
+      !aligned16(k) || !aligned16(ks))
+    return (int)cudaErrorInvalidValue;
+  tf::pack<<<dim3(tf::PACK_BLOCKS, 2), tf::PACK_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(k), static_cast<const float*>(v), static_cast<float*>(ks),
+      static_cast<float*>(vts), hkv, skv_p, skv_t, d);
+  return (int)cudaGetLastError();
 }
 
 // split_kv pass 1 (dtype 0 float32, 1 bfloat16): the fp32 partials of

@@ -1,10 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
 // (csrc/flash_attention.cu, csrc/psum_matmul.cu, csrc/conv2d_psum.cu):
-// shared-memory addresses, mbarriers, TMA tile and bulk loads, wgmma fences,
-// shared-memory matrix descriptors, the wgmma instructions themselves (bf16
-// in, widths 8 to 256; tf32 in, widths 64 and 128; fp32 accumulators) and
-// the encoding of TMA tensor maps through the runtime's entry-point lookup,
-// so no library is linked against libcuda.
+// shared-memory addresses, mbarriers, named barriers, TMA tile and bulk
+// loads, wgmma fences, shared-memory matrix descriptors, the wgmma
+// instructions themselves (bf16 in, widths 8 to 256; tf32 in, widths 32, 64
+// and 128, A from shared memory or from registers; fp32 accumulators), the
+// split of an fp32 value into two TF32 halves, and the encoding of TMA tensor
+// maps through the runtime's entry-point lookup, so no library is linked
+// against libcuda.
 //
 // `_build.library_path` hashes every header a source includes, so a change
 // here rebuilds every library that uses it.
@@ -372,11 +374,40 @@ template <> struct Wgmma<256> {
   }
 };
 
-// TF32 wgmma: both operands from shared memory and both K-major (the TF32
-// forms take no transpose), k8 a step: 32 bytes of each operand row. The
-// tensor cores read a TF32 operand's top 19 bits and ignore the low 13, so
-// the caller rounds (cvt.rna.tf32.f32) before the data reaches them.
+// TF32 wgmma, k8 a step: 32 bytes of each operand row. B comes from shared
+// memory, K-major (the TF32 forms take no transpose); A from shared memory
+// (ss), K-major too, or from four registers a thread (rs): the fragment of
+// mma.m16n8k8.tf32 for each warp's 16 rows, a0 = (row g, column t), a1 =
+// (g + 8, t), a2 = (g, t + 4), a3 = (g + 8, t + 4) with g = lane / 4 and
+// t = lane % 4. The tensor cores read a TF32 operand's top 19 bits and
+// ignore the low 13, so the caller rounds (tf32_rna) before the data reaches
+// them. acc = 0 makes a product overwrite d.
 template <int N> struct WgmmaTf32;
+
+template <> struct WgmmaTf32<32> {
+  // d (64 x 32, fp32) += A (64 x 8, shared) * B (8 x 32, shared), both
+  // K-major
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(acc));
+  }
+  // d (64 x 32, fp32) += A (64 x 8, registers) * B (8 x 32, shared, K-major)
+  static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db,
+                                            int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+  }
+};
 
 template <> struct WgmmaTf32<64> {
   // d (64 x 64, fp32) += A (64 x 8, shared) * B (8 x 64, shared), both
@@ -391,6 +422,19 @@ template <> struct WgmmaTf32<64> {
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
         : "l"(da), "l"(db), "r"(acc));
+  }
+  // d (64 x 64, fp32) += A (64 x 8, registers) * B (8 x 64, shared, K-major)
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                            int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
   }
 };
 
@@ -412,7 +456,49 @@ template <> struct WgmmaTf32<128> {
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "l"(da), "l"(db), "r"(acc));
   }
+  // d (64 x 128, fp32) += A (64 x 8, registers) * B (8 x 128, shared, K-major)
+  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                            int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+  }
 };
+
+// round to TF32 (nearest, ties away from zero): the low 13 bits cleared
+__device__ __forceinline__ float tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+  return __uint_as_float(r);
+}
+
+// v = hi + lo + e, |e| <= 2^-22 |v| for a normal v: hi = rna(v) and lo =
+// rna(v - hi), where v - hi is exact in fp32; an infinite hi has lo = 0.
+__device__ __forceinline__ void tf32_split(float v, float& hi, float& lo) {
+  hi = tf32_rna(v);
+  lo = isinf(hi) ? 0.f : tf32_rna(v - hi);
+}
+
+// Named barrier `id` (1..15; 0 is __syncthreads') over `threads` threads.
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" :: "r"(id), "r"(threads) : "memory");
+}
+
+// Make this thread's generic-proxy writes to shared memory visible to the
+// async proxy (wgmma operand reads, TMA) after the next barrier.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -454,6 +540,26 @@ inline int tensor_map_2d(CUtensorMap* map, const void* base, CUtensorMapDataType
                               CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The tensor map of a (heads, rows, cols) row-major array of `dtype`
+// (elements of `elem_bytes`): boxes of box_rows rows of one head by one
+// swizzle span of `sw` bytes (128 or 64) of columns, zero-filled past the
+// array's rows and columns. Returns 0 or a cudaError_t.
+inline int tensor_map_3d(CUtensorMap* map, const void* base, CUtensorMapDataType dtype,
+                         int elem_bytes, int heads, int rows, int cols, int box_rows, int sw) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return (int)cudaErrorSymbolNotFound;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * elem_bytes,
+                                 (cuuint64_t)cols * elem_bytes * rows};
+  const cuuint32_t box[3] = {(cuuint32_t)(sw / elem_bytes), (cuuint32_t)box_rows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = encode(map, dtype, 3, const_cast<void*>(base), dims, strides, box, step,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            sw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 }  // namespace hopper

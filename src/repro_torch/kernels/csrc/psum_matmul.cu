@@ -421,20 +421,6 @@ constexpr int GROUP = 8;       // tile rows an active launch walks together
 constexpr int PACK_THREADS = 256;
 constexpr int PACK_BLOCKS = 132 * 8;
 
-// round to TF32 (nearest, ties away from zero): the low 13 bits cleared
-__device__ __forceinline__ float rna_tf32(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
-  return __uint_as_float(r);
-}
-
-// v = hi + lo + e, |e| <= 2^-22 |v| for a normal v: hi = rna(v) and lo =
-// rna(v - hi), where v - hi is exact in fp32; an infinite hi has lo = 0.
-__device__ __forceinline__ void split(float v, float& hi, float& lo) {
-  hi = rna_tf32(v);
-  lo = isinf(hi) ? 0.f : rna_tf32(v - hi);
-}
-
 // The pack pass, one launch a call. blockIdx.y 0: x (mp, kp) -> xs = X_hi,
 // X_lo, each (mp, kp), four elements a thread a step. blockIdx.y 1: w (kp,
 // np) -> wts = Wt_hi, Wt_lo, each (np, kp): the transpose goes through 32 x
@@ -451,10 +437,10 @@ pack(const float* __restrict__ x, const float* __restrict__ w, float* __restrict
          u += (size_t)gridDim.x * blockDim.x) {
       const float4 v = src[u];
       float4 h, l;
-      split(v.x, h.x, l.x);
-      split(v.y, h.y, l.y);
-      split(v.z, h.z, l.z);
-      split(v.w, h.w, l.w);
+      tf32_split(v.x, h.x, l.x);
+      tf32_split(v.y, h.y, l.y);
+      tf32_split(v.z, h.z, l.z);
+      tf32_split(v.w, h.w, l.w);
       hi[u] = h;
       lo[u] = l;
     }
@@ -475,7 +461,7 @@ pack(const float* __restrict__ x, const float* __restrict__ w, float* __restrict
         const int n = n0 + r, k = k0 + tx;
         if (n < np && k < kp) {
           float h, l;
-          split(tile[tx][r], h, l);
+          tf32_split(tile[tx][r], h, l);
           hi[(size_t)n * kp + k] = h;
           lo[(size_t)n * kp + k] = l;
         }
@@ -735,7 +721,7 @@ int psum_matmul_launch(const void* x, const void* w, void* out, int dtype, int b
 
 // tc_3xtf32's pack pass: x (mp, kp) and w (kp, np), float32, row major ->
 // xs = X_hi, X_lo (each (mp, kp)) and wts = Wt_hi, Wt_lo (each (np, kp)),
-// hi = rna_tf32(v), lo = rna_tf32(v - hi). kp a multiple of 4; x, xs and
+// hi = tf32_rna(v), lo = tf32_rna(v - hi). kp a multiple of 4; x, xs and
 // wts 16-byte aligned.
 int psum_matmul_pack(const void* x, const void* w, void* xs, void* wts, int mp, int np,
                      int kp, void* stream) {

@@ -5,13 +5,23 @@ blocks instead of materialising S = QK^T in device memory (which would be the
 passive schedule).
 
 On a CUDA tensor `flash_attention` runs the hand-written kernels in
-``csrc/flash_attention.cu``; `flash_launch_plan` picks one of three bodies
+``csrc/flash_attention.cu``; `flash_launch_plan` picks one of four bodies
 from the dtype and the shape, and the plan names it:
 
   ``tc_bf16``    bfloat16, one pass: 128 q rows per block, QK^T and PV on
                  the tensor cores (wgmma), K/V tiles staged by TMA; P is
                  rounded to bf16 before PV (the reference keeps it fp32).
-  ``cuda_core``  float32, one pass on the fp32 cores: 32 q rows per block.
+  ``tc_3xtf32``  float32, one pass at head dims up to TF_MAX_D: tc_bf16's
+                 block on TF32 tensor cores in three passes. One TF32 pass
+                 keeps 11 significant bits of each operand and misses
+                 float32's 2e-4; a pack pass (one launch a call, counted as
+                 ``flash_attention/pack``) splits K and V into hi + lo
+                 (`tf32_split`) and lays V out transposed with its keys
+                 permuted (`tf32_pack_kv`), the block splits Q and P itself,
+                 and QK^T and PV each sum lo*hi + hi*lo + hi*hi.
+  ``cuda_core``  float32, one pass on the fp32 cores: 32 q rows per block;
+                 wider head dims (256), or asked for by name (``body=`` of
+                 `flash_launch_plan`).
   ``split_kv``   either dtype, when the one-pass grid would not fill the
                  card (at most SPLIT_ROWS rows of a kv head and fewer
                  one-pass blocks than SMS): the keys are cut into ranges, a
@@ -46,6 +56,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build, launch
+from repro_torch.kernels.psum_matmul import tf32_split
+from repro_torch.plan.gemm_model import SMEM_BUDGET
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128, 256)     # head dims the CUDA kernels are built for
@@ -60,6 +72,12 @@ THREADS = 128
 TC_QT = 128
 TC_THREADS = 288
 TC_STAGES = 2
+# tc_3xtf32: tc_bf16's block over tiles of TF_KT keys of K_hi, K_lo, Vt_hi
+# and Vt_lo, head dims up to TF_MAX_D; the pack stores each group of 8 keys
+# of V^T in TF_KEY_ORDER
+TF_KT = 32
+TF_MAX_D = 128
+TF_KEY_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
 # split_kv: a block serves at most SPLIT_ROWS rows of one kv head; its keys
 # are staged SPLIT_KT at a time, and a split holds about SPLIT_UNIT keys or
 # more
@@ -71,6 +89,9 @@ SPLIT_UNIT = 64
 _C_ARGS = {
     "flash_attention_launch": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                                + [ctypes.c_float, ctypes.c_void_p]),
+    "flash_tf32_launch": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+                          + [ctypes.c_float, ctypes.c_void_p]),
+    "flash_attention_pack": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     "flash_split_launch": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 11
                            + [ctypes.c_float, ctypes.c_void_p]),
     "flash_combine_launch": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
@@ -119,6 +140,62 @@ def tc_smem_bytes(d: int) -> int:
     return 1024 + 2 * d * (TC_QT + 2 * TC_STAGES * tc_keys(d)) + 8 * (1 + 3 * TC_STAGES)
 
 
+def tf_stages(d: int) -> int:
+    """Stages of K_hi, K_lo, Vt_hi and Vt_lo tiles in a tc_3xtf32 block
+    (``tf::Cfg<D>::STAGES``): two where they fit beside Q_hi and Q_lo in
+    one block's shared memory, else one (at d = 128)."""
+    fixed = 1024 + 2 * 4 * TC_QT * d
+    return 2 if fixed + 2 * 16 * TF_KT * d + 8 * 9 <= SMEM_BUDGET else 1
+
+
+def tf_smem_bytes(d: int) -> int:
+    """Shared memory of one tc_3xtf32 block (``tf::Cfg<D>::SMEM``): 1024
+    bytes to align to the swizzle pattern, the fp32 Q_hi and Q_lo tiles of
+    TC_QT rows, `tf_stages` stages of four fp32 tiles of TF_KT keys, and
+    the mbarriers (q_full, and a full and an empty one for K and for V^T
+    per stage)."""
+    stages = tf_stages(d)
+    return (1024 + 2 * 4 * TC_QT * d + stages * 4 * 4 * TF_KT * d
+            + 8 * (1 + 4 * stages))
+
+
+def tf_key_order(n: int) -> torch.Tensor:
+    """The key tc_3xtf32's pack stores at each of n positions of a V^T row:
+    each group of 8 keys in TF_KEY_ORDER, so that the S accumulator's
+    registers of a group are wgmma's TF32 A fragment as they stand."""
+    pos = torch.arange(n)
+    return (pos & ~7) + torch.tensor(TF_KEY_ORDER)[pos & 7]
+
+
+def tf32_pack_kv(kp: torch.Tensor, vp: torch.Tensor, *, skv_t: int
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """tc_3xtf32's pack pass over padded float32 k and v (hkv, skv_p, d):
+    ks (2, hkv, skv_p, d) = K_hi, K_lo; vts (2, hkv, d, skv_t) = Vt_hi,
+    Vt_lo, V transposed, zero-padded to skv_t keys, each group of 8 keys in
+    `tf_key_order`. A CUDA tensor runs the pass's kernel (one launch,
+    counted as ``flash_attention/pack``); a CPU tensor its plain version,
+    `tf32_split`."""
+    hkv, skv_p, d = kp.shape
+    if kp.device.type == "cpu":
+        vt = F.pad(vp.transpose(1, 2), (0, skv_t - skv_p))[..., tf_key_order(skv_t)]
+        return torch.stack(tf32_split(kp)), torch.stack(tf32_split(vt))
+    name = "flash_attention/pack"
+    launch.check_operands(name, kp, vp, dtypes=(torch.float32,))
+    if d % 32 or skv_t % TF_KT or skv_t < skv_p or kp.data_ptr() % 16:
+        raise ValueError(f"{name}: needs a head dim ({d}) that is a multiple "
+                         f"of 32, {skv_t} >= {skv_p} keys in whole tiles of "
+                         f"{TF_KT}, and k on a 16-byte boundary")
+    fn = _entry_points()["flash_attention_pack"]
+    ks = torch.empty(2, hkv, skv_p, d, dtype=torch.float32, device=kp.device)
+    vts = torch.empty(2, hkv, d, skv_t, dtype=torch.float32, device=kp.device)
+    with torch.cuda.device(kp.device):
+        rc = fn(kp.data_ptr(), vp.data_ptr(), ks.data_ptr(), vts.data_ptr(), hkv,
+                skv_p, skv_t, d, torch.cuda.current_stream(kp.device).cuda_stream)
+        _build.check(_build.load(KERNEL_SOURCE), rc, name)
+        launch.count_launch(name)
+    return ks, vts
+
+
 def split_smem_bytes(d: int, rows: int, dtype: torch.dtype) -> int:
     """Shared memory of one split_kv block (``split::Cfg<T, D>::smem``): fp32
     q rows, p rows and (m, l, alpha) per row, and two stages of K and V
@@ -142,14 +219,26 @@ def split_keys(*, hkv: int, rows: int, skv: int, d: int) -> tuple[int, int]:
     return -(-skv // split_len), split_len
 
 
-def flash_body(*, bh: int, sq_p: int, kv_group: int, dtype: torch.dtype) -> str:
+def one_pass_body(dtype: torch.dtype, d_run: int) -> str:
+    """The one-pass body of a dtype at the built head dim d_run: tc_bf16
+    for bfloat16; tc_3xtf32 for float32 up to TF_MAX_D, where its O tile
+    and its Q_hi and Q_lo tiles fit (at 256 a 64-row O tile alone takes
+    128 registers a thread), cuda_core past it."""
+    if dtype == torch.bfloat16:
+        return "tc_bf16"
+    return "tc_3xtf32" if d_run <= TF_MAX_D else "cuda_core"
+
+
+def flash_body(*, bh: int, sq_p: int, kv_group: int, dtype: torch.dtype,
+               d_run: int) -> str:
     """The kernel body a call takes: split_kv when its one-pass grid would
-    not fill the card and a block can hold all rows of a kv head, else the
-    one-pass body of its dtype."""
+    not fill the card and a block can hold all rows of a kv head (rows of
+    a block counted as TC_QT in bfloat16 and QT in float32), else
+    `one_pass_body`."""
     rows_per_block = TC_QT if dtype == torch.bfloat16 else QT
     if sq_p * kv_group <= SPLIT_ROWS and bh * -(-sq_p // rows_per_block) < SMS:
         return "split_kv"
-    return "tc_bf16" if dtype == torch.bfloat16 else "cuda_core"
+    return one_pass_body(dtype, d_run)
 
 
 def check_flash_launch(bh: int, sq: int, skv: int, d: int, bq: int = 128,
@@ -204,6 +293,12 @@ def flash_plain(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor, *,
     operands, every (head, q block) at once. qp: (BH, Sq_p, D); kp/vp:
     (BH / g, Skv_p, D). Per q row it carries an fp32 acc, m and l.
 
+    tc_3xtf32 differs from it in what three TF32 passes drop: lo*lo and
+    the split's residue (2^-22 of each operand, in QK^T and in PV), and the
+    tensor cores' sums, which truncate rather than round (O is summed by
+    them over the whole walk); cuda_core and split_kv only in the order of
+    the sums, tc_bf16 also in P rounded to bf16.
+
     With ``splits > 1`` the keys [0, skv) are cut into ranges of
     ceil(skv / splits), as split_kv cuts them: each range runs the loop from
     its own initial state, and the partials combine as split_kv's second
@@ -233,12 +328,14 @@ def flash_plain(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor, *,
 
 def _flash_cuda(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor, *,
                 causal: bool, q_offset: int, skv: int, splits: int = 0,
-                dtype: torch.dtype | None = None) -> torch.Tensor:
+                dtype: torch.dtype | None = None,
+                body: str | None = None) -> torch.Tensor:
     """Launch the Hopper kernels at the built head dim of the operands' d:
     zero-pad q, k and v to it, keep the scale of the logical d, and slice
     the output back. ``dtype``, where given, is the dtype the launch plan
     chose its body for: operands of another dtype raise, before any copy or
-    library load."""
+    library load. ``body`` is the plan's; None takes split_kv when
+    ``splits`` is given, else `one_pass_body`."""
     name = "flash_attention"
     launch.check_operands(name, qp, kp, vp, dtypes=DTYPE_CODES)
     if dtype is not None and qp.dtype != dtype:
@@ -246,23 +343,26 @@ def _flash_cuda(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor, *,
                          f"{qp.dtype} operands")
     d = qp.shape[-1]
     d_run = built_head_dim(d)
+    if body is None:
+        body = "split_kv" if splits else one_pass_body(qp.dtype, d_run)
+    kw = dict(causal=causal, q_offset=q_offset, skv=skv, splits=splits, d=d,
+              body=body)
     if d_run == d:
-        return _flash_launch(qp, kp, vp, causal=causal, q_offset=q_offset,
-                             skv=skv, splits=splits, d=d)
+        return _flash_launch(qp, kp, vp, **kw)
     qp, kp, vp = (F.pad(t, (0, d_run - d)) for t in (qp, kp, vp))
-    return _flash_launch(qp, kp, vp, causal=causal, q_offset=q_offset, skv=skv,
-                         splits=splits, d=d)[..., :d]
+    return _flash_launch(qp, kp, vp, **kw)[..., :d]
 
 
 def _flash_launch(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor, *,
                   causal: bool, q_offset: int, skv: int, splits: int,
-                  d: int) -> torch.Tensor:
-    """Launch the Hopper kernels over padded operands. ``splits = 0``: one
-    pass, the cuda_core body for float32 and tc_bf16 for bfloat16. Else
-    split_kv: pass 1 over `splits` key ranges into fp32 partials allocated
-    here, then the combine (counted as ``flash_attention/combine``).
-    ``d`` is the logical head dim, whose 1/sqrt(d) scales the scores; the
-    operands may be zero-padded past it."""
+                  d: int, body: str) -> torch.Tensor:
+    """Launch the Hopper kernels of ``body`` over padded operands: one pass
+    on cuda_core (float32) or tc_bf16 (bfloat16); tc_3xtf32 (float32) after
+    its pack pass (`tf32_pack_kv`); or split_kv, pass 1 over `splits` key
+    ranges into fp32 partials allocated here, then the combine (counted as
+    ``flash_attention/combine``). ``d`` is the logical head dim, whose
+    1/sqrt(d) scales the scores; the operands may be zero-padded past it.
+    Everything a body cannot take raises before any library is loaded."""
     name = "flash_attention"
     bh, sq_p, d_run = qp.shape
     hkv, skv_p, _ = kp.shape
@@ -272,6 +372,15 @@ def _flash_launch(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor, *,
     if bh % hkv or tuple(vp.shape) != tuple(kp.shape):
         raise ValueError(f"{name}: q heads {bh} over k {tuple(kp.shape)}, "
                          f"v {tuple(vp.shape)}")
+    takes = {"cuda_core": torch.float32, "tc_3xtf32": torch.float32,
+             "tc_bf16": torch.bfloat16, "split_kv": qp.dtype}
+    if body not in takes or (body == "split_kv") != bool(splits):
+        raise ValueError(f"{name}: body {body!r} with splits={splits}")
+    if qp.dtype != takes[body]:
+        raise ValueError(f"{name}: {body} takes {takes[body]}, got {qp.dtype}")
+    if body == "tc_3xtf32" and d_run > TF_MAX_D:
+        raise ValueError(f"{name}: tc_3xtf32 takes head dims up to "
+                         f"{TF_MAX_D}, got {d_run}")
     group = bh // hkv
     if splits and group * sq_p > SPLIT_ROWS:
         raise ValueError(f"{name}: split_kv serves at most {SPLIT_ROWS} rows "
@@ -283,6 +392,16 @@ def _flash_launch(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor, *,
     code, scale = DTYPE_CODES[qp.dtype], 1.0 / math.sqrt(d)
     stream = torch.cuda.current_stream(qp.device).cuda_stream
     with torch.cuda.device(qp.device):
+        if body == "tc_3xtf32":
+            skv_t = skv_p + (-skv_p) % TF_KT
+            ks, vts = tf32_pack_kv(kp, vp, skv_t=skv_t)
+            rc = fns["flash_tf32_launch"](
+                qp.data_ptr(), ks.data_ptr(), vts.data_ptr(), out.data_ptr(), bh,
+                sq_p, skv_p, skv_t, skv, d_run, group, int(causal), q_offset,
+                scale, stream)
+            _build.check(lib, rc, name)
+            launch.count_launch(name)
+            return out
         if not splits:
             rc = fns["flash_attention_launch"](
                 qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(),
@@ -315,15 +434,20 @@ def _flash_launch(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor, *,
 @functools.lru_cache(maxsize=1024)
 def flash_launch_plan(*, bh: int, sq: int, skv: int, d: int, bq: int = 128,
                       bk: int = 128, causal: bool = True, q_offset: int = 0,
-                      kv_group: int = 1,
-                      dtype: torch.dtype | None = None) -> launch.LaunchPlan:
+                      kv_group: int = 1, dtype: torch.dtype | None = None,
+                      body: str | None = None) -> launch.LaunchPlan:
     """The launch `flash_attention` executes, from plain integers: blocks
     clamped and sequences padded exactly as the reference does, the body
-    picked by `flash_body` for ``dtype`` (float32 when None). The grid,
-    threads, shared memory and in-block loops are the body's:
+    picked by `flash_body` for ``dtype`` (float32 when None), or ``body``
+    where given: the body `flash_body` picks, or cuda_core for a float32
+    call (any other raises). The grid, threads, shared memory and in-block
+    loops are the body's:
 
       tc_bf16    grid (BH, q tiles of TC_QT); loop over the kv tiles of
                  `tc_keys(d)` keys that the longest block walks
+      tc_3xtf32  tc_bf16's grid; loop over the kv tiles of TF_KT keys; its
+                 pack pass is one launch more, and K_hi, K_lo, Vt_hi and
+                 Vt_lo are device scratch
       cuda_core  grid (q tiles of QT, BH); loop over the reference's kv
                  blocks
       split_kv   grid (splits, BH / g), then the combine, grid (g x Sq_p,
@@ -345,11 +469,19 @@ def flash_launch_plan(*, bh: int, sq: int, skv: int, d: int, bq: int = 128,
     hkv = bh // kv_group
     rows = kv_group * sq_p
     d_run = built_head_dim(d)
-    body = flash_body(bh=bh, sq_p=sq_p, kv_group=kv_group, dtype=dtype)
-    splits = 0
+    chosen = flash_body(bh=bh, sq_p=sq_p, kv_group=kv_group, dtype=dtype,
+                        d_run=d_run)
+    if body is None:
+        body = chosen
+    elif body != chosen and not (body == "cuda_core" and dtype == torch.float32):
+        raise ValueError(f"flash_attention: body {body!r} does not take this "
+                         f"launch; it takes {chosen}"
+                         + (" or cuda_core" if dtype == torch.float32 else ""))
+    splits, packs = 0, 0
     scratch = (launch.ScratchPlan("acc", (bq, d_run), "registers"),
                launch.ScratchPlan("m", (bq, 1), "registers"),
                launch.ScratchPlan("l", (bq, 1), "registers"))
+    kv_end = min(skv, q_offset + sq_p) if causal else skv
     if body == "split_kv":
         splits, split_len = split_keys(hkv=hkv, rows=rows, skv=skv, d=d_run)
         grid, threads = (splits, hkv), SPLIT_THREADS
@@ -362,8 +494,18 @@ def flash_launch_plan(*, bh: int, sq: int, skv: int, d: int, bq: int = 128,
                    launch.ScratchPlan("part_ml", (hkv, splits, rows, 2), "device"))
     elif body == "tc_bf16":
         grid, threads = (bh, -(-sq_p // TC_QT)), TC_THREADS
-        kv_end = min(skv, q_offset + sq_p) if causal else skv
         smem, loops = tc_smem_bytes(d_run), (("kv", -(-kv_end // tc_keys(d_run))),)
+    elif body == "tc_3xtf32":
+        grid, threads = (bh, -(-sq_p // TC_QT)), TC_THREADS
+        smem, loops = tf_smem_bytes(d_run), (("kv", -(-kv_end // TF_KT)),)
+        packs, skv_t = 1, skv_p + (-skv_p) % TF_KT
+        scratch += (launch.ScratchPlan("q_tiles", (2, TC_QT, d_run), "shared"),
+                    launch.ScratchPlan("kv_ring", (tf_stages(d_run), 4, TF_KT, d_run),
+                                       "shared"),
+                    launch.ScratchPlan("k_hi", (hkv, skv_p, d_run), "device"),
+                    launch.ScratchPlan("k_lo", (hkv, skv_p, d_run), "device"),
+                    launch.ScratchPlan("vt_hi", (hkv, d_run, skv_t), "device"),
+                    launch.ScratchPlan("vt_lo", (hkv, d_run, skv_t), "device"))
     else:
         grid, threads = (-(-sq_p // QT), bh), THREADS
         smem, loops = 4 * smem_floats(d_run), (("kv", gk),)
@@ -377,7 +519,7 @@ def flash_launch_plan(*, bh: int, sq: int, skv: int, d: int, bq: int = 128,
         grid=grid,
         threads=threads,
         smem_bytes=smem,
-        launches=2 if splits else 1,
+        launches=(2 if splits else 1) + packs,
         loops=loops,
         inputs=(launch.OperandPlan("q", (bh, sq_p, d), (1, bq, d)),
                 launch.OperandPlan("k", kv_shape, (1, bk, d)),
@@ -385,7 +527,7 @@ def flash_launch_plan(*, bh: int, sq: int, skv: int, d: int, bq: int = 128,
         outputs=(launch.OperandPlan("out", (bh, sq_p, d), (1, bq, d)),),
         scratch=scratch,
         cuda=functools.partial(_flash_cuda, causal=causal, q_offset=q_offset,
-                               skv=skv, splits=splits, dtype=dtype),
+                               skv=skv, splits=splits, dtype=dtype, body=body),
         plain=functools.partial(flash_plain, bq=bq, bk=bk, causal=causal,
                                 q_offset=q_offset, skv=skv,
                                 splits=max(1, splits)),

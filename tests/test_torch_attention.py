@@ -138,8 +138,8 @@ def test_launch_check_rejects_before_planning(kw, match):
 def test_launch_plan_matches_reference_geometry(bh, sq, skv, d, bq, bk, q_offset,
                                                 dtype):
     """Operand shapes are the reference's; the grid and loops are the body's
-    own: one block per 32 (cuda_core) or 128 (tc_bf16) padded q rows of a
-    head, or one per (split, kv head) for split_kv."""
+    own: one block per 32 (cuda_core) or 128 (tc_bf16, tc_3xtf32) padded q
+    rows of a head, or one per (split, kv head) for split_kv."""
     kw = dict(bh=bh, sq=sq, skv=skv, d=d, bq=bq, bk=bk, q_offset=q_offset)
     got = tflash.flash_launch_plan(**kw, dtype=DTYPES[dtype][1])
     want = jflash.flash_launch_plan(**kw)
@@ -153,6 +153,10 @@ def test_launch_plan_matches_reference_geometry(bh, sq, skv, d, bq, bk, q_offset
         assert got.loops == (("kv", -(-min(skv, q_offset + sq_p)
                                       // tflash.tc_keys(d))),)
         assert got.grid == (bh, -(-sq_p // tflash.TC_QT))
+    elif got.body == "tc_3xtf32":
+        assert got.loops == (("kv", -(-min(skv, q_offset + sq_p)
+                                      // tflash.TF_KT)),)
+        assert got.grid == (bh, -(-sq_p // tflash.TC_QT)) and got.launches == 2
     else:
         splits, split_len = tflash.split_keys(hkv=bh, rows=sq_p, skv=skv, d=d)
         assert got.loops == (("kv", -(-split_len // tflash.SPLIT_KT)),
@@ -304,14 +308,15 @@ QWEN_DECODE = dict(bh=48, sq=1, skv=1056, d=128, q_offset=1055, kv_group=6)
 
 
 @pytest.mark.parametrize("kw,dtype,body,grid,loops", [
-    (QWEN_PREFILL, "float32", "cuda_core", (32, 48), (("kv", 8),)),
+    (QWEN_PREFILL, "float32", "tc_3xtf32", (48, 8), (("kv", 32),)),
     (QWEN_PREFILL, "bfloat16", "tc_bf16", (48, 8), (("kv", 8),)),
     (QWEN_DECODE, "float32", "split_kv", (17, 8), (("kv", 2), ("splits", 17))),
     (QWEN_DECODE, "bfloat16", "split_kv", (17, 8), (("kv", 2), ("splits", 17))),
 ])
 def test_plan_body_at_qwen2_serving_shapes(kw, dtype, body, grid, loops):
     """Qwen2-1.5B at batch 4 (12 q heads over 2 kv heads, D 128): prefill of
-    1024 tokens takes the one-pass body of its dtype; decode against 1056
+    1024 tokens takes the one-pass body of its dtype (tc_3xtf32 adds its
+    pack pass, one launch more); decode against 1056
     keys splits the keys of 8 kv heads 17 ways (136 blocks on 132 SMs) and
     reads each kv head once for its 6 q heads."""
     plan = tflash.flash_launch_plan(**kw, dtype=DTYPES[dtype][1])
@@ -323,13 +328,12 @@ def test_plan_body_at_qwen2_serving_shapes(kw, dtype, body, grid, loops):
         assert scratch["part_ml"].shape == (8, 17, 6, 2)
         assert scratch["part_acc"].where == "device"
     else:
-        assert plan.launches == 1
-        assert plan.threads == (tflash.TC_THREADS if body == "tc_bf16"
-                                else tflash.THREADS)
+        assert plan.launches == (2 if body == "tc_3xtf32" else 1)
+        assert plan.threads == tflash.TC_THREADS
 
 
 @pytest.mark.parametrize("case,bodies", zip(ATTN_CASES, [
-    ("cuda_core", "tc_bf16"), ("split_kv", "split_kv"), ("cuda_core", "tc_bf16"),
+    ("tc_3xtf32", "tc_bf16"), ("split_kv", "split_kv"), ("tc_3xtf32", "tc_bf16"),
     ("split_kv", "split_kv"), ("split_kv", "split_kv")]))
 def test_plan_body_at_reference_cases(case, bodies):
     """The reference's five cases: two are one-pass, three split (at most 64
@@ -443,8 +447,8 @@ def test_cuda_wrapper_pads_head_dim_and_keeps_the_scale(monkeypatch):
     given, scaled by 1/sqrt(d), the result is the oracle's at d = 160."""
     seen = []
 
-    def exact(qp, kp, vp, *, causal, q_offset, skv, splits, d):
-        seen.append((tuple(qp.shape), tuple(kp.shape), d))
+    def exact(qp, kp, vp, *, causal, q_offset, skv, splits, d, body):
+        seen.append((tuple(qp.shape), tuple(kp.shape), d, body))
         g = qp.shape[0] // kp.shape[0]
         k, v = (t.repeat_interleave(g, dim=0).float() for t in (kp, vp))
         s = torch.einsum("bqd,bkd->bqk", qp.float(), k) / math.sqrt(d)
@@ -457,7 +461,7 @@ def test_cuda_wrapper_pads_head_dim_and_keeps_the_scale(monkeypatch):
     q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
                for shape in ((8, 16, 160), (2, 16, 160), (2, 16, 160)))
     got = tflash._flash_cuda(q, k, v, causal=True, q_offset=0, skv=16)
-    assert seen == [((8, 16, 256), (2, 16, 256), 160)]
+    assert seen == [((8, 16, 256), (2, 16, 256), 160, "cuda_core")]
     want = tref.attention_ref(q, k.repeat_interleave(4, 0), v.repeat_interleave(4, 0))
     assert got.shape == (8, 16, 160)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)

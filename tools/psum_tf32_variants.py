@@ -201,7 +201,7 @@ A_REGS_CONSUMER = """  uint32_t ah0[KC / 8][4], al0[KC / 8][4], ah1[KC / 8][4], 
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         float h, l;
-        split(__uint_as_float(v[j]), h, l);
+        tf32_split(__uint_as_float(v[j]), h, l);
         fh[kk][j] = __float_as_uint(h);
         fl[kk][j] = __float_as_uint(l);
       }
