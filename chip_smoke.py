@@ -91,7 +91,9 @@ result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import pathlib
 import re
 import subprocess
@@ -573,6 +575,62 @@ def main() -> None:
     print("flash_attention/pack: K_hi, K_lo, Vt_hi, Vt_lo equal tf32_split bit for "
           "bit (prefill K and V, and special values)")
 
+    # 3d'. split_kv with a device position, as the compiled decode step runs
+    #      it: K and V are a whole cache of PROMPT + GEN keys, unpadded, and
+    #      pass 1 reads (q_offset, valid length) from device memory. At the
+    #      prompt's end, the last slot, each side of the last split boundary
+    #      and inside the first split (the other splits see no key); timed
+    #      at the last slot, where every key is valid
+    cap = PROMPT + GEN
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).removeprefix("torch.")
+        fp = flash_attention.flash_launch_plan(
+            bh=SERVE_BATCH * hq, sq=1, skv=cap, d=hd, kv_group=hq // hkv,
+            dtype=dtype, device_pos=True)
+        if fp.body != "split_kv" or fp.inputs[1].array_shape[1] != cap:
+            fail(f"flash_attention decode/device {dname}: body {fp.body}, keys "
+                 f"{fp.inputs[1].array_shape}")
+        splits = fp.loops[1][1]
+        split_len = -(-cap // splits)
+        edge = split_len * (splits - 1)
+        q = torch.randn(SERVE_BATCH * hq, 1, hd, generator=gen).to(dev, dtype)
+        k, v = (torch.randn(SERVE_BATCH * hkv, cap, hd, generator=gen).to(dev, dtype)
+                for _ in range(2))
+        errs = {}
+        for at in (PROMPT, cap - 1, edge - 1, edge, split_len // 2):
+            pos = torch.tensor([at, at + 1], dtype=torch.int32, device=dev)
+            got = fp.cuda(q, k, v, pos=pos)
+            want = fp.plain(q, k, v, pos=pos)
+            torch.cuda.synchronize()
+            errs[at] = (got.float() - want.float()).abs().max().item()
+            tol = FLASH_TOL[dname]
+            if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+                fail(f"flash_attention decode/device {dname} at position {at}: "
+                     f"kernel vs plain max abs err {errs[at]}")
+        pos = torch.tensor([cap - 1, cap], dtype=torch.int32, device=dev)
+        q4 = q.view(SERVE_BATCH, hq, 1, hd)
+        k4, v4 = (t.view(SERVE_BATCH, hkv, cap, hd).repeat_interleave(hq // hkv, dim=1)
+                  for t in (k, v))
+        flops = 4.0 * SERVE_BATCH * hq * cap * hd
+        nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+        b_ms, b_by = bound(flops, nbytes, dtype)
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(q4, k4, v4)
+        stats = {"max_abs_err": max(errs.values()),
+                 "ms": graph_ms(lambda: fp.cuda(q, k, v, pos=pos)),
+                 "plain_ms": time_ms(lambda: fp.plain(q, k, v, pos=pos)),
+                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": graph_ms(sdpa),
+                 "eager_ms": time_ms(lambda: fp.cuda(q, k, v, pos=pos), reps=20),
+                 "body": fp.body, "splits": splits, "split_len": split_len,
+                 "launches_per_call": fp.launches,
+                 "max_abs_err_at": {str(a): e for a, e in errs.items()}}
+        print(f"flash_attention decode/device {dname}: Skv={cap} (a cache; "
+              f"positions {list(errs)}) " + " ".join(
+                  f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
+                  for k, v in stats.items()))
+        rows["flash_attention"].setdefault("decode_device", {})[dname] = stats
+        del q, k, v, q4, k4, v4
+
     # 3e. flash_attention's other cases, small: the reference's cases
     #     (tests/test_kernels.py), odd blocks, GQA, head dims 32 to 256
     flash_small = [(2, 128, 128, 64, True, 64, 64, 1), (1, 64, 64, 32, False, 32, 32, 1),
@@ -873,7 +931,7 @@ def main() -> None:
     # `ref.attention_ref` as its attention, and its decode logits
     # (teacher-forced with the generated tokens) against one full forward of
     # prompt plus generated tokens
-    def ref_attention(q, k, v, *, causal, q_offset, **_):
+    def ref_attention(q, k, v, *, causal, q_offset=0, **_):
         b, h, sq, d = q.shape
         k, v = (t.repeat_interleave(h // t.shape[1], dim=1) for t in (k, v))
         out = ref.attention_ref(q.reshape(b * h, sq, d), k.reshape(b * h, -1, d),
@@ -904,56 +962,211 @@ def main() -> None:
           f"{pre_rel:.3g}, decode logits vs full forward {dec_rel:.3g} "
           f"(max-abs-err/max-abs, limit {SERVE_REL_TOL})")
 
-    # where one prefill's and one decode step's device time goes
+    # 4b'. the compiled steps against the eager step bodies, on batch 0's
+    #      prompts and weights: prefill logits and caches, and three decode
+    #      steps (one captured graph each), then where each one's time goes
+    from repro_torch.launch import graph
+    cap = PROMPT + GEN
+    prefill_e = model_steps.make_prefill_step(scfg, cap)
+    decode_e = model_steps.make_decode_step(scfg)
+    prefill_c = graph.compile_prefill(model_steps.make_prefill_step(scfg, cap))
+    decode_c = graph.compile_decode(model_steps.make_decode_step(scfg))
+
+    def rel(got, want):
+        got, want = got.float(), want.float()
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            fail(f"compiled vs eager: shape {tuple(got.shape)} vs "
+                 f"{tuple(want.shape)} or non-finite values")
+        return ((got - want).abs().max() / want.abs().max()).item()
+
+    def kv(caches):
+        return [c[n] for c in caches["layers"] for n in ("k", "v")]
+
     with torch.inference_mode():
-        prefill = model_steps.make_prefill_step(scfg, PROMPT + GEN)
-        decode = model_steps.make_decode_step(scfg)
-        for phase in ("prefill", "decode"):
-            if phase == "decode":
-                logits, caches = prefill(sparams, {"tokens": b0["prompts"]})
-                tok = torch.argmax(logits, -1)[:, None]
+        cmp, same = {}, True
+        le, ce = prefill_e(sparams, {"tokens": b0["prompts"]})
+        lc, cc = prefill_c(sparams, {"tokens": b0["prompts"]})
+        cmp["prefill logits"] = rel(lc, le)
+        cmp["prefill caches"] = max(rel(a, b) for a, b in zip(kv(cc), kv(ce)))
+        same &= torch.equal(lc, le) and all(map(torch.equal, kv(cc), kv(ce)))
+        tok = torch.argmax(le, -1)[:, None]
+        for i in range(3):
+            le, ce = decode_e(sparams, ce, tok)
+            lc, cc = decode_c(sparams, cc, tok)
+            cmp[f"decode {i} logits"] = rel(lc, le)
+            same &= torch.equal(lc, le)
+            tok = torch.argmax(le, -1)[:, None]
+        cmp["decode caches"] = max(rel(a, b) for a, b in zip(kv(cc), kv(ce)))
+        same &= all(map(torch.equal, kv(cc), kv(ce)))
+        if int(cc["pos"]) != int(ce["pos"]) or cc[graph.HOST_POS] != int(ce["pos"]):
+            fail(f"compiled decode: position {int(cc['pos'])} (host "
+                 f"{cc[graph.HOST_POS]}), eager {int(ce['pos'])}")
+        # a cache other than the one the decode graph was captured on
+        try:
+            decode_c(sparams, ce, tok)
+        except ValueError as err:
+            print(f"compiled decode on a foreign cache raises: {err}")
+        else:
+            fail("compiled decode ran on a cache it was not captured on")
+    for what, r in cmp.items():
+        if r > FLASH_TOL["bfloat16"]:
+            fail(f"compiled vs eager {what}: max abs err / max abs = {r}")
+    print(f"compiled vs eager (Qwen2-1.5B, bf16, batch {SERVE_BATCH}): "
+          + ", ".join(f"{k} {v:.3g}" for k, v in cmp.items())
+          + f" (max-abs-err/max-abs, limit {FLASH_TOL['bfloat16']}); bit for "
+          f"bit: {same}")
+
+    def profiled(fn, record_shapes=False):
+        """Wall of one call under the profiler, the kernels' device busy
+        time (a CPU op such as aten::mm also reports the device time of the
+        kernels it launched, so summing every event would count those
+        twice), the flash kernels' share, and the kernels by time."""
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=record_shapes) as prof:
+            t0 = time.perf_counter()
+            fn()
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                if phase == "prefill":
-                    prefill(sparams, {"tokens": b0["prompts"]})
-                else:
-                    decode(sparams, caches, tok)
-                torch.cuda.synchronize()
-                wall = 1e3 * (time.perf_counter() - t0)
-            # busy time sums the kernels themselves: a CPU op such as
-            # aten::mm also reports the device time of the kernels it
-            # launched, so summing every event counts those twice
-            busy, all_events, flash_busy, by_kernel = 0.0, 0.0, 0.0, []
-            for evt in prof.key_averages():
-                dev_us = getattr(evt, "self_device_time_total", None)
-                if dev_us is None:
-                    dev_us = getattr(evt, "self_cuda_time_total", 0.0)
-                all_events += dev_us / 1e3
-                if evt.device_type != torch.autograd.DeviceType.CUDA:
-                    continue
-                busy += dev_us / 1e3
-                if "flash_kernel" in evt.key:
-                    flash_busy += dev_us / 1e3
-                by_kernel.append((dev_us / 1e3, evt.count, evt.key[:70]))
-            print(f"profile ({phase}, batch {SERVE_BATCH}): device busy "
-                  f"{busy:.3f} ms (kernel events; {all_events:.3f} ms summed "
-                  f"over all events), flash_attention kernels "
-                  f"{flash_busy:.3f} ms ({flash_busy / busy:.3f} of busy); "
-                  f"wall {wall:.3f} ms profiled; idle share "
-                  f"{1 - busy / wall:.3f}")
-            for ms, n, key in sorted(by_kernel, reverse=True)[:6]:
-                print(f"  {phase} device time {ms:.3f} ms in {n} calls: {key}")
-        del caches
+            wall = 1e3 * (time.perf_counter() - t0)
+        busy, flash_busy, by_kernel = 0.0, 0.0, []
+        for evt in prof.key_averages():
+            if evt.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            dev_us = getattr(evt, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(evt, "self_cuda_time_total", 0.0)
+            busy += dev_us / 1e3
+            if "flash_kernel" in evt.key:
+                flash_busy += dev_us / 1e3
+            by_kernel.append((dev_us / 1e3, evt.count, evt.key[:70]))
+        return wall, busy, flash_busy, sorted(by_kernel, reverse=True), prof
+
+    def walls(fn, n):
+        out = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append(1e3 * (time.perf_counter() - t0))
+        return sorted(out)[n // 2]
+
+    # one layer's K cache: a copy or pad of this size in the decode step
+    # would be the per-layer cache copy the eager port used to make
+    kv_numel = SERVE_BATCH * scfg.n_kv_heads * cap * scfg.hd
+    serve_profile = {}
+    with torch.inference_mode():
+        for mode, pre, dec in (("eager", prefill_e, decode_e),
+                               ("compiled", prefill_c, decode_c)):
+            wall, busy, fl, top, _ = profiled(
+                lambda: pre(sparams, {"tokens": b0["prompts"]}))
+            prefill_wall = walls(lambda: pre(sparams, {"tokens": b0["prompts"]}), 5)
+            logits, caches = pre(sparams, {"tokens": b0["prompts"]})
+            tok = torch.argmax(logits, -1)[:, None]
+            serve_profile[("prefill", mode)] = (wall, busy, fl, top, prefill_wall)
+            d_wall, d_busy, d_fl, d_top, prof = profiled(
+                lambda: dec(sparams, caches, tok), record_shapes=mode == "eager")
+            if mode == "eager":
+                copies = [e for e in prof.events()
+                          if e.name in ("aten::copy_", "aten::constant_pad_nd")
+                          and e.input_shapes and e.input_shapes[0]]
+                sizes = [math.prod(e.input_shapes[0]) for e in copies]
+                big = [(e.name, e.input_shapes[0]) for e, n in zip(copies, sizes)
+                       if n >= kv_numel]
+                print(f"decode step: {len(copies)} copy/pad ops, the largest "
+                      f"{max(sizes, default=0)} elements; one layer's K cache "
+                      f"is {kv_numel}")
+                if big:
+                    fail(f"decode step copies or pads cache-sized tensors: {big[:4]}")
+            state = {"caches": caches}
+
+            def step():
+                lg, state["caches"] = dec(sparams, state["caches"], tok)
+                return lg
+            decode_wall = walls(step, 20)
+            serve_profile[("decode", mode)] = (d_wall, d_busy, d_fl, d_top, decode_wall)
+            del logits, caches, state
+    # the card's least time for each step: decode reads every weight and
+    # the valid keys and values once (bytes); prefill's projections and
+    # head do 2 x params x tokens operations at the bf16 peak (attention's
+    # 2-3 % of prefill's busy time aside)
+    from repro_torch.models.transformer import count_params
+    n_params = count_params(scfg)
+    elem = sparams["embed"]["w"].element_size()
+    kv_bytes = 2 * scfg.n_layers * kv_numel * elem * PROMPT // cap
+    step_bounds = {
+        "decode": 1e3 * (n_params * elem + kv_bytes) / HBM_BYTES_PER_S,
+        "prefill": 1e3 * 2.0 * n_params * SERVE_BATCH * PROMPT / peak[torch.bfloat16]}
+    print(f"step bounds (Qwen2-1.5B, {n_params} parameters, batch "
+          f"{SERVE_BATCH}): decode {step_bounds['decode']:.3f} ms (bytes: "
+          f"weights {n_params * elem / 1e9:.3f} GB and cache {kv_bytes / 1e9:.3f} "
+          f"GB once), prefill {step_bounds['prefill']:.3f} ms (operations)")
+    for (phase, mode), (wall, busy, fl, top, unprof) in serve_profile.items():
+        print(f"profile ({phase}, {mode}, batch {SERVE_BATCH}): device busy "
+              f"{busy:.3f} ms (kernel events), flash_attention kernels "
+              f"{fl:.3f} ms ({fl / busy:.3f} of busy); wall {wall:.3f} ms "
+              f"profiled, {unprof:.3f} ms unprofiled (median); idle share "
+              f"{1 - busy / wall:.3f} profiled, {max(0.0, 1 - busy / unprof):.3f} "
+              f"unprofiled; bound {step_bounds[phase]:.3f} ms, "
+              f"{step_bounds[phase] / unprof:.3f} of the unprofiled wall")
+        for ms, n, key in top[:8]:
+            print(f"  {phase} {mode} device time {ms:.3f} ms in {n} calls: {key}")
+
+    # the same serve run with the steps left eager (each call runs the step
+    # body op by op), uncounted: the yardstick of the compiled serve above
+    with mock.patch.object(graph, "compile_prefill", lambda step: step), \
+            mock.patch.object(graph, "compile_decode", lambda step: step):
+        eager_report = serve.main(
+            ["--arch", SERVE_ARCH, "--requests", str(REQUESTS), "--batch",
+             str(SERVE_BATCH), "--prompt-len", str(PROMPT), "--gen-len",
+             str(GEN), "--device", "cuda"])
+    print(f"serve report, eager steps: {json.dumps(eager_report)}")
+    print(f"serve report, compiled steps: {json.dumps(report)}")
+    del prefill_c, decode_c, cc, ce, lc, le
+
+    # 4b''. one decode step of every ported dense arch at smoke size (bf16;
+    #       StableLM at its own head dim 160, which the flash wrapper pads
+    #       to 256), captured and replayed: against the eager step, and
+    #       counted, one split_kv pass and one combine a layer
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.transformer import init_lm
+    for arch in ("qwen2-1.5b", "gemma-2b", "granite-8b", "stablelm-12b"):
+        acfg = get_smoke(arch)
+        if arch == "stablelm-12b":
+            acfg = dataclasses.replace(acfg, head_dim=get_config(arch).hd)
+        aparams = init_lm(acfg, seed=1, device=dev)
+        aprompt = torch.randint(0, acfg.vocab, (2, 16), generator=gen).to(dev)
+        with torch.inference_mode():
+            le, ce = model_steps.make_prefill_step(acfg, 24)(
+                aparams, {"tokens": aprompt})
+            lc, cc = graph.compile_prefill(model_steps.make_prefill_step(acfg, 24))(
+                aparams, {"tokens": aprompt})
+            pre_err = rel(lc, le)
+            tok = torch.argmax(le, -1)[:, None]
+            le, ce = model_steps.make_decode_step(acfg)(aparams, ce, tok)
+            decode_a = graph.compile_decode(model_steps.make_decode_step(acfg))
+            launch.reset_launches()
+            lc, cc = decode_a(aparams, cc, tok)
+            torch.cuda.synchronize()
+            a_counts = dict(launch.LAUNCHES)
+            dec_err = rel(lc, le)
+        want = {"flash_attention": acfg.n_layers,
+                "flash_attention/combine": acfg.n_layers}
+        if a_counts != want:
+            fail(f"{arch} smoke: one compiled decode step launched {a_counts}, "
+                 f"expected {want}")
+        if max(pre_err, dec_err) > FLASH_TOL["bfloat16"]:
+            fail(f"{arch} smoke: compiled vs eager prefill {pre_err}, decode "
+                 f"{dec_err} (max-abs-err/max-abs)")
+        print(f"{arch} smoke (hd {acfg.hd}, {acfg.n_layers} layers): compiled vs "
+              f"eager prefill {pre_err:.3g}, decode {dec_err:.3g}; one decode "
+              f"replay launched {a_counts}")
+        del aparams, le, ce, lc, cc, decode_a
 
     # 4c. the fp32 model, counted: Qwen2-1.5B at full width in float32 (the
     #     config's dtype field), one forward over batch 0's prompts. Every
     #     attention layer runs tc_3xtf32 and its pack pass; the logits are
     #     held against the same forward with `ref.attention_ref`.
-    import dataclasses
-
-    from repro_torch.models.transformer import init_lm
     prompts = b0["prompts"]
     del record, sparams, b0
     fcfg = dataclasses.replace(scfg, dtype="float32")
@@ -1049,6 +1262,18 @@ def main() -> None:
                                     "bound_by", "library_ms", "fp32_bound_ms",
                                     "pack_ms", "eager_ms")},
         "dtype": "float32", "case": "prefill", "body": tf["body"]})
+    dd = fl["decode_device"]["bfloat16"]        # the compiled decode's call
+    kernels.append({
+        "name": "flash_attention/split_kv", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:26",
+        # every decode layer-step launches pass 1 once and the combine once
+        "launches": serve_counts["flash_attention/combine"],
+        "combine_launches": serve_counts["flash_attention/combine"],
+        **{key: dd[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms", "eager_ms")},
+        "dtype": "bfloat16", "case": "decode, device position",
+        "body": dd["body"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

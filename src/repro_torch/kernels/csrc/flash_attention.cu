@@ -109,12 +109,22 @@
 //            l = sum l_s w_s, acc = sum acc_s w_s, out = acc / max(l, 1e-30)
 //            (the combine of src/repro/sharding/flash_decode.py). A split
 //            that sees no key of a row has m_s = -1e30 and weight exactly 0.
+//   position a serving step captured as a CUDA graph passes a pointer to
+//            two int32 on the device, (q_offset, valid length), which every
+//            block of pass 1 reads when it starts (the reference's traced
+//            `pos` and `kv_valid_len = pos + s`). K and V are then the whole
+//            cache (skv_p = its capacity), the ranges cut the capacity, and
+//            a range past the valid length sees no key: it writes (m, l,
+//            acc) = (-1e30, 0, 0), and pass 2 gives it weight 0. One graph
+//            serves every step of a request.
 //
 // GQA everywhere: query head bh reads kv head bh / group; no kv head is
 // copied.
 //
 // Operands arrive padded to the reference's block multiples: q (BH, sq_p, D),
-// k/v (BH / group, skv_p, D), row major, 16-byte aligned. C interface, loaded
+// k/v (BH / group, skv_p, D), row major, 16-byte aligned; split_kv's loads
+// mask the key tail themselves, so its K and V come unpadded (skv_p = the
+// keys there are, a cache's capacity in a serving step). C interface, loaded
 // with ctypes; each entry point returns cudaGetLastError() after its launch.
 // TMA descriptors are encoded through the runtime's entry-point lookup, so
 // the library is not linked against libcuda. The Hopper building blocks
@@ -1000,9 +1010,9 @@ __device__ __forceinline__ float warp_sum(float v) {
 template <typename T, int D, int MAXR>
 __global__ void __launch_bounds__(THREADS)
 flash_kernel_split(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                   float* __restrict__ part_acc, float* __restrict__ part_ml, int sq_p,
-                   int skv_p, int skv, int group, int causal, int q_offset, int split_len,
-                   float scale) {
+                   float* __restrict__ part_acc, float* __restrict__ part_ml,
+                   const int* __restrict__ dev_pos, int sq_p, int skv_p, int skv, int group,
+                   int causal, int q_offset, int split_len, float scale) {
   using C = Cfg<T, D, MAXR>;
   extern __shared__ __align__(16) float smem_f[];
   const int rows = group * sq_p;
@@ -1016,6 +1026,10 @@ flash_kernel_split(const T* __restrict__ q, const T* __restrict__ k, const T* __
 
   const int split = blockIdx.x, hk = blockIdx.y;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  if (dev_pos) {   // q_offset and the valid length from device memory
+    q_offset = dev_pos[0];
+    skv = min(dev_pos[1], skv_p);
+  }
   const int k_begin = split * split_len;
   int k_end = min(skv, k_begin + split_len);
   if (causal) k_end = min(k_end, q_offset + sq_p);   // no row sees a later key
@@ -1173,8 +1187,8 @@ flash_kernel_combine(const float* __restrict__ part_acc, const float* __restrict
 
 template <typename T, int D, int MAXR>
 int launch(const void* q, const void* k, const void* v, float* part_acc, float* part_ml,
-           int bh, int sq_p, int skv_p, int skv, int group, int causal, int q_offset,
-           int splits, int split_len, float scale, cudaStream_t stream) {
+           const int* pos, int bh, int sq_p, int skv_p, int skv, int group, int causal,
+           int q_offset, int splits, int split_len, float scale, cudaStream_t stream) {
   using C = Cfg<T, D, MAXR>;
   static bool configured = false;
   if (const int rc = allow_smem(flash_kernel_split<T, D, MAXR>, C::smem(MAXR), configured))
@@ -1182,34 +1196,34 @@ int launch(const void* q, const void* k, const void* v, float* part_acc, float* 
   const dim3 grid(splits, bh / group);
   flash_kernel_split<T, D, MAXR><<<grid, THREADS, C::smem(group * sq_p), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), part_acc,
-      part_ml, sq_p, skv_p, skv, group, causal, q_offset, split_len, scale);
+      part_ml, pos, sq_p, skv_p, skv, group, causal, q_offset, split_len, scale);
   return (int)cudaGetLastError();
 }
 
 // The instantiation for the rows of one kv head: 8, 16, 32 or 64 at most.
 template <typename T, int D>
-int launch_rows(const void* q, const void* k, const void* v, float* pa, float* pm, int bh,
-                int sq_p, int skv_p, int skv, int group, int causal, int q_offset, int splits,
-                int split_len, float scale, cudaStream_t s) {
+int launch_rows(const void* q, const void* k, const void* v, float* pa, float* pm,
+                const int* pos, int bh, int sq_p, int skv_p, int skv, int group, int causal,
+                int q_offset, int splits, int split_len, float scale, cudaStream_t s) {
   const int rows = group * sq_p;
   if (rows <= 8)
-    return launch<T, D, 8>(q, k, v, pa, pm, bh, sq_p, skv_p, skv, group, causal, q_offset, splits, split_len, scale, s);
+    return launch<T, D, 8>(q, k, v, pa, pm, pos, bh, sq_p, skv_p, skv, group, causal, q_offset, splits, split_len, scale, s);
   if (rows <= 16)
-    return launch<T, D, 16>(q, k, v, pa, pm, bh, sq_p, skv_p, skv, group, causal, q_offset, splits, split_len, scale, s);
+    return launch<T, D, 16>(q, k, v, pa, pm, pos, bh, sq_p, skv_p, skv, group, causal, q_offset, splits, split_len, scale, s);
   if (rows <= 32)
-    return launch<T, D, 32>(q, k, v, pa, pm, bh, sq_p, skv_p, skv, group, causal, q_offset, splits, split_len, scale, s);
-  return launch<T, D, MAX_ROWS>(q, k, v, pa, pm, bh, sq_p, skv_p, skv, group, causal, q_offset, splits, split_len, scale, s);
+    return launch<T, D, 32>(q, k, v, pa, pm, pos, bh, sq_p, skv_p, skv, group, causal, q_offset, splits, split_len, scale, s);
+  return launch<T, D, MAX_ROWS>(q, k, v, pa, pm, pos, bh, sq_p, skv_p, skv, group, causal, q_offset, splits, split_len, scale, s);
 }
 
 template <typename T>
-int launch_d(int d, const void* q, const void* k, const void* v, float* pa, float* pm, int bh,
-             int sq_p, int skv_p, int skv, int group, int causal, int q_offset, int splits,
-             int split_len, float scale, cudaStream_t s) {
+int launch_d(int d, const void* q, const void* k, const void* v, float* pa, float* pm,
+             const int* pos, int bh, int sq_p, int skv_p, int skv, int group, int causal,
+             int q_offset, int splits, int split_len, float scale, cudaStream_t s) {
   switch (d) {
-    case 32: return launch_rows<T, 32>(q, k, v, pa, pm, bh, sq_p, skv_p, skv, group, causal, q_offset, splits, split_len, scale, s);
-    case 64: return launch_rows<T, 64>(q, k, v, pa, pm, bh, sq_p, skv_p, skv, group, causal, q_offset, splits, split_len, scale, s);
-    case 128: return launch_rows<T, 128>(q, k, v, pa, pm, bh, sq_p, skv_p, skv, group, causal, q_offset, splits, split_len, scale, s);
-    case 256: return launch_rows<T, 256>(q, k, v, pa, pm, bh, sq_p, skv_p, skv, group, causal, q_offset, splits, split_len, scale, s);
+    case 32: return launch_rows<T, 32>(q, k, v, pa, pm, pos, bh, sq_p, skv_p, skv, group, causal, q_offset, splits, split_len, scale, s);
+    case 64: return launch_rows<T, 64>(q, k, v, pa, pm, pos, bh, sq_p, skv_p, skv, group, causal, q_offset, splits, split_len, scale, s);
+    case 128: return launch_rows<T, 128>(q, k, v, pa, pm, pos, bh, sq_p, skv_p, skv, group, causal, q_offset, splits, split_len, scale, s);
+    case 256: return launch_rows<T, 256>(q, k, v, pa, pm, pos, bh, sq_p, skv_p, skv, group, causal, q_offset, splits, split_len, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1293,11 +1307,17 @@ int flash_attention_pack(const void* k, const void* v, void* ks, void* vts, int 
 
 // split_kv pass 1 (dtype 0 float32, 1 bfloat16): the fp32 partials of
 // `splits` key ranges of split_len keys into part_acc (bh / group, splits,
-// group * sq_p, d) and part_ml (..., 2).
+// group * sq_p, d) and part_ml (..., 2). With pos (two int32 on the device,
+// or null) every block reads q_offset = pos[0] and the valid length skv =
+// min(pos[1], skv_p) when it starts, in place of the integer arguments, so
+// one launch (or one captured graph) serves every position: the host's skv
+// is then the capacity skv_p, the ranges cut the capacity, and a range that
+// starts at or past the valid length sees no key and writes (m, l, acc) =
+// (NEG_INF, 0, 0), which the combine weighs by exp(NEG_INF - m*) = 0.
 int flash_split_launch(const void* q, const void* k, const void* v, void* part_acc,
-                       void* part_ml, int dtype, int bh, int sq_p, int skv_p, int skv, int d,
-                       int group, int causal, int q_offset, int splits, int split_len,
-                       float scale, void* stream) {
+                       void* part_ml, const void* pos, int dtype, int bh, int sq_p, int skv_p,
+                       int skv, int d, int group, int causal, int q_offset, int splits,
+                       int split_len, float scale, void* stream) {
   if (bad_shape(bh, sq_p, skv_p, skv, group, causal, q_offset) ||
       group * sq_p > split::MAX_ROWS || splits < 1 || splits > split::MAX_SPLITS ||
       bh / group > 65535 || split_len < 1 || (long long)splits * split_len < skv ||
@@ -1307,10 +1327,11 @@ int flash_split_launch(const void* q, const void* k, const void* v, void* part_a
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* pa = static_cast<float*>(part_acc);
   float* pm = static_cast<float*>(part_ml);
+  const int* dp = static_cast<const int*>(pos);
   if (dtype == 0)
-    return split::launch_d<float>(d, q, k, v, pa, pm, bh, sq_p, skv_p, skv, group, causal, q_offset, splits, split_len, scale, s);
+    return split::launch_d<float>(d, q, k, v, pa, pm, dp, bh, sq_p, skv_p, skv, group, causal, q_offset, splits, split_len, scale, s);
   if (dtype == 1)
-    return split::launch_d<__nv_bfloat16>(d, q, k, v, pa, pm, bh, sq_p, skv_p, skv, group, causal, q_offset, splits, split_len, scale, s);
+    return split::launch_d<__nv_bfloat16>(d, q, k, v, pa, pm, dp, bh, sq_p, skv_p, skv, group, causal, q_offset, splits, split_len, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

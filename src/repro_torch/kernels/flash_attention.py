@@ -30,6 +30,15 @@ from the dtype and the shape, and the plan names it:
                  round trip is the passive half of the trade, on the split
                  axis only; the plan lists it as device scratch.
 
+A device position: a serving step captured as a CUDA graph cannot read its
+position on the host, so `flash_attention` also takes ``q_offset`` and
+``kv_valid_len`` as int32 tensors on the device, the reference's traced
+``pos`` and ``pos + s`` in ``chunked_attention``. K and V are then the whole
+cache, unpadded; the plan is made from its capacity (``device_pos``) and
+takes split_kv, whose first pass reads the two values from device memory
+when it starts. A split past the valid length sees no key and gets weight
+0 in the combine, so one launch serves every position of a request.
+
 On a CPU tensor it runs `flash_plain`, the reference's kv-block loop in
 plain PyTorch, with the same key ranges and combine as ``split_kv`` when the
 plan splits.
@@ -92,7 +101,7 @@ _C_ARGS = {
     "flash_tf32_launch": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                           + [ctypes.c_float, ctypes.c_void_p]),
     "flash_attention_pack": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
-    "flash_split_launch": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 11
+    "flash_split_launch": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 11
                            + [ctypes.c_float, ctypes.c_void_p]),
     "flash_combine_launch": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
                              + [ctypes.c_void_p]),
@@ -230,27 +239,41 @@ def one_pass_body(dtype: torch.dtype, d_run: int) -> str:
 
 
 def flash_body(*, bh: int, sq_p: int, kv_group: int, dtype: torch.dtype,
-               d_run: int) -> str:
+               d_run: int, device_pos: bool = False) -> str:
     """The kernel body a call takes: split_kv when its one-pass grid would
     not fill the card and a block can hold all rows of a kv head (rows of
     a block counted as TC_QT in bfloat16 and QT in float32), else
-    `one_pass_body`."""
+    `one_pass_body`. A device position takes split_kv, the one body that
+    reads it, whatever the grid; more rows than a block holds raise."""
+    rows = sq_p * kv_group
+    if device_pos:
+        if rows > SPLIT_ROWS:
+            raise ValueError(
+                f"flash_attention: a device position takes the split_kv "
+                f"body, which serves at most {SPLIT_ROWS} rows of a kv head, "
+                f"got {kv_group} heads x {sq_p} positions; the one-pass "
+                f"bodies take an integer q_offset")
+        return "split_kv"
     rows_per_block = TC_QT if dtype == torch.bfloat16 else QT
-    if sq_p * kv_group <= SPLIT_ROWS and bh * -(-sq_p // rows_per_block) < SMS:
+    if rows <= SPLIT_ROWS and bh * -(-sq_p // rows_per_block) < SMS:
         return "split_kv"
     return one_pass_body(dtype, d_run)
 
 
 def check_flash_launch(bh: int, sq: int, skv: int, d: int, bq: int = 128,
                        bk: int = 128, causal: bool = True,
-                       q_offset: int = 0) -> None:
+                       q_offset: int = 0, device_pos: bool = False) -> None:
     """The launch-level check the reference makes before it builds a plan;
     raises `ValueError` on a degenerate shape, on a non-causal call whose
     keys would be padded (padded keys would get weight exp(0): only the
-    causal mask hides them), and on a causal call with a negative q_offset."""
+    causal mask hides them), and on a causal call with a negative q_offset.
+    A device position pads no key and is not known on the host: only its
+    shape is checked."""
     if min(bh, sq, skv, d) < 1:
         raise ValueError(f"flash_attention: degenerate attention shape "
                          f"bh={bh} sq={sq} skv={skv} d={d}")
+    if device_pos:
+        return
     bk_eff = max(1, min(bk, skv))
     if skv % bk_eff and not causal:
         raise ValueError(f"flash_attention: skv={skv} is not a multiple of "
@@ -263,9 +286,13 @@ def check_flash_launch(bh: int, sq: int, skv: int, d: int, bq: int = 128,
 
 
 def _partials(q, kp, vp, q_ids, *, k_begin: int, k_end: int, bk: int,
-              causal: bool, skv: int, scale: float):
+              causal: bool, skv, scale: float):
     """The reference kernel's kv-block loop over keys [k_begin, k_end) from
-    its initial state: per q row an fp32 running max m, sum l and acc."""
+    its initial state: per q row an fp32 running max m, sum l and acc. A
+    key is masked past ``skv`` (an int, or a 0-d tensor: the valid length
+    of a cache) and, when causal, past the row's q id (q_ids may be a
+    tensor on the device); a masked key gets p = 0, as in
+    ``chunked_attention``."""
     acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     m = torch.full((*q.shape[:-1], 1), NEG_INF, dtype=torch.float32,
                    device=q.device)
@@ -274,11 +301,13 @@ def _partials(q, kp, vp, q_ids, *, k_begin: int, k_end: int, bk: int,
         kb = kp[:, k0:min(k0 + bk, k_end)].float()
         vb = vp[:, k0:min(k0 + bk, k_end)].float()
         s = torch.einsum("hgiqd,hkd->hgiqk", q, kb) * scale
+        k_ids = k0 + torch.arange(kb.shape[1], device=q.device)
+        mask = k_ids < skv
         if causal:
-            k_ids = k0 + torch.arange(kb.shape[1], device=q.device)
-            s = torch.where((q_ids >= k_ids) & (k_ids < skv), s, NEG_INF)
+            mask = mask & (q_ids >= k_ids)
+        s = torch.where(mask, s, NEG_INF)
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-        p = torch.exp(s - m_new)
+        p = torch.where(mask, torch.exp(s - m_new), 0.0)
         alpha = torch.exp(m - m_new)           # rescale the old partial sums
         l = l * alpha + p.sum(-1, keepdim=True)
         acc = acc * alpha + torch.einsum("hgiqk,hkd->hgiqd", p, vb)
@@ -288,7 +317,8 @@ def _partials(q, kp, vp, q_ids, *, k_begin: int, k_end: int, bk: int,
 
 def flash_plain(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor, *,
                 bq: int, bk: int, causal: bool, q_offset: int,
-                skv: int, splits: int = 1) -> torch.Tensor:
+                skv: int, splits: int = 1,
+                pos: torch.Tensor | None = None) -> torch.Tensor:
     """The plain version: the reference kernel's kv-block loop over padded
     operands, every (head, q block) at once. qp: (BH, Sq_p, D); kp/vp:
     (BH / g, Skv_p, D). Per q row it carries an fp32 acc, m and l.
@@ -303,14 +333,22 @@ def flash_plain(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor, *,
     ceil(skv / splits), as split_kv cuts them: each range runs the loop from
     its own initial state, and the partials combine as split_kv's second
     pass does (m* = max m_s, weights exp(m_s - m*)). ``splits = 1`` is the
-    reference's single walk over all Skv_p keys."""
+    reference's single walk over all Skv_p keys.
+
+    ``pos``, where given, is split_kv's device position: int32 (q_offset,
+    valid length) on the operands' device, read in place of ``q_offset``
+    and ``skv`` in the masks (``skv`` is then the capacity the ranges cut),
+    with no host read."""
     bh, sq_p, d = qp.shape
     hkv, skv_p, _ = kp.shape
     g, gq = bh // hkv, sq_p // bq
     q = qp.float().reshape(hkv, g, gq, bq, d)
+    valid = skv
+    if pos is not None:
+        q_offset, valid = pos[0], pos[1]
     q_ids = (torch.arange(gq, device=qp.device)[:, None] * bq
              + torch.arange(bq, device=qp.device)[None, :] + q_offset)[..., None]
-    kw = dict(bk=bk, causal=causal, skv=skv, scale=1.0 / math.sqrt(d))
+    kw = dict(bk=bk, causal=causal, skv=valid, scale=1.0 / math.sqrt(d))
     if splits == 1:
         m, l, acc = _partials(q, kp, vp, q_ids, k_begin=0, k_end=skv_p, **kw)
     else:
@@ -328,14 +366,15 @@ def flash_plain(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor, *,
 
 def _flash_cuda(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor, *,
                 causal: bool, q_offset: int, skv: int, splits: int = 0,
-                dtype: torch.dtype | None = None,
-                body: str | None = None) -> torch.Tensor:
+                dtype: torch.dtype | None = None, body: str | None = None,
+                pos: torch.Tensor | None = None) -> torch.Tensor:
     """Launch the Hopper kernels at the built head dim of the operands' d:
     zero-pad q, k and v to it, keep the scale of the logical d, and slice
     the output back. ``dtype``, where given, is the dtype the launch plan
     chose its body for: operands of another dtype raise, before any copy or
     library load. ``body`` is the plan's; None takes split_kv when
-    ``splits`` is given, else `one_pass_body`."""
+    ``splits`` is given, else `one_pass_body`. ``pos`` is split_kv's device
+    position (`flash_plain`)."""
     name = "flash_attention"
     launch.check_operands(name, qp, kp, vp, dtypes=DTYPE_CODES)
     if dtype is not None and qp.dtype != dtype:
@@ -347,6 +386,8 @@ def _flash_cuda(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor, *,
         body = "split_kv" if splits else one_pass_body(qp.dtype, d_run)
     kw = dict(causal=causal, q_offset=q_offset, skv=skv, splits=splits, d=d,
               body=body)
+    if pos is not None:
+        kw["pos"] = pos
     if d_run == d:
         return _flash_launch(qp, kp, vp, **kw)
     qp, kp, vp = (F.pad(t, (0, d_run - d)) for t in (qp, kp, vp))
@@ -355,13 +396,16 @@ def _flash_cuda(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor, *,
 
 def _flash_launch(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor, *,
                   causal: bool, q_offset: int, skv: int, splits: int,
-                  d: int, body: str) -> torch.Tensor:
+                  d: int, body: str,
+                  pos: torch.Tensor | None = None) -> torch.Tensor:
     """Launch the Hopper kernels of ``body`` over padded operands: one pass
     on cuda_core (float32) or tc_bf16 (bfloat16); tc_3xtf32 (float32) after
     its pack pass (`tf32_pack_kv`); or split_kv, pass 1 over `splits` key
     ranges into fp32 partials allocated here, then the combine (counted as
     ``flash_attention/combine``). ``d`` is the logical head dim, whose
     1/sqrt(d) scales the scores; the operands may be zero-padded past it.
+    ``pos`` (split_kv only) is the device position: two int32 on the
+    operands' device, read by pass 1 in place of ``q_offset`` and ``skv``.
     Everything a body cannot take raises before any library is loaded."""
     name = "flash_attention"
     bh, sq_p, d_run = qp.shape
@@ -385,6 +429,13 @@ def _flash_launch(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor, *,
     if splits and group * sq_p > SPLIT_ROWS:
         raise ValueError(f"{name}: split_kv serves at most {SPLIT_ROWS} rows "
                          f"of a kv head, got {group} heads x {sq_p} positions")
+    if pos is not None and (not splits or pos.dtype != torch.int32
+                            or tuple(pos.shape) != (2,)
+                            or pos.device != qp.device):
+        raise ValueError(f"{name}: a device position is two int32 on the "
+                         f"operands' device, read by split_kv only; got "
+                         f"{pos.dtype} {tuple(pos.shape)} on {pos.device} "
+                         f"for body {body}")
     out = torch.empty_like(qp)
     if any(t.data_ptr() % 16 for t in (qp, kp, vp, out)):
         raise ValueError(f"{name}: operands must start on 16-byte boundaries")
@@ -418,9 +469,10 @@ def _flash_launch(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor, *,
                            device=qp.device)
         acc_ptr, ml_ptr = part.data_ptr(), part[n_acc:].data_ptr()
         rc = fns["flash_split_launch"](
-            qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), acc_ptr, ml_ptr, code,
-            bh, sq_p, skv_p, skv, d_run, group, int(causal), q_offset, splits,
-            -(-skv // splits), scale, stream)
+            qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), acc_ptr, ml_ptr,
+            None if pos is None else pos.data_ptr(), code, bh, sq_p, skv_p, skv,
+            d_run, group, int(causal), q_offset, splits, -(-skv // splits),
+            scale, stream)
         _build.check(lib, rc, name)
         launch.count_launch(name)
         rc = fns["flash_combine_launch"](
@@ -435,7 +487,8 @@ def _flash_launch(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor, *,
 def flash_launch_plan(*, bh: int, sq: int, skv: int, d: int, bq: int = 128,
                       bk: int = 128, causal: bool = True, q_offset: int = 0,
                       kv_group: int = 1, dtype: torch.dtype | None = None,
-                      body: str | None = None) -> launch.LaunchPlan:
+                      body: str | None = None,
+                      device_pos: bool = False) -> launch.LaunchPlan:
     """The launch `flash_attention` executes, from plain integers: blocks
     clamped and sequences padded exactly as the reference does, the body
     picked by `flash_body` for ``dtype`` (float32 when None), or ``body``
@@ -457,20 +510,28 @@ def flash_launch_plan(*, bh: int, sq: int, skv: int, d: int, bq: int = 128,
     Each body runs at `built_head_dim(d)`; where that is wider than d, the
     zero-padded copies of q, k and v are device scratch too.
 
+    ``device_pos``: the call passes its position on the device (``pos`` to
+    either callable, see `flash_plain`). ``skv`` is then the capacity of a
+    cache, which the plan takes unpadded (split_kv's loads mask the tail)
+    and the splits cut; ``q_offset`` must be 0, and the body is split_kv.
+
     A plan is a pure function of these arguments and is cached: the layers
     of a serving step, which share a shape, build it once.
     """
     dtype = torch.float32 if dtype is None else dtype
     bq = max(1, min(bq, sq))
     bk = max(1, min(bk, skv))
+    if device_pos and q_offset:
+        raise ValueError(f"flash_attention: q_offset={q_offset} with a device "
+                         f"position; the position is read on the device")
     sq_p = sq + (-sq) % bq
-    skv_p = skv + (-skv) % bk
-    gk = skv_p // bk
+    skv_p = skv if device_pos else skv + (-skv) % bk
+    gk = -(-skv_p // bk)
     hkv = bh // kv_group
     rows = kv_group * sq_p
     d_run = built_head_dim(d)
     chosen = flash_body(bh=bh, sq_p=sq_p, kv_group=kv_group, dtype=dtype,
-                        d_run=d_run)
+                        d_run=d_run, device_pos=device_pos)
     if body is None:
         body = chosen
     elif body != chosen and not (body == "cuda_core" and dtype == torch.float32):
@@ -535,25 +596,53 @@ def flash_launch_plan(*, bh: int, sq: int, skv: int, d: int, bq: int = 128,
     )
 
 
+def device_position(q_offset: int | torch.Tensor,
+                    kv_valid_len: torch.Tensor | None, capacity: int
+                    ) -> torch.Tensor:
+    """split_kv's device position: (q_offset, valid length) as two int32 on
+    the device of the tensor given, built there with no host read. An
+    integer offset is filled in on the device; a missing valid length is
+    the capacity (every key valid)."""
+    like = q_offset if isinstance(q_offset, torch.Tensor) else kv_valid_len
+    off = (q_offset if isinstance(q_offset, torch.Tensor)
+           else torch.full_like(like, q_offset))
+    valid = (kv_valid_len if kv_valid_len is not None
+             else torch.full_like(like, capacity))
+    return torch.stack([t.reshape(()).to(torch.int32) for t in (off, valid)])
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, bq: int = 128, bk: int = 128,
-                    q_offset: int = 0) -> torch.Tensor:
+                    q_offset: int | torch.Tensor = 0,
+                    kv_valid_len: torch.Tensor | None = None) -> torch.Tensor:
     """q: (BH, Sq, D); k/v: (BH / g, Skv, D) for a whole g >= 1 (g = 1 is
     the reference's layout), float32 or bfloat16. q_offset shifts the causal
     ids for decode (q positions start at q_offset). q, k and v are
     zero-padded to block multiples; padded keys are masked (``k_ids < skv``)
-    when causal, and the non-causal padded case is rejected before launch."""
+    when causal, and the non-causal padded case is rejected before launch.
+
+    With ``q_offset`` a 0-d integer tensor, or ``kv_valid_len`` given (keys
+    at or past it are masked: a cache's tail), the position is read on the
+    device and never on the host, as the reference's ``chunked_attention``
+    takes a traced one: k and v are a cache of Skv = its capacity, passed
+    without a pad or a copy, and the call takes split_kv (`flash_body`)."""
     bh, sq, d = q.shape
     hkv, skv, _ = k.shape
-    check_flash_launch(bh, sq, skv, d, bq, bk, causal, q_offset)
+    device_pos = isinstance(q_offset, torch.Tensor) or kv_valid_len is not None
+    check_flash_launch(bh, sq, skv, d, bq, bk, causal,
+                       0 if device_pos else q_offset, device_pos=device_pos)
     if hkv < 1 or bh % hkv or tuple(v.shape) != tuple(k.shape):
         raise ValueError(f"flash_attention: q {tuple(q.shape)} over k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
     plan = flash_launch_plan(bh=bh, sq=sq, skv=skv, d=d, bq=bq, bk=bk,
-                             causal=causal, q_offset=q_offset,
-                             kv_group=bh // hkv, dtype=q.dtype)
+                             causal=causal,
+                             q_offset=0 if device_pos else q_offset,
+                             kv_group=bh // hkv, dtype=q.dtype,
+                             device_pos=device_pos)
     pq = plan.inputs[0].array_shape[1] - sq
     pk = plan.inputs[1].array_shape[1] - skv
     q, k, v = (F.pad(t, (0, 0, 0, p)).contiguous() if p else t.contiguous()
                for t, p in ((q, pq), (k, pk), (v, pk)))
-    return launch.run(plan, q, k, v)[:, :sq]
+    extra = ({"pos": device_position(q_offset, kv_valid_len, skv)}
+             if device_pos else {})
+    return launch.run(plan, q, k, v, **extra)[:, :sq]

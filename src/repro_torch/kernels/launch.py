@@ -16,8 +16,9 @@ can show that it went through the kernels.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Callable
+from typing import Callable, Iterator
 
 import torch
 
@@ -31,6 +32,31 @@ def count_launch(name: str) -> None:
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+
+
+def add_launches(counts: dict[str, int]) -> None:
+    """Add a recorded set of launches: a CUDA graph's replay launches again
+    every kernel its capture recorded, with no wrapper running."""
+    for name, n in counts.items():
+        LAUNCHES[name] = LAUNCHES.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[dict[str, int]]:
+    """The launches counted in the body, moved out of `LAUNCHES` into the
+    dict this yields: a graph's warm-up, whose launches are not counted,
+    and its capture, which launches nothing itself and whose count each
+    replay adds (`add_launches`)."""
+    before = dict(LAUNCHES)
+    counted: dict[str, int] = {}
+    try:
+        yield counted
+    finally:
+        counted.update({name: n - before.get(name, 0)
+                        for name, n in LAUNCHES.items()
+                        if n != before.get(name, 0)})
+        LAUNCHES.clear()
+        LAUNCHES.update(before)
 
 
 def resolve_device(device: "str | torch.device") -> torch.device:
@@ -102,8 +128,10 @@ class LaunchPlan:
     body: str = ""
 
 
-def run(plan: LaunchPlan, *operands: torch.Tensor) -> torch.Tensor:
-    """Execute a plan on its operands' device."""
+def run(plan: LaunchPlan, *operands: torch.Tensor, **extra) -> torch.Tensor:
+    """Execute a plan on its operands' device. ``extra`` (values that are
+    not operands, such as flash attention's device position) goes to
+    either callable as it is."""
     if len(operands) != len(plan.inputs):
         raise ValueError(f"{plan.name}: got {len(operands)} operands, plan "
                          f"has {len(plan.inputs)} inputs")
@@ -113,8 +141,8 @@ def run(plan: LaunchPlan, *operands: torch.Tensor) -> torch.Tensor:
                              f"{tuple(op.shape)}, plan needs {spec.array_shape}")
     devices = {op.device.type for op in operands}
     if devices == {"cuda"}:
-        return plan.cuda(*operands)
+        return plan.cuda(*operands, **extra)
     if devices == {"cpu"}:
-        return plan.plain(*operands)
+        return plan.plain(*operands, **extra)
     raise ValueError(f"{plan.name}: operands on {sorted(devices)}; they must "
                      f"all be on one CUDA device or all on the CPU")

@@ -68,11 +68,17 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
 
 
 def gqa_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = True, q_offset: int = 0,
+                        causal: bool = True,
+                        q_offset: int | torch.Tensor = 0,
+                        kv_valid_len: torch.Tensor | None = None,
                         bq: int = 128, bk: int = 128) -> torch.Tensor:
     """q: (B, Hq, Sq, D); k/v: (B, Hkv, Skv, D) with Hq % Hkv == 0. Query
     head h reads kv head h // (Hq / Hkv) inside the kernel (the reference
-    repeats the kv heads; the result is the same)."""
+    repeats the kv heads; the result is the same). ``q_offset`` and
+    ``kv_valid_len`` as in the reference's ``chunked_attention``: as 0-d
+    tensors on the device they are read there, and k and v (a head-major
+    cache, contiguous) reach the kernel as (B Hkv, Skv, D) views, with no
+    copy."""
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
     if hq % hkv:
@@ -80,5 +86,5 @@ def gqa_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = _flash.flash_attention(
         q.reshape(b * hq, sq, d), k.reshape(b * hkv, skv, d),
         v.reshape(b * hkv, skv, d), causal=causal, q_offset=q_offset,
-        bq=bq, bk=bk)
+        kv_valid_len=kv_valid_len, bq=bq, bk=bk)
     return out.reshape(b, hq, sq, d)

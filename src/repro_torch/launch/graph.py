@@ -1,0 +1,208 @@
+"""The compiled serving steps: the counterpart of the reference's
+``jax.jit(make_prefill_step(...))`` and ``jax.jit(make_decode_step(...),
+donate_argnums=(1,))`` (``repro/launch/serve.py``).
+
+On the card each step runs as one captured CUDA graph, replayed per call,
+so the host launches one graph where it launched some 30 kernels a layer.
+At the first call for an input shape the wrapper
+
+  1. runs the step once on a side stream (the warm-up: it builds and loads
+     the kernels' libraries and sets each kernel's shared-memory limit
+     outside the capture; its launches are not counted),
+  2. captures the step with ``torch.cuda.graph`` over static input, output
+     and cache buffers, and keeps the launches the capture counted
+     (`launch.recording`): each replay adds them to `launch.LAUNCHES` again,
+     so the counts still say which kernels the card ran;
+
+and every call copies its inputs into the static ones and replays.
+
+Caches. The compiled prefill owns one static cache per batch size, which
+each call zeroes and fills inside the graph and returns; a compiled decode
+captured on that cache serves every later request of the batch size, since
+the split_kv decode reads its position from device memory. A call on
+buffers (cache or weights) other than the ones a graph was captured on
+raises: the graph would read the old ones. As with ``donate_argnums``, a
+returned cache is the caller's until the next call for the same batch size.
+The position is mirrored on the host under ``caches[HOST_POS]``, so that a
+decode past the capacity raises `ValueError` before the replay: on the
+card it would write past the cache.
+
+Logits are returned as fresh tensors (clones of the graph's output), so a
+caller that keeps them does not hold a buffer the next replay overwrites.
+
+On the CPU each call runs the step eagerly, with the same host checks: that
+is the device the caller asked for. A capture that fails raises; nothing
+falls back to eager execution on the card.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.kernels import launch
+
+#: the caches' position as a host int, kept by the compiled steps
+HOST_POS = "host_pos"
+
+
+def _captures(device: torch.device) -> bool:
+    """Whether a step on ``device`` is captured: on the card; on the CPU it
+    runs eagerly."""
+    return device.type == "cuda"
+
+
+def _warm_up(fn: Callable[[], Any], device: torch.device) -> None:
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+
+
+def _capture(fn: Callable[[], Any], device: torch.device):
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.device(device), torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
+class CapturedStep:
+    """``fn`` (no arguments, static buffers only) warmed up, captured as one
+    CUDA graph, and the kernel launches its capture counted."""
+
+    def __init__(self, fn: Callable[[], Any], device: torch.device):
+        with launch.recording():
+            _warm_up(fn, device)
+        with launch.recording() as self.launches:
+            self.graph, self.out = _capture(fn, device)
+
+    def replay(self) -> None:
+        self.graph.replay()
+        launch.add_launches(self.launches)
+
+
+def _cache_buffers(caches) -> list[torch.Tensor]:
+    return [caches["pos"], *(c[n] for c in caches["layers"] for n in ("k", "v"))]
+
+
+def _check_same(step: str, what: str, got: list, captured: list) -> None:
+    if len(got) != len(captured) or any(a is not b for a, b in zip(got, captured)):
+        raise ValueError(f"compiled {step}: called on {what} other than the "
+                         f"ones its graph was captured on")
+
+
+class CompiledPrefill:
+    """``prefill_step(params, batch, caches=None)`` (`steps.make_prefill_step`)
+    compiled: see the module's docstring."""
+
+    def __init__(self, step):
+        self.step = step
+        self.caches: dict[int, dict] = {}       # batch size -> static cache
+        self.graphs: dict[tuple, dict] = {}     # tokens' shape -> graph
+
+    def __call__(self, params, batch) -> tuple[torch.Tensor, dict]:
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        if not _captures(tokens.device):
+            logits, caches = self.step(params, batch)
+            caches[HOST_POS] = s
+            return logits, caches
+        key = (b, s, tokens.dtype)
+        entry = self.graphs.get(key)
+        if entry is None:
+            entry = self.graphs[key] = self._capture(params, tokens)
+        else:
+            _check_same("prefill", "weights", [params], [entry["params"]])
+        entry["tokens"].copy_(tokens)
+        entry["graph"].replay()
+        caches = self.caches[b]
+        caches[HOST_POS] = s
+        return entry["graph"].out.clone(), caches
+
+    def _capture(self, params, tokens: torch.Tensor) -> dict:
+        b = tokens.shape[0]
+        static = tokens.clone()
+        if b not in self.caches:
+            # the step's own fresh caches become the batch size's static
+            # cache: made outside any graph, so no graph's pool holds them
+            with launch.recording():
+                _, self.caches[b] = self.step(params, {"tokens": static})
+        caches = self.caches[b]
+
+        def run():
+            for c in caches["layers"]:
+                c["k"].zero_()
+                c["v"].zero_()
+            caches["pos"].zero_()
+            logits, new = self.step(params, {"tokens": static}, caches)
+            caches["pos"].copy_(new["pos"])
+            return logits
+
+        return {"graph": CapturedStep(run, tokens.device), "tokens": static,
+                "params": params}
+
+
+class CompiledDecode:
+    """``decode_step(params, caches, token)`` (`steps.make_decode_step`)
+    compiled: see the module's docstring."""
+
+    def __init__(self, step):
+        self.step = step
+        self.graphs: dict[tuple, dict] = {}     # token's shape -> graph
+
+    def __call__(self, params, caches, token) -> tuple[torch.Tensor, dict]:
+        s = token.shape[1]
+        host = caches.get(HOST_POS)
+        if host is None:            # caches no compiled step made: read once
+            host = int(caches["pos"])
+        cap = caches["layers"][0]["k"].shape[2]
+        if host + s > cap:
+            raise ValueError(f"compiled decode: {s} token(s) at position "
+                             f"{host} do not fit a cache of {cap}")
+        if not _captures(token.device):
+            logits, caches = self.step(params, caches, token)
+            caches[HOST_POS] = host + s
+            return logits, caches
+        key = (tuple(token.shape), token.dtype)
+        entry = self.graphs.get(key)
+        if entry is None:
+            entry = self.graphs[key] = self._capture(params, caches, token)
+        else:
+            _check_same("decode", "weights", [params], [entry["params"]])
+            _check_same("decode", "cache buffers", _cache_buffers(caches),
+                        entry["buffers"])
+        entry["token"].copy_(token)
+        entry["graph"].replay()
+        caches[HOST_POS] = host + s
+        return entry["graph"].out.clone(), caches
+
+    def _capture(self, params, caches, token: torch.Tensor) -> dict:
+        static = token.clone()
+        pos = caches["pos"]
+
+        def run():
+            logits, new = self.step(params, caches, static)
+            pos.copy_(new["pos"])
+            return logits
+
+        # the warm-up runs the step for real: it writes this step's keys and
+        # values at pos (the replay writes the same ones again) and advances
+        # pos, which is put back
+        saved = pos.clone()
+        graph = CapturedStep(run, token.device)
+        pos.copy_(saved)
+        return {"graph": graph, "token": static, "params": params,
+                "buffers": _cache_buffers(caches)}
+
+
+def compile_prefill(step) -> CompiledPrefill:
+    """The compiled counterpart of ``jax.jit(prefill_step)``."""
+    return CompiledPrefill(step)
+
+
+def compile_decode(step) -> CompiledDecode:
+    """The compiled counterpart of ``jax.jit(decode_step,
+    donate_argnums=(1,))``."""
+    return CompiledDecode(step)

@@ -4,9 +4,13 @@ seeded prompts, with a latency/throughput report.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
         --smoke --device cpu --requests 8 --batch 4 --prompt-len 64 --gen-len 8
 
-Runs on the card unless ``--device cpu`` is given; every attention layer of
-prefill and decode goes through the flash kernel (`ops.gqa_flash_attention`).
-The card is synchronised before each clock read.
+Runs on the card unless ``--device cpu`` is given. Prefill and decode are
+compiled as the reference's ``serve.py`` jits them (`graph.compile_prefill`,
+`graph.compile_decode`): on the card each runs as one captured CUDA graph,
+replayed per call, and a request's first batch pays for the capture. Every
+attention layer of prefill and decode goes through the flash kernel
+(`ops.gqa_flash_attention`). The card is synchronised before each clock
+read.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import torch
 
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.kernels.launch import resolve_device
+from repro_torch.launch import graph
 from repro_torch.models import steps as ST
 from repro_torch.models.transformer import init_lm
 
@@ -52,8 +57,8 @@ def main(argv=None, *, record: dict | None = None) -> dict:
     with torch.inference_mode():
         params = init_lm(cfg, seed=args.seed, device=device)
         max_len = args.prompt_len + args.gen_len
-        prefill = ST.make_prefill_step(cfg, max_len)
-        decode = ST.make_decode_step(cfg)
+        prefill = graph.compile_prefill(ST.make_prefill_step(cfg, max_len))
+        decode = graph.compile_decode(ST.make_decode_step(cfg))
         _sync(device)
         t_start = time.time()
         for bi in range(n_batches):

@@ -121,21 +121,31 @@ def attn_init(gen, cfg, device) -> Params:
 
 
 def init_kv_cache(cfg, batch: int, max_len: int, device) -> Params:
-    """Zeroed (B, max_len, Hkv, hd) keys and values, the reference's layout."""
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
+    """Zeroed keys and values, head-major: (B, Hkv, max_len, hd), so that
+    the flash kernel reads each kv head's keys as one contiguous block with
+    no copy (the reference keeps (B, max_len, Hkv, hd))."""
+    shape = (batch, cfg.n_kv_heads, max_len, cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype_of(cfg), device=device),
             "v": torch.zeros(shape, dtype=dtype_of(cfg), device=device)}
 
 
 def attn_apply(p: Params, x: torch.Tensor, cfg, *, positions: torch.Tensor,
                cache: Params | None = None,
-               cache_pos: int | None = None) -> tuple[torch.Tensor, Params | None]:
-    """Causal self-attention with an optional KV cache. x: (B, S, d).
+               cache_pos: torch.Tensor | None = None,
+               start: int | None = None) -> tuple[torch.Tensor, Params | None]:
+    """Causal self-attention with an optional KV cache. x: (B, S, d);
+    positions: (S,) on x's device.
 
-    With a cache, this step's keys and values are written at ``cache_pos``
-    (in place: the port updates the cache where the reference returns an
-    updated copy) and the queries attend to keys [0, cache_pos + S) with
-    ``q_offset = cache_pos``. Returns (out, cache)."""
+    With a cache, this step's keys and values are written at ``positions``
+    with ``index_copy_`` on that device index (in place: the reference's
+    ``dynamic_update_slice`` at ``cache_pos`` returns an updated copy), and
+    the queries attend over the whole cache with ``q_offset = cache_pos``
+    and ``kv_valid_len = cache_pos + S``, both 0-d tensors on the device:
+    nothing is read on the host, so a CUDA graph can capture the step.
+    ``start``, where the caller knows the position on the host (a prefill
+    into fresh caches: 0), attends to keys [0, start + S) of the cache with
+    an integer offset instead, which the flash kernel's one-pass bodies
+    take. Returns (out, cache)."""
     b, s, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = dense(p["wq"], x).reshape(b, s, hq, hd)
@@ -144,20 +154,28 @@ def attn_apply(p: Params, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     if cfg.qk_norm:
         q = norm_apply(p["q_norm"], q, cfg.norm_eps)
         k = norm_apply(p["k_norm"], k, cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    q_off = 0
-    if cache is not None:
-        q_off = int(cache_pos)
-        if not 0 <= q_off <= cache["k"].shape[1] - s:
-            raise ValueError(f"attn_apply: {s} tokens at position {q_off} do "
-                             f"not fit a cache of {cache['k'].shape[1]}")
-        cache["k"][:, q_off:q_off + s] = k
-        cache["v"][:, q_off:q_off + s] = v
-        k, v = cache["k"][:, :q_off + s], cache["v"][:, :q_off + s]
-    out = ops.gqa_flash_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True,
-        q_offset=q_off)
+    q = apply_rope(q, positions, cfg.rope_theta).transpose(1, 2)
+    k = apply_rope(k, positions, cfg.rope_theta).transpose(1, 2)
+    v = v.transpose(1, 2)
+    if cache is None:
+        out = ops.gqa_flash_attention(q, k, v, causal=True)
+    else:
+        cap = cache["k"].shape[2]
+        if s > cap or (start is not None and not 0 <= start <= cap - s):
+            at = "" if start is None else f" at position {start}"
+            raise ValueError(f"attn_apply: {s} tokens{at} do not fit a "
+                             f"cache of {cap}")
+        cache["k"].index_copy_(2, positions, k)
+        cache["v"].index_copy_(2, positions, v)
+        if start is None:
+            out = ops.gqa_flash_attention(
+                q, cache["k"], cache["v"], causal=True, q_offset=cache_pos,
+                kv_valid_len=cache_pos + s)
+        else:
+            n = start + s
+            out = ops.gqa_flash_attention(
+                q, cache["k"][:, :, :n], cache["v"][:, :, :n], causal=True,
+                q_offset=start)
     out = out.transpose(1, 2).reshape(b, s, hq * hd)
     return dense(p["wo"], out), cache
 

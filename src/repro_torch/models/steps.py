@@ -1,30 +1,38 @@
 """Step factories: prefill_step / decode_step for the dense stack, and the
-greedy sampling loop. ``lm_loss`` and the train step wait for the training
-slice (ROADMAP A6)."""
+greedy sampling loop. The factories return the plain step bodies, as the
+reference's do; `repro_torch.launch.graph` compiles them (captured CUDA
+graphs on the card), as the reference's callers wrap them in ``jax.jit``.
+``lm_loss`` and the train step wait for the training slice (ROADMAP A6)."""
 
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch import graph
 from repro_torch.models.transformer import forward, init_caches
 
 
 def make_prefill_step(cfg: ArchConfig, max_len: int):
-    """Full-sequence forward that populates fresh caches (on the tokens'
-    device) and returns the last token's logits (sampling seed)."""
-    def prefill_step(params, batch):
+    """Full-sequence forward that fills caches and returns the last token's
+    logits (sampling seed). The caches are fresh ones on the tokens' device,
+    or ``caches`` where given, zeroed at position 0 (the compiled step's
+    static cache); either way the position is 0 on the host, so attention
+    takes it as an integer."""
+    def prefill_step(params, batch, caches=None):
         tokens = batch["tokens"]
-        caches = init_caches(cfg, tokens.shape[0], max_len,
-                             device=tokens.device)
-        logits, caches, _ = forward(params, cfg, tokens, caches=caches)
+        if caches is None:
+            caches = init_caches(cfg, tokens.shape[0], max_len,
+                                 device=tokens.device)
+        logits, caches, _ = forward(params, cfg, tokens, caches=caches, start=0)
         return logits[:, -1], caches
 
     return prefill_step
 
 
 def make_decode_step(cfg: ArchConfig):
-    """One-token decode against a populated cache."""
+    """One-token decode against a populated cache; it reads its position on
+    the device only."""
     def decode_step(params, caches, token):
         logits, caches, _ = forward(params, cfg, token, caches=caches)
         return logits[:, -1], caches
@@ -34,9 +42,10 @@ def make_decode_step(cfg: ArchConfig):
 
 def greedy_generate(cfg: ArchConfig, params, prompt: torch.Tensor,
                     steps: int, max_len: int) -> torch.Tensor:
-    """Reference sampling loop (prefill + steps - 1 decodes) -> (B, steps)."""
-    prefill = make_prefill_step(cfg, max_len)
-    decode = make_decode_step(cfg)
+    """Reference sampling loop (prefill + steps - 1 decodes) -> (B, steps),
+    through the compiled steps."""
+    prefill = graph.compile_prefill(make_prefill_step(cfg, max_len))
+    decode = graph.compile_decode(make_decode_step(cfg))
     logits, caches = prefill(params, {"tokens": prompt})
     toks = [torch.argmax(logits, -1)[:, None]]
     for _ in range(steps - 1):

@@ -3,13 +3,15 @@ made of ("attn", "dense") sublayers only.
 
 The reference stacks parameters over periods and runs the stack with
 ``jax.lax.scan``; the port keeps one params dict per layer and runs a Python
-loop over them. KV caches follow the same structure: one (k, v) pair per
-layer plus the position ``pos``. MoE, SSM, hybrid, vlm and audio archs, MLA
+loop over them. KV caches follow the same structure: one head-major (k, v)
+pair per layer plus the position ``pos``, a 0-d int32 tensor on the caches'
+device as in the reference, so that a step reads it only there. MoE, SSM, hybrid, vlm and audio archs, MLA
 and leading dense layers wait for later slices (ROADMAP A5).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Mapping
 
 import numpy as np
@@ -50,10 +52,11 @@ def _layer_init(gen, cfg: ArchConfig, device) -> Params:
 
 def _layer_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
                  positions: torch.Tensor, cache: Params | None,
-                 cache_pos: int | None) -> tuple[torch.Tensor, Params | None]:
+                 cache_pos: torch.Tensor | None, start: int | None
+                 ) -> tuple[torch.Tensor, Params | None]:
     h = L.norm_apply(p["norm1"], x, cfg.norm_eps)
     out, cache = L.attn_apply(p["attn"], h, cfg, positions=positions,
-                              cache=cache, cache_pos=cache_pos)
+                              cache=cache, cache_pos=cache_pos, start=start)
     x = x + out
     x = x + L.mlp_apply(p["mlp"], L.norm_apply(p["norm2"], x, cfg.norm_eps),
                         cfg.act)
@@ -84,34 +87,50 @@ def init_lm(cfg: ArchConfig, *, seed: int = 0, device="cuda") -> Params:
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int, *,
                 device="cuda") -> Params:
-    """``pos`` 0 and one zeroed (k, v) pair per layer."""
+    """``pos``, a 0-d int32 zero on ``device``, and one zeroed head-major
+    (k, v) pair per layer (`layers.init_kv_cache`)."""
     check_dense(cfg)
     device = resolve_device(device)
-    return {"pos": 0,
+    return {"pos": torch.zeros((), dtype=torch.int32, device=device),
             "layers": [L.init_kv_cache(cfg, batch, max_len, device)
                        for _ in range(cfg.n_layers)]}
 
 
+@functools.cache
+def embed_scale(d_model: int, dtype: torch.dtype) -> float:
+    """sqrt(d_model) rounded to ``dtype``, as a Python float: x times it
+    rounds as the reference's product with ``jnp.asarray(d ** 0.5, x.dtype)``
+    does, with no tensor made on the device."""
+    return float(torch.tensor(d_model ** 0.5, dtype=dtype))
+
+
 def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
-            caches: Params | None = None
+            caches: Params | None = None, start: int | None = None
             ) -> tuple[torch.Tensor, Params | None, torch.Tensor]:
     """tokens: (B, S) int -> (logits (B, S, padded_vocab), new_caches,
     aux_loss). The caches are updated in place and returned with ``pos``
-    advanced by S; aux_loss is 0 for the dense stack."""
+    advanced by S: the positions are built from ``caches["pos"]`` on the
+    device and nothing is read on the host. ``start`` is the position where
+    the caller knows it on the host (a prefill into fresh caches: 0); the
+    attention then takes it as an integer (`layers.attn_apply`). aux_loss
+    is 0 for the dense stack."""
     check_dense(cfg)
     x = params["embed"]["w"][tokens]
     if cfg.embed_scale:
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
-    pos = caches["pos"] if caches is not None else 0
-    positions = pos + torch.arange(tokens.shape[1], device=tokens.device)
+        x = x * embed_scale(cfg.d_model, x.dtype)
+    s = tokens.shape[1]
+    pos = caches["pos"] if caches is not None else None
+    positions = torch.arange(s, device=tokens.device)
+    if pos is not None:
+        positions = pos + positions
     layer_caches = []
     for i, lp in enumerate(params["layers"]):
         c = caches["layers"][i] if caches is not None else None
         x, c = _layer_apply(lp, x, cfg, positions=positions, cache=c,
-                            cache_pos=pos)
+                            cache_pos=pos, start=start)
         layer_caches.append(c)
     new_caches = (None if caches is None
-                  else {"pos": pos + tokens.shape[1], "layers": layer_caches})
+                  else {"pos": pos + s, "layers": layer_caches})
     x = L.norm_apply(params["final_norm"], x, cfg.norm_eps)
     head_w = (params["embed"]["w"].T if cfg.tie_embed
               else params["lm_head"]["w"])

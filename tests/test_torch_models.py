@@ -3,7 +3,9 @@ archs at `get_smoke` size: the reference's own weights (JAX `init_lm`)
 carried across with `params_from_jax`, the same numpy tokens, and forward
 logits, prefill caches and teacher-forced decode steps compared. Tolerances:
 fp32 rtol = atol = 2e-4; bf16 rtol 5e-2, atol 8e-2
-(tests/test_smoke_archs.py)."""
+(tests/test_smoke_archs.py). The port's caches are head-major (B, Hkv,
+max_len, hd) and are read through `_reference_layout`, the reference's
+(B, max_len, Hkv, hd)."""
 
 import dataclasses
 
@@ -29,6 +31,11 @@ B, S, N_PREFILL = 2, 12, 8
 
 def _np(tree):
     return jax.tree.map(lambda a: np.asarray(a, np.float32), tree)
+
+
+def _reference_layout(cache: torch.Tensor) -> torch.Tensor:
+    """A port cache (B, Hkv, max_len, hd) in the reference's layout."""
+    return cache.transpose(1, 2)
 
 
 def _close(got, want, dtype, what=""):
@@ -93,8 +100,9 @@ def test_prefill_logits_and_caches_match_jax(pair):
     assert len(tc["layers"]) == cfg.n_layers
     for n, layer in enumerate(tc["layers"]):
         for name in ("k", "v"):
-            _close(layer[name], jc["periods"]["sub0"]["self"][name][n],
-                   pair["dtype"], f"layer {n} {name}")
+            _close(_reference_layout(layer[name]),
+                   jc["periods"]["sub0"]["self"][name][n], pair["dtype"],
+                   f"layer {n} {name}")
 
 
 def test_teacher_forced_decode_matches_jax(pair):

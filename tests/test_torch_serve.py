@@ -81,7 +81,8 @@ def test_prefill_and_decode_steps_shapes():
         logits, caches = tsteps.make_decode_step(cfg)(params, caches,
                                                       tokens[:, :1])
     assert logits.shape == (3, cfg.padded_vocab) and caches["pos"] == 8
-    assert caches["layers"][0]["k"].shape == (3, 9, cfg.n_kv_heads, cfg.hd)
+    # head-major: (B, Hkv, max_len, hd)
+    assert caches["layers"][0]["k"].shape == (3, cfg.n_kv_heads, 9, cfg.hd)
 
 
 def test_seeded_weights_are_reproducible():
