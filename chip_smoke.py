@@ -77,6 +77,22 @@
       runs one forward over the serve batch (4 prompts of 1024): every
       attention layer runs the flash kernel's tc_3xtf32 body and its pack
       pass (28 launches each).
+   d. the paper's strategies on the card: the port's ``dse.sweep`` plans
+      Tables I-III on the host (timed; it fails if any Table II cell has
+      more active words than passive); then, for each dense zoo CNN
+      (alexnet, vgg16, squeezenet, googlenet, resnet18, resnet50) and each
+      of max_input, max_output, equal, paper_opt and exact_opt, the
+      per-layer schedules of the full-size network at P = 2048 are applied
+      by node name to ``shrink(56, 1)`` and one seeded fp32 image runs
+      through ``run_network_kernels`` after a warm-up walk (one conv2d_psum
+      and one pack launch a conv node; every tensor within 1e-3 of the
+      reference walk; 3 walks timed, one walk replayed as a CUDA graph);
+      last, Qwen2-1.5B's five GEMMs at 4096 tokens
+      (``NetworkGraph.from_transformer``) run under their paper_opt plans
+      at one block's shared memory through ``psum_matmul`` in bf16, both
+      controllers (one active launch, ceil(K / bk) passive launches),
+      within 2e-2 of ``matmul_ref``. mobilenet and mnasnet have grouped
+      convs, which the runner refuses: they are planned, not run.
    Every output is checked against a library reference (the served logits
    against the model with `ref.attention_ref` as its attention, and against
    one full forward of prompt plus generated tokens; the fp32 forward's
@@ -112,6 +128,217 @@ NETWORK_REL_TOL = 1e-3
 FLASH_TOL = {"float32": 2e-4, "bfloat16": 3e-2}
 SERVE_ARCH, REQUESTS, SERVE_BATCH, PROMPT, GEN = "qwen2-1.5b", 8, 4, 1024, 32
 SERVE_REL_TOL = 5e-2
+
+
+# 4d: the paper's strategies on the card
+TABLE1_P = (512, 2048, 16384)
+TABLE2_P = (512, 1024, 2048, 4096, 8192, 16384)
+TABLE_STRATEGIES = ("max_input", "max_output", "equal", "paper_opt")
+WALK_STRATEGIES = TABLE_STRATEGIES + ("exact_opt",)
+WALK_PX, WALKS = 56, 3
+LM_ARCH, LM_SEQ, LM_TOL = "qwen2-1.5b", 4096, 2e-2
+
+
+def paper_strategies(torch, dev, graph_ms, bound) -> dict[str, int]:
+    """Phase 4d. (i) The paper's Tables I-III from the port's DSE, planned
+    on the host and timed. (ii) Table I's schedules at P = 2048 for each
+    dense zoo CNN and each of five strategies, planned at full size and
+    applied by node name to ``shrink(56, 1)``, one seeded fp32 image through
+    `run_network_kernels` against `run_network_reference`. (iii) Qwen2-1.5B's
+    five GEMMs at 4096 tokens under their paper_opt (first-order) plans
+    through `psum_matmul` in bf16, both controllers, against `matmul_ref`.
+    Returns the launches the kernels made in (ii) and (iii)."""
+    from repro_torch import plan
+    from repro_torch.configs import get_config
+    from repro_torch.core.cnn_zoo import PAPER_CNNS, PAPER_TABLE3
+    from repro_torch.kernels import conv2d_psum, launch, psum_matmul, ref
+    from repro_torch.kernels.conv_network import (init_network_params,
+                                                  run_network_kernels,
+                                                  run_network_reference)
+    from repro_torch.plan import dse
+    from repro_torch.plan.graph import NetworkGraph
+
+    # (i) the tables, planned on the host
+    t0 = time.perf_counter()
+    t1 = dse.sweep(PAPER_CNNS, TABLE1_P, TABLE_STRATEGIES, ("passive",),
+                   paper_convention=True)
+    t1_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    t2 = dse.sweep(PAPER_CNNS, TABLE2_P, ("paper_opt",), ("passive", "active"),
+                   paper_convention=True)
+    t2_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    t3 = {net: plan.min_network_traffic(net) for net in PAPER_CNNS}
+    t3_ms = 1e3 * (time.perf_counter() - t0)
+    words = {(r["network"], r["budget"], r["strategy"], r["controller"]):
+             r["interconnect_words"] for r in t1 + t2}
+    print(f"paper tables planned on the host by dse.sweep: Table I "
+          f"({len(t1)} cells) {t1_ms:.1f} ms, Table II ({len(t2)} cells) "
+          f"{t2_ms:.1f} ms, Table III {t3_ms:.3f} ms")
+    for net in PAPER_CNNS:
+        print(f"table I {net} (M words, passive, paper convention): " + "; ".join(
+            f"P{p} " + " ".join(f"{s} {words[(net, p, s, 'passive')] / 1e6:.2f}"
+                                for s in TABLE_STRATEGIES) for p in TABLE1_P))
+    for net in PAPER_CNNS:
+        cells = []
+        for p in TABLE2_P:
+            pas = words[(net, p, "paper_opt", "passive")]
+            act = words[(net, p, "paper_opt", "active")]
+            if act > pas:
+                fail(f"table II {net} P{p}: active {act} words > passive {pas}")
+            cells.append(f"P{p} {pas / 1e6:.2f}/{act / 1e6:.2f} "
+                         f"({100 * (1 - act / pas):.1f} %)")
+        print(f"table II / fig. 2 {net} (M words passive/active, paper_opt; "
+              f"active saving): " + "; ".join(cells))
+    for net in PAPER_CNNS:
+        val, pub = t3[net] / 1e6, PAPER_TABLE3[net]
+        print(f"table III {net}: {val:.3f} M words (published {pub}, "
+              f"deviation {100 * (val - pub) / pub:.1f} %)")
+
+    # (ii) Table I's schedules through conv2d_psum, by node name
+    dense = [net for net in PAPER_CNNS
+             if all(w.groups == 1 for w in plan.conv_workloads(net))]
+    grouped = [net for net in PAPER_CNNS if net not in dense]
+    print(f"strategy walks: {', '.join(grouped)} have grouped convs, which "
+          f"run_network_kernels refuses (dense convs only); their schedules "
+          f"are planned above and not run")
+    gen = torch.Generator().manual_seed(20)
+    phase = {"conv2d_psum": 0, "conv2d_psum/pack": 0}
+    for net in dense:
+        g = NetworkGraph.from_cnn(net).shrink(WALK_PX, 1)
+        nodes = g.workload_nodes
+        params = init_network_params(g, seed=0, device=dev)
+        # on the card already, so that a walk can be captured as a CUDA graph
+        inputs = {g.inputs[0]: torch.randn(3, WALK_PX, WALK_PX,
+                                           generator=gen).to(dev)}
+        want = run_network_reference(g, params, inputs=inputs, device=dev)
+        for s in WALK_STRATEGIES:
+            rows = dse.sweep(net, P_MACS, (s,), ("passive",), per_layer=True)
+            by_name = {r["layer"]: r for r in rows}
+            if len(by_name) != len(rows) or set(by_name) != {n.name for n in nodes}:
+                fail(f"{net} {s}: the sweep's layer names do not name the "
+                     f"graph's conv nodes one to one")
+            schedules = {}
+            for node in nodes:
+                wl, full = node.workload, by_name[node.name]["workload"]
+                if (wl.cin, wl.cout, wl.k) != (full.cin, full.cout, full.k):
+                    fail(f"{net} {node.name}: shrunk node {(wl.cin, wl.cout, wl.k)}"
+                         f" != its row's workload {(full.cin, full.cout, full.k)}")
+                schedules[node.name] = by_name[node.name]["schedule"]
+            # the fp32 body's work: every block's accumulator tile (channel
+            # lanes x output positions) over the padded cin walk, against the
+            # convs' MACs; narrow or uneven blocks pad it
+            work = 0
+            for node in nodes:
+                wl, sc, pad = node.workload, schedules[node.name], node.workload.k // 2
+                lp = conv2d_psum.conv_launch_plan(
+                    cin=wl.cin, hp=wl.hi + 2 * pad, wp=wl.wi + 2 * pad, cout=wl.cout,
+                    kk=wl.k, block_m=sc.m, block_n=sc.n, dtype=torch.float32)
+                acc = next(sp.shape for sp in lp.scratch if sp.name == "acc")
+                work += (lp.grid[0] * lp.grid[1] * acc[0] * acc[1]
+                         * lp.inputs[0].array_shape[0] * wl.k ** 2)
+            padded = work / sum(node.workload.macs for node in nodes)
+            full_words = {c: dse.sweep(net, P_MACS, (s,), (c,))[0]["interconnect_words"]
+                          for c in ("passive", "active")}
+            small_words = {c: sum(plan.traffic_report(n.workload, dataclasses.replace(
+                schedules[n.name], controller=plan.Controller(c))).interconnect_words
+                for n in nodes) for c in ("passive", "active")}
+            run_network_kernels(g, schedules, params, inputs=inputs, device=dev)
+            walk_ms = []
+            for i in range(WALKS):
+                torch.cuda.synchronize()
+                if i == 0:
+                    launch.reset_launches()
+                t0 = time.perf_counter()
+                got = run_network_kernels(g, schedules, params, inputs=inputs,
+                                          device=dev)
+                torch.cuda.synchronize()
+                walk_ms.append(1e3 * (time.perf_counter() - t0))
+                if i == 0:
+                    counts = dict(launch.LAUNCHES)
+                    expect = {"conv2d_psum": len(nodes),
+                              "conv2d_psum/pack": len(nodes)}
+                    if counts != expect:
+                        fail(f"{net} {s}: a walk launched {counts}, expected "
+                             f"{expect} (one conv and one pack a conv node)")
+                    for key in phase:
+                        phase[key] += counts[key]
+                    worst = 0.0
+                    for name, value in want.items():
+                        out = got[name]
+                        if out.shape != value.shape or not torch.isfinite(out).all():
+                            fail(f"{net} {s} {name}: shape or non-finite values")
+                        rel = ((out - value).abs().max() / value.abs().max()).item()
+                        if rel > NETWORK_REL_TOL:
+                            fail(f"{net} {s} {name}: max abs err / max abs = {rel}")
+                        worst = max(worst, rel)
+                del got
+            # the walk's device time: one walk captured as a CUDA graph and
+            # replayed, without the host's time between launches
+            dev_ms = graph_ms(lambda: run_network_kernels(
+                g, schedules, params, inputs=inputs, device=dev), calls=1, reps=3)
+            ms_, ns_ = ([schedules[n.name].m for n in nodes],
+                        [schedules[n.name].n for n in nodes])
+            print(f"strategy walk {net} {s} (P {P_MACS}, {len(nodes)} convs, "
+                  f"{WALK_PX} px, fp32): words full size passive "
+                  f"{full_words['passive'] / 1e6:.3f} M, active "
+                  f"{full_words['active'] / 1e6:.3f} M; shrunk graph passive "
+                  f"{small_words['passive'] / 1e6:.3f} M, active "
+                  f"{small_words['active'] / 1e6:.3f} M; walk median "
+                  f"{sorted(walk_ms)[WALKS // 2]:.3f} ms (walks "
+                  f"{', '.join(f'{t:.3f}' for t in walk_ms)}), replayed "
+                  f"{dev_ms:.3f} ms (idle share of the median walk "
+                  f"{1 - dev_ms / sorted(walk_ms)[WALKS // 2]:.3f}); m {min(ms_)}-"
+                  f"{max(ms_)}, n {min(ns_)}-{max(ns_)}, cuda_core work "
+                  f"{padded:.3f} x the MACs; worst rel err "
+                  f"{worst:.3g} (limit {NETWORK_REL_TOL})")
+        del params, want
+
+    # (iii) a transformer's GEMMs through psum_matmul, first-order plans
+    cfg = get_config(LM_ARCH)
+    tg = NetworkGraph.from_transformer(cfg, seq_len=LM_SEQ)
+    dgen = torch.Generator(device=dev).manual_seed(21)
+    phase.update({"psum_matmul/active": 0, "psum_matmul/passive": 0})
+    for node in tg.workload_nodes:
+        wl = node.workload
+        x = torch.randn(wl.m, wl.k, generator=dgen, device=dev).to(torch.bfloat16)
+        w = torch.randn(wl.k, wl.n, generator=dgen, device=dev).to(torch.bfloat16)
+        want = ref.matmul_ref(x, w)
+        for c in ("active", "passive"):
+            p = plan.plan(wl, plan.SMEM_BUDGET, "paper_opt", c)
+            exact = plan.plan(wl, plan.SMEM_BUDGET, "exact_opt", c).schedule
+            sched = p.schedule
+            torch.cuda.synchronize()
+            launch.reset_launches()
+            y = psum_matmul.psum_matmul(x, w, schedule=sched)
+            torch.cuda.synchronize()
+            counts = dict(launch.LAUNCHES)
+            expect = {f"psum_matmul/{c}": 1 if c == "active" else -(-wl.k // sched.bk)}
+            if counts != expect:
+                fail(f"{wl.name} {c}: launched {counts}, expected {expect}")
+            phase[f"psum_matmul/{c}"] += counts[f"psum_matmul/{c}"]
+            err = (y.float() - want.float()).abs().max().item()
+            if (y.shape != want.shape or not torch.isfinite(y).all()
+                    or not torch.allclose(y.float(), want.float(), rtol=LM_TOL,
+                                          atol=LM_TOL)):
+                fail(f"{wl.name} {c}: differs from matmul_ref, max abs err {err}")
+            del y
+            out_size = 4 if c == "passive" else x.element_size()
+            b_ms, b_by = bound(float(wl.flops), (wl.m * wl.k + wl.k * wl.n)
+                               * x.element_size() + wl.m * wl.n * out_size,
+                               torch.bfloat16)
+            ms = graph_ms(lambda: psum_matmul.psum_matmul(x, w, schedule=sched),
+                          calls=3, reps=3)
+            lib = graph_ms(lambda: torch.matmul(x, w), calls=3, reps=3)
+            print(f"transformer gemm {wl.name} {wl.m}x{wl.n}x{wl.k} bf16 {c}: "
+                  f"paper_opt blocks {sched.bm}x{sched.bn}x{sched.bk} (exact_opt "
+                  f"{exact.bm}x{exact.bn}x{exact.bk}); words "
+                  f"{p.traffic.interconnect_words / 1e6:.3f} M; ms={ms:.4f} "
+                  f"(graph replays) library_ms={lib:.4f} bound_ms={b_ms:.4f} "
+                  f"({b_by}); launches {counts}; max_abs_err={err:.3g} "
+                  f"(rtol = atol = {LM_TOL})")
+        del x, w, want
+    return phase
 
 
 def kernel_name(mangled: str) -> str:
@@ -1218,6 +1445,14 @@ def main() -> None:
           f"({pack_busy / busy:.3f}); wall {wall:.3f} ms profiled; idle share "
           f"{1 - busy / wall:.3f}")
 
+    # 4d. the paper's strategies on the card: Table I's schedules through
+    #     conv2d_psum, a transformer's first-order GEMM plans through
+    #     psum_matmul (counted per walk and per GEMM inside)
+    t0 = time.perf_counter()
+    strategy_launches = paper_strategies(torch, dev, graph_ms, bound)
+    print(f"paper strategies phase: {time.perf_counter() - t0:.1f} s, launches "
+          f"{strategy_launches}")
+
     # 5. result lines
     sources = {"psum_matmul/active": ("psum_matmul", "src/repro/kernels/psum_matmul.py:48"),
                "psum_matmul/passive": ("psum_matmul", "src/repro/kernels/psum_matmul.py:66"),
@@ -1236,6 +1471,11 @@ def main() -> None:
             **{k: first[k] for k in ("spill_bound_ms", "spill_bound_by")
                if k in first},
             "pack_launches": counts[f"{name.split('/')[0]}/pack"],
+            # phase 4d's launches: Table I's schedules (conv) and the
+            # transformer's GEMMs (bf16, first-order plans)
+            "strategy_launches": strategy_launches[name],
+            **({"strategy_pack_launches": strategy_launches[f"{name}/pack"]}
+               if f"{name}/pack" in strategy_launches else {}),
             "dtype": "float32",
             "body_by_dtype": {d: v["body"] for d, v in by_dtype.items()},
             "by_dtype": by_dtype})

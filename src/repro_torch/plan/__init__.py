@@ -3,21 +3,49 @@
     from repro_torch import plan
     p = plan.plan(plan.ConvWorkload(...), 2048, "exact_opt", "active")
     p.schedule.m, p.schedule.n, p.traffic.interconnect_words
+
+    plan.network_traffic("alexnet", 2048, "paper_opt", "passive",
+                         paper_convention=True)          # a Table I cell
+    plan.dse.sweep(["resnet18"], (512, 2048), ("paper_opt", "exact_opt"),
+                   ("passive", "active"))                # tidy rows
 """
 
-from repro_torch.plan.api import (DEFAULT_P_MACS, Plan, default_budget, plan,
-                                  plan_many)
-from repro_torch.plan.gemm_model import SMEM_BUDGET
+from repro_torch.plan import dse, graph, objectives, space
+from repro_torch.plan.api import (DEFAULT_P_MACS, Plan, clear_plan_cache,
+                                  coerce_strategy, default_budget,
+                                  min_network_traffic, network_traffic, plan,
+                                  plan_cache_info, plan_many)
+from repro_torch.plan.conv_model import optimal_m_realvalued
+from repro_torch.plan.dse import (Constraint, SearchResult, StrategySpec,
+                                  register_strategy, unregister_strategy)
+from repro_torch.plan.gemm_model import LANE, SMEM_BUDGET, SUBLANE
 from repro_torch.plan.graph import NetworkGraph, Node, Tensor
+from repro_torch.plan.objectives import (OBJECTIVES, Objective, get_objective,
+                                        register_objective)
+from repro_torch.plan.planners import (PLANNERS, Planner, get_planner,
+                                       register_planner)
 from repro_torch.plan.schedule import Controller, Schedule, Strategy
+from repro_torch.plan.space import Candidates, SearchSpace
 from repro_torch.plan.traffic import TrafficReport, conv_traffic, traffic_report
 from repro_torch.plan.workload import (ConvWorkload, MatmulWorkload, Workload,
-                                       conv_workloads)
+                                       conv_workloads, transformer_matmuls)
 
 __all__ = [
-    "DEFAULT_P_MACS", "SMEM_BUDGET", "Plan",
-    "default_budget", "plan", "plan_many", "NetworkGraph", "Node", "Tensor",
-    "Controller", "Schedule", "Strategy", "TrafficReport", "conv_traffic",
-    "traffic_report", "ConvWorkload", "MatmulWorkload", "Workload",
-    "conv_workloads",
+    "Plan", "plan", "plan_many", "plan_cache_info", "clear_plan_cache",
+    "default_budget", "network_traffic", "min_network_traffic",
+    "coerce_strategy",
+    "DEFAULT_P_MACS", "SMEM_BUDGET", "LANE", "SUBLANE",
+    "Planner", "PLANNERS", "register_planner", "get_planner",
+    "Controller", "Schedule", "Strategy",
+    "TrafficReport", "conv_traffic", "traffic_report",
+    "ConvWorkload", "MatmulWorkload", "Workload", "conv_workloads",
+    "transformer_matmuls", "optimal_m_realvalued",
+    # design-space exploration (repro_torch.plan.dse)
+    "dse", "objectives", "space",
+    "Constraint", "SearchResult", "StrategySpec",
+    "register_strategy", "unregister_strategy",
+    "OBJECTIVES", "Objective", "get_objective", "register_objective",
+    "Candidates", "SearchSpace",
+    # network graphs (repro_torch.plan.graph)
+    "graph", "NetworkGraph", "Node", "Tensor",
 ]

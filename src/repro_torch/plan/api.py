@@ -2,29 +2,28 @@
 
 One entry point for both workload kinds: conv channel partitions against a
 MAC budget (the paper's accelerator) and GEMM block shapes against a
-per-block byte budget. Strategies dispatch straight onto `conv_model` and
-`gemm_model`:
+per-block byte budget. A strategy name resolves to its planner
+(`planners.get_planner`), a preset of the design-space search in `dse`.
+Results are LRU-cached on the full (workload, budget, strategy, controller,
+exact_iters) key; workloads are frozen dataclasses, so the key is exact.
 
-  conv    max_input / max_output / equal / paper_opt -> `closed_form_mn`
-          exact_opt (alias exhaustive_vmem)         -> the exact search
-  matmul  exhaustive_vmem / exact_opt               -> `gemm_model.plan_gemm`
+`network_traffic` and `min_network_traffic` sum a network's words: the
+quantities of the paper's Tables I-III.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 from repro_torch.plan import conv_model, gemm_model
+from repro_torch.plan.planners import PLANNERS, get_planner
 from repro_torch.plan.schedule import Controller, Schedule, Strategy
 from repro_torch.plan.traffic import TrafficReport, traffic_report
-from repro_torch.plan.workload import (ConvWorkload, MatmulWorkload, Workload,
-                                       conv_workloads)
+from repro_torch.plan.workload import ConvWorkload, Workload, conv_workloads
 
 DEFAULT_P_MACS = 2048          # the paper's central MAC budget
-
-_CONV_CLOSED = (Strategy.MAX_INPUT, Strategy.MAX_OUTPUT, Strategy.EQUAL,
-                Strategy.PAPER_OPT)
-_EXACT = (Strategy.EXACT_OPT, Strategy.EXHAUSTIVE_VMEM)
+_CACHE_SIZE = 4096
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,20 +47,31 @@ def default_budget(workload: Workload) -> int:
     return gemm_model.SMEM_BUDGET
 
 
-def _schedule(workload: Workload, budget: int, strategy: Strategy,
-              controller: Controller) -> Schedule:
-    if isinstance(workload, ConvWorkload):
-        if strategy in _CONV_CLOSED:
-            m, n = conv_model.closed_form_mn(workload, budget, strategy)
-        elif strategy in _EXACT:
-            (m, n), = conv_model.conv_exact_search_batch([workload], budget,
-                                                         controller)
-        else:
-            raise ValueError(f"strategy {strategy.value} is not ported for convs")
-        return Schedule(kind="conv", bm=m, bn=n, bk=0, controller=controller)
-    if isinstance(workload, MatmulWorkload):
-        return gemm_model.plan_gemm(workload, budget, strategy, controller)
-    raise TypeError(f"unknown workload type {type(workload).__name__}")
+def coerce_strategy(value: "Strategy | str") -> "Strategy | str":
+    """Coerce to a `Strategy` member, or pass through the name of a custom
+    strategy registered with ``dse.register_strategy`` / ``register_planner``
+    (strings stay strings, so the plan cache keys them)."""
+    if isinstance(value, Strategy):
+        return value
+    try:
+        return Strategy(value)
+    except ValueError:
+        if value in PLANNERS:
+            return value
+        waits = (" (the sim_* strategies wait for the SoC simulator, ROADMAP "
+                 "A10)" if str(value).startswith("sim_") else "")
+        raise ValueError(
+            f"unknown strategy {value!r}{waits}; known: "
+            f"{sorted(set([s.value for s in Strategy]) | set(PLANNERS))}"
+        ) from None
+
+
+@functools.lru_cache(maxsize=_CACHE_SIZE)
+def _plan_cached(workload: Workload, budget: int, strategy: "Strategy | str",
+                 controller: Controller, exact_iters: bool) -> Plan:
+    schedule = get_planner(strategy)(workload, budget, controller)
+    return Plan(workload=workload, budget=budget, schedule=schedule,
+                traffic=traffic_report(workload, schedule, exact_iters))
 
 
 def plan(workload: Workload, budget: int | None = None,
@@ -72,13 +82,13 @@ def plan(workload: Workload, budget: int | None = None,
 
     budget: P MACs (conv) or bytes (matmul); None picks the kind's default.
     ``exact_iters`` selects ceil iteration counts for the conv traffic report
-    (False reproduces the paper's real-valued convention).
+    (False reproduces the paper's real-valued convention). ``strategy``
+    takes the built-in `Strategy` values and any name registered through
+    ``dse.register_strategy``.
     """
     budget = default_budget(workload) if budget is None else int(budget)
-    schedule = _schedule(workload, budget, Strategy.coerce(strategy),
-                         Controller.coerce(controller))
-    return Plan(workload=workload, budget=budget, schedule=schedule,
-                traffic=traffic_report(workload, schedule, exact_iters))
+    return _plan_cached(workload, budget, coerce_strategy(strategy),
+                        Controller.coerce(controller), exact_iters)
 
 
 def plan_many(workloads, budget: int | None = None,
@@ -86,14 +96,16 @@ def plan_many(workloads, budget: int | None = None,
               controller: "Controller | str" = Controller.PASSIVE,
               exact_iters: bool = True) -> list[Plan]:
     """Plan a list of workloads (or a named CNN) under one budget. An
-    all-conv exact search runs as one batch across the network."""
+    all-conv exact search runs as one batch across the network: the same
+    schedules as per-layer ``plan()`` calls, one segmented argmin."""
     if isinstance(workloads, str):
         workloads = conv_workloads(workloads)
     workloads = list(workloads)
-    strategy = Strategy.coerce(strategy)
+    strategy = coerce_strategy(strategy)
     controller = Controller.coerce(controller)
-    if (strategy in _EXACT and workloads
-            and all(isinstance(w, ConvWorkload) for w in workloads)):
+    if (strategy in (Strategy.EXACT_OPT, Strategy.EXHAUSTIVE_VMEM)
+            and workloads and all(isinstance(w, ConvWorkload)
+                                  for w in workloads)):
         p_macs = DEFAULT_P_MACS if budget is None else int(budget)
         mns = conv_model.conv_exact_search_batch(workloads, p_macs, controller)
         plans = []
@@ -105,3 +117,43 @@ def plan_many(workloads, budget: int | None = None,
         return plans
     return [plan(w, budget, strategy, controller, exact_iters)
             for w in workloads]
+
+
+def plan_cache_info():
+    return _plan_cached.cache_info()
+
+
+def clear_plan_cache() -> None:
+    _plan_cached.cache_clear()
+
+
+# ----------------------------------------------------------- network helpers
+def network_traffic(workloads, budget: int,
+                    strategy: "Strategy | str" = Strategy.PAPER_OPT,
+                    controller: "Controller | str" = Controller.PASSIVE,
+                    exact_iters: bool | None = None,
+                    paper_convention: bool = False) -> float:
+    """Total conv interconnect words of a network at one budget: the
+    quantity of the paper's Tables I/II.
+
+    ``paper_convention=True`` treats grouped/depthwise convolutions as dense
+    reductions (groups ignored), the paper's modelling choice; the default
+    is groups-aware. ``exact_iters=None`` keeps the legacy convention: ceil
+    iteration counts for the exact search only.
+    """
+    if isinstance(workloads, str):
+        workloads = conv_workloads(workloads)
+    strategy = coerce_strategy(strategy)
+    controller = Controller.coerce(controller)
+    exact = strategy is Strategy.EXACT_OPT if exact_iters is None else exact_iters
+    wls = [dataclasses.replace(wl, groups=1)
+           if paper_convention and wl.groups > 1 else wl for wl in workloads]
+    plans = plan_many(wls, budget, strategy, controller, exact_iters=exact)
+    return sum(p.traffic.interconnect_words for p in plans)
+
+
+def min_network_traffic(workloads) -> float:
+    """Table III floor: unlimited MACs (eq 4 with m=M, n=N)."""
+    if isinstance(workloads, str):
+        workloads = conv_workloads(workloads)
+    return conv_model.min_conv_bandwidth(workloads)

@@ -15,7 +15,7 @@ import math
 
 import numpy as np
 
-from repro_torch.plan.schedule import Controller, Strategy
+from repro_torch.plan.schedule import Controller, Schedule, Strategy
 from repro_torch.plan.workload import ConvWorkload
 
 
@@ -53,14 +53,29 @@ def conv_bandwidth(wl: ConvWorkload, m: int, n: int, controller: Controller,
     return float(b_i), float(b_o)
 
 
-def _bandwidth_terms(mg, ng, in_pref, out_pref, m, n, controller: Controller):
-    """eqs (2)/(3) with ceil iteration counts over candidate arrays.
+def optimal_m_realvalued(wl: ConvWorkload, p_macs: int,
+                         controller: Controller = Controller.PASSIVE) -> float:
+    """eq (7), and its active-controller refinement: with free read-back the
+    objective loses the factor 2 -> m* = sqrt(Wo*Ho*P/(Wi*Hi*K^2))."""
+    factor = 2.0 if controller is Controller.PASSIVE else 1.0
+    return math.sqrt(factor * wl.wo * wl.ho * p_macs
+                     / (wl.wi * wl.hi * wl.k * wl.k))
+
+
+def _bandwidth_terms(mg, ng, in_pref, out_pref, m, n,
+                     controller: Controller, exact_iters: bool):
+    """eqs (2)/(3) over candidate arrays, the one vectorized implementation
+    both `conv_bandwidth_grid` and `conv_exact_search_batch` evaluate.
     ``mg``/``ng``/``in_pref``/``out_pref`` are per-group channel counts and
     the Wi*Hi*M / Wo*Ho*N prefactors, scalars or per-candidate arrays."""
     m_eff = np.minimum(m, mg)
     n_eff = np.minimum(n, ng)
-    out_iters = -(-ng // n_eff)        # ceil on int64
-    in_iters = -(-mg // m_eff)
+    if exact_iters:
+        out_iters = -(-ng // n_eff)        # ceil on int64
+        in_iters = -(-mg // m_eff)
+    else:
+        out_iters = ng / n_eff             # the paper's real-valued convention
+        in_iters = mg / m_eff
     b_i = in_pref * out_iters
     writes = out_pref * in_iters
     if controller is Controller.ACTIVE:
@@ -68,6 +83,24 @@ def _bandwidth_terms(mg, ng, in_pref, out_pref, m, n, controller: Controller):
     else:
         b_o = 2 * writes - out_pref
     return b_i, b_o
+
+
+def conv_bandwidth_grid(wl: ConvWorkload, m, n, controller: Controller,
+                        exact_iters: bool = False
+                        ) -> tuple[np.ndarray, np.ndarray]:
+    """Vectorized `conv_bandwidth`: (B_i, B_o) float64 arrays over candidate
+    arrays ``m``/``n``, element for element equal to the scalar evaluator
+    (the same exact integers, or the same IEEE divisions)."""
+    m = np.asarray(m, dtype=np.int64)
+    n = np.asarray(n, dtype=np.int64)
+    g = wl.groups
+    b_i, b_o = _bandwidth_terms(
+        wl.cin // g, wl.cout // g,
+        wl.wi * wl.hi * wl.cin,            # exact Python ints, as in the
+        wl.wo * wl.ho * wl.cout,           # scalar path
+        m, n, controller, exact_iters)
+    return (np.asarray(b_i, dtype=np.float64),
+            np.asarray(b_o, dtype=np.float64))
 
 
 def conv_exact_candidates(wl: ConvWorkload, p_macs: int
@@ -112,6 +145,22 @@ def closed_form_mn(wl: ConvWorkload, p_macs: int, strategy: Strategy
     return m, n
 
 
+def plan_conv_exact_scalar(wl: ConvWorkload, p_macs: int,
+                           controller: Controller) -> tuple[int, int]:
+    """The exact search as a per-candidate Python loop: the parity oracle of
+    the vectorized searches. Do not optimise."""
+    g = wl.groups
+    mg, ng = wl.cin // g, wl.cout // g
+    budget = max(1, p_macs // (wl.k * wl.k))
+    best_mn, best_b = (1, 1), float("inf")
+    for m in range(1, min(mg, budget) + 1):
+        n = min(ng, max(1, budget // m))
+        b = sum(conv_bandwidth(wl, m, n, controller, exact_iters=True))
+        if b < best_b:
+            best_mn, best_b = (m, n), b
+    return best_mn
+
+
 def conv_exact_search_batch(workloads, p_macs: int, controller: Controller
                             ) -> list[tuple[int, int]]:
     """Exact search over a whole network in one shot: concatenate every
@@ -139,7 +188,7 @@ def conv_exact_search_batch(workloads, p_macs: int, controller: Controller
         ng=per_wl(lambda w: w.cout // w.groups),
         in_pref=per_wl(lambda w: w.wi * w.hi * w.cin),
         out_pref=per_wl(lambda w: w.wo * w.ho * w.cout),
-        m=m, n=n, controller=controller)
+        m=m, n=n, controller=controller, exact_iters=True)
     cost = (b_i + b_o).astype(np.float64)
 
     # Segmented first-minimum argmin: stable sort by (segment, cost, position)
@@ -148,3 +197,19 @@ def conv_exact_search_batch(workloads, p_macs: int, controller: Controller
     starts = np.searchsorted(seg[order], np.arange(len(workloads)))
     best = order[starts]
     return [(int(m[i]), int(n[i])) for i in best]
+
+
+def plan_conv(wl: ConvWorkload, p_macs: int, strategy: Strategy,
+              controller: Controller) -> Schedule:
+    """Choose (m, n) for a layer given P MACs under one of the paper's four
+    strategies or the exact integer search (`EXACT_OPT`, whose objective
+    honours the controller). Every strategy is a `repro_torch.plan.dse`
+    preset of (space, constraints, objective)."""
+    from repro_torch.plan import dse
+    return dse.plan_with_strategy(wl, p_macs, strategy, controller)
+
+
+def min_conv_bandwidth(workloads) -> float:
+    """Table III: unlimited MACs, so each layer reads its input once and
+    writes its output once (eq 4 with m=M, n=N)."""
+    return float(sum(w.in_acts + w.out_acts for w in workloads))

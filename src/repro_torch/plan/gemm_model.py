@@ -22,6 +22,7 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
 
 from repro_torch.plan.schedule import Controller, Schedule, Strategy
 from repro_torch.plan.workload import MatmulWorkload
@@ -77,21 +78,29 @@ def aligned_block_candidates(m: int, n: int, k: int, max_block: int = 4096
     return bm.ravel(), bn.ravel(), bk.ravel()
 
 
-def working_set_bytes(wl: MatmulWorkload, bm, bn, bk) -> np.ndarray:
-    """On-chip bytes one block holds: double-buffered A/B blocks in the
-    operand type plus the accumulator tile, over candidate arrays."""
+def working_set_bytes(wl: MatmulWorkload, bm, bn, bk,
+                      double_buffer: bool = True) -> np.ndarray:
+    """On-chip bytes one block holds: the A/B blocks in the operand type
+    (twice when double-buffered) plus the accumulator tile, over candidate
+    arrays."""
     bm = np.asarray(bm, np.int64)
     bn = np.asarray(bn, np.int64)
     bk = np.asarray(bk, np.int64)
     in_size = wl.in_dtype.itemsize
     acc_size = wl.acc_dtype.itemsize
-    return 2 * (bm * bk + bk * bn) * in_size + bm * bn * acc_size
+    buffers = 2 if double_buffer else 1
+    return buffers * (bm * bk + bk * bn) * in_size + bm * bn * acc_size
 
 
-def matmul_traffic_total_grid(m: int, n: int, k: int, bm, bn, bk,
-                              controller: Controller) -> np.ndarray:
-    """Vectorized `matmul_traffic`'s ``total`` over candidate block arrays
-    (exact int64 arithmetic, one final float conversion)."""
+def matmul_traffic_grid(m: int, n: int, k: int, bm, bn, bk,
+                        controller="active") -> dict[str, np.ndarray]:
+    """Vectorized `matmul_traffic` over candidate block arrays, entry for
+    entry equal to the scalar evaluator (exact int64 arithmetic, one final
+    float conversion)."""
+    controller = Controller.coerce(controller)
+    bm = np.asarray(bm, np.int64)
+    bn = np.asarray(bn, np.int64)
+    bk = np.asarray(bk, np.int64)
     gi = -(-m // bm)
     gj = -(-n // bn)
     gk = -(-k // bk)
@@ -101,25 +110,52 @@ def matmul_traffic_total_grid(m: int, n: int, k: int, bm, bn, bk,
         c_traffic = np.full_like(a_reads, m * n)
     else:
         c_traffic = (2 * gk - 1) * (m * n)
-    return (a_reads + b_reads + c_traffic).astype(np.float64)
+    return {"a_reads": a_reads.astype(np.float64),
+            "b_reads": b_reads.astype(np.float64),
+            "c_traffic": c_traffic.astype(np.float64),
+            "total": (a_reads + b_reads + c_traffic).astype(np.float64)}
+
+
+def plan_matmul_blocks(m: int, n: int, k: int, *,
+                       in_dtype: torch.dtype = torch.bfloat16,
+                       acc_dtype: torch.dtype = torch.float32,
+                       budget: int = SMEM_BUDGET, controller="active",
+                       max_block: int = 4096) -> Schedule:
+    """Exact search over aligned block shapes for the fewest words under the
+    byte budget, as one masked argmin over the aligned candidate grid
+    (`repro_torch.plan.dse`; ties go to the first candidate). A budget
+    below the smallest tile takes the smallest tile."""
+    from repro_torch.plan import dse, space
+    wl = MatmulWorkload(m=m, n=n, k=k, in_dtype=in_dtype, acc_dtype=acc_dtype)
+    res = dse.search(wl, budget, space=space.AlignedBlockSpace(max_block),
+                     constraints=(dse.VmemBudget(),),
+                     objective="interconnect_words",
+                     controller=Controller.coerce(controller))
+    return res.schedule
+
+
+def first_order_block(wl: MatmulWorkload, budget: int,
+                      max_block: int = 4096) -> tuple[int, int, int]:
+    """Closed-form analogue of the paper's eq (7) for a GEMM: with the input
+    terms dominating, minimize 1/bm + 1/bn s.t. bk*(bm+bn)*|in| <= budget
+    -> bm = bn (the 'square block' rule), bk as large as the leftover
+    allows; every block a multiple of `LANE`. Returns (bm, bn, bk)."""
+    in_size = wl.in_dtype.itemsize
+    side = min(int(math.sqrt(budget / (4 * in_size))), max_block)
+    bm = max(LANE, (min(side, wl.m) // LANE) * LANE)
+    bn = max(LANE, (min(side, wl.n) // LANE) * LANE)
+    bk_budget = budget // (2 * in_size * (bm + bn))
+    bk = max(LANE, (min(bk_budget, wl.k) // LANE) * LANE)
+    return bm, bn, bk
 
 
 def plan_gemm(wl: MatmulWorkload, budget: int, strategy: Strategy,
               controller: Controller, max_block: int = 4096) -> Schedule:
-    """Exhaustive search over aligned block shapes for the fewest words under
-    the byte budget (``exhaustive_vmem`` / ``exact_opt``): one masked argmin
-    whose ties go to the first candidate. A budget below the smallest tile
-    takes the smallest tile."""
-    strategy = Strategy.coerce(strategy)
-    controller = Controller.coerce(controller)
-    if strategy not in (Strategy.EXHAUSTIVE_VMEM, Strategy.EXACT_OPT):
-        raise ValueError(f"strategy {strategy.value} is not ported for matmuls")
-    bm, bn, bk = aligned_block_candidates(wl.m, wl.n, wl.k, max_block)
-    fits = working_set_bytes(wl, bm, bn, bk) <= budget
-    if not fits.any():
-        return Schedule(kind="matmul", bm=SUBLANE * 16, bn=LANE, bk=LANE,
-                        controller=controller)
-    cost = matmul_traffic_total_grid(wl.m, wl.n, wl.k, bm, bn, bk, controller)
-    best = int(np.argmin(np.where(fits, cost, np.inf)))
-    return Schedule(kind="matmul", bm=int(bm[best]), bn=int(bn[best]),
-                    bk=int(bk[best]), controller=controller)
+    """Strategy dispatch for GEMM workloads: ``exhaustive_vmem`` /
+    ``exact_opt`` run the exact aligned search, ``first_order`` /
+    ``paper_opt`` / ``equal`` the closed-form square-block rule. The
+    conv-only ``max_input`` / ``max_output`` have no GEMM meaning and raise.
+    Every strategy is a `repro_torch.plan.dse` preset."""
+    from repro_torch.plan import dse
+    return dse.plan_with_strategy(wl, budget, strategy, controller,
+                                  max_block=max_block)

@@ -1,31 +1,34 @@
-"""Network-graph IR: nodes are `ConvWorkload`s, edges are feature-map tensors.
+"""Network-graph IR: nodes are `Workload`s, edges are feature-map tensors.
 
   `Tensor`        one feature map (channels x h x w)
-  `Node`          one op: a conv workload, or a virtual op (input / pool /
-                  add) that moves no modelled traffic
+  `Node`          one op: a conv/matmul workload, or a virtual op (input /
+                  pool / add / attn / act / route) that moves no modelled
+                  traffic
   `NetworkGraph`  topologically ordered nodes + tensors, with producer and
                   consumer maps
 
 Concatenation is structural, not an op: a consumer that reads a concat has
 several input tensors (its ``cin`` is the channel sum).
 
-``NetworkGraph.from_cnn`` builds a zoo net with its real branch structure;
-``shrink()`` gives the structurally identical stride-1, "same"-padded graph
-that the kernel runner executes.
+Builders: ``NetworkGraph.from_cnn`` (a zoo net with its real branch
+structure), ``from_layers`` (any layer list as a linear chain) and
+``from_transformer`` (one decoder block + LM head of an ``ArchConfig`` as a
+GEMM chain). ``shrink()`` gives the structurally identical stride-1,
+"same"-padded conv graph that the kernel runner executes.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.plan.workload import ConvWorkload
+from repro_torch.plan.workload import ConvWorkload, MatmulWorkload, Workload
 
-VIRTUAL_OPS = ("input", "pool", "add")
+VIRTUAL_OPS = ("input", "pool", "add", "attn", "act", "route")
 
 
 @dataclasses.dataclass(frozen=True)
 class Tensor:
-    """One feature-map tensor flowing along an edge."""
+    """One feature-map (or activation) tensor flowing along an edge."""
 
     name: str
     channels: int
@@ -40,14 +43,14 @@ class Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class Node:
-    """One graph op. ``workload`` is set for "conv" ops and None for virtual
-    ops."""
+    """One graph op. ``workload`` is set for "conv"/"matmul" ops and None
+    for virtual ops."""
 
     name: str
-    op: str                       # "conv" | a VIRTUAL_OPS entry
+    op: str                       # "conv" | "matmul" | a VIRTUAL_OPS entry
     ins: tuple[str, ...]          # input tensor names
     out: str                      # output tensor name
-    workload: ConvWorkload | None = None
+    workload: Workload | None = None
 
 
 class NetworkGraph:
@@ -75,12 +78,12 @@ class NetworkGraph:
 
     @property
     def workload_nodes(self) -> tuple[Node, ...]:
-        """The conv nodes, in topological order (for zoo graphs, the order of
-        ``get_cnn``'s flat layer list)."""
+        """The traffic-carrying nodes (convs/matmuls), in topological order
+        (for zoo graphs, the order of ``get_cnn``'s flat layer list)."""
         return tuple(n for n in self.nodes if n.workload is not None)
 
     @property
-    def workloads(self) -> tuple[ConvWorkload, ...]:
+    def workloads(self) -> tuple[Workload, ...]:
         return tuple(n.workload for n in self.workload_nodes)
 
     @property
@@ -108,15 +111,25 @@ class NetworkGraph:
                                      f"workload")
                 continue
             in_words = sum(self.tensors[t].words for t in node.ins)
-            if in_words != wl.in_acts:
-                raise ValueError(
-                    f"{node.name}: input tensors carry {in_words} words, "
-                    f"workload reads {wl.in_acts}")
             out_words = self.tensors[node.out].words
-            if out_words != wl.out_acts:
-                raise ValueError(
-                    f"{node.name}: output tensor {out_words} words != "
-                    f"workload {wl.out_acts}")
+            if isinstance(wl, ConvWorkload):
+                if in_words != wl.in_acts:
+                    raise ValueError(
+                        f"{node.name}: input tensors carry {in_words} words, "
+                        f"workload reads {wl.in_acts}")
+                if out_words != wl.out_acts:
+                    raise ValueError(
+                        f"{node.name}: output tensor {out_words} words != "
+                        f"workload {wl.out_acts}")
+            elif isinstance(wl, MatmulWorkload):
+                if in_words != wl.m * wl.k:
+                    raise ValueError(
+                        f"{node.name}: input tensors carry {in_words} words, "
+                        f"GEMM reads {wl.m * wl.k}")
+                if out_words != wl.m * wl.n:
+                    raise ValueError(
+                        f"{node.name}: output tensor {out_words} words != "
+                        f"GEMM {wl.m * wl.n}")
 
     @classmethod
     def from_cnn(cls, name: str, word_bytes: int = 4) -> "NetworkGraph":
@@ -139,6 +152,113 @@ class NetworkGraph:
                 nodes.append(Node(name=node_name, op=op, ins=ins, out=out))
         return cls(name=name, nodes=tuple(nodes), tensors=tensors)
 
+    @classmethod
+    def from_layers(cls, layers, name: str | None = None,
+                    word_bytes: int = 4) -> "NetworkGraph":
+        """Any iterable of ConvLayers / ConvWorkloads as a linear chain.
+
+        Consecutive layers are wired producer->consumer when the shapes agree
+        (cout/wo of one == cin/wi of the next); otherwise a fresh external
+        input tensor is introduced, so any layer list (repeated layers
+        included) builds a valid graph.
+        """
+        wls = [wl if isinstance(wl, ConvWorkload)
+               else dataclasses.replace(ConvWorkload.from_layer(wl),
+                                        word_bytes=word_bytes)
+               for wl in layers]
+        if name is None:
+            name = wls[0].name.split(".")[0] if wls else "custom"
+        tensors: dict[str, Tensor] = {}
+        nodes: list[Node] = []
+        seen: dict[str, int] = {}
+        prev: Tensor | None = None
+        for i, wl in enumerate(wls):
+            if (prev is not None and prev.channels == wl.cin
+                    and prev.h == wl.hi and prev.w == wl.wi):
+                src = prev
+            else:
+                src = Tensor(name=f"{name}.in{i}", channels=wl.cin, h=wl.hi,
+                             w=wl.wi, word_bytes=word_bytes)
+                tensors[src.name] = src
+                nodes.append(Node(name=f"{name}.input{i}", op="input", ins=(),
+                                  out=src.name))
+            # Repeated layer names (repeated blocks) get a #i suffix so node
+            # names and tensor names stay unique.
+            node_name = wl.name
+            if node_name in seen:
+                node_name = f"{wl.name}#{i}"
+            seen[node_name] = i
+            out = Tensor(name=f"{node_name}:out", channels=wl.cout, h=wl.ho,
+                         w=wl.wo, word_bytes=word_bytes)
+            tensors[out.name] = out
+            nodes.append(Node(name=node_name, op="conv", ins=(src.name,),
+                              out=out.name, workload=wl))
+            prev = out
+        return cls(name=name, nodes=tuple(nodes), tensors=tensors)
+
+    @classmethod
+    def from_transformer(cls, cfg, *, seq_len: int = 4096, batch: int = 1,
+                         include_lm_head: bool = True) -> "NetworkGraph":
+        """One decoder block (+ optional LM head) of a transformer
+        ``ArchConfig`` as a GEMM chain: qkv -> attention -> out-proj ->
+        residual add -> FFN up -> activation -> FFN down -> residual add.
+        Edges are the token-major activation tensors, their word width the
+        workloads' operand width; MoE configs route a top_k-scaled token
+        subset through the expert GEMMs."""
+        from repro_torch.plan.workload import transformer_matmuls
+        gemms = {wl.name.rsplit("/", 1)[1]: wl
+                 for wl in transformer_matmuls(cfg, seq_len=seq_len,
+                                               batch=batch,
+                                               include_lm_head=include_lm_head)}
+        t = batch * seq_len
+        d = cfg.d_model
+        q_out = cfg.n_heads * cfg.hd
+        wb = next(iter(gemms.values())).in_dtype.itemsize
+        tensors: dict[str, Tensor] = {}
+        nodes: list[Node] = []
+
+        def tensor(tn: str, feats: int, toks: int = t) -> str:
+            tensors[tn] = Tensor(name=tn, channels=feats, h=1, w=toks,
+                                 word_bytes=wb)
+            return tn
+
+        def gemm(key: str, src: str, out_name: str, toks: int = t) -> str:
+            wl = gemms[key]
+            out = tensor(out_name, wl.n, toks)
+            nodes.append(Node(name=wl.name, op="matmul", ins=(src,), out=out,
+                              workload=wl))
+            return out
+
+        def virtual(op: str, vname: str, ins: tuple[str, ...], out_feats: int,
+                    toks: int = t) -> str:
+            out = tensor(f"{vname}:out", out_feats, toks)
+            nodes.append(Node(name=vname, op=op, ins=ins, out=out))
+            return out
+
+        embed = tensor("embed", d)
+        nodes.insert(0, Node(name="input", op="input", ins=(), out=embed))
+        qkv = gemm("qkv", embed, "qkv:out")
+        ctx = virtual("attn", f"{cfg.name}/attn", (qkv,), q_out)
+        proj = gemm("attn_out", ctx, "attn_proj:out")
+        resid1 = virtual("add", f"{cfg.name}/add1", (embed, proj), d)
+        if cfg.moe is not None:
+            te = gemms["expert_up"].m
+            routed = virtual("route", f"{cfg.name}/route", (resid1,), d, te)
+            up = gemm("expert_up", routed, "ffn_up:out", te)
+            hidden = virtual("act", f"{cfg.name}/act", (up,),
+                             cfg.moe.expert_ff, te)
+            down = gemm("expert_down", hidden, "ffn_down:out", te)
+            back = virtual("route", f"{cfg.name}/unroute", (down,), d)
+            resid2 = virtual("add", f"{cfg.name}/add2", (resid1, back), d)
+        else:
+            up = gemm("ffn_up", resid1, "ffn_up:out")
+            hidden = virtual("act", f"{cfg.name}/act", (up,), cfg.d_ff)
+            down = gemm("ffn_down", hidden, "ffn_down:out")
+            resid2 = virtual("add", f"{cfg.name}/add2", (resid1, down), d)
+        if include_lm_head:
+            gemm("lm_head", resid2, "logits")
+        return cls(name=cfg.name, nodes=tuple(nodes), tensors=tensors)
+
     def shrink(self, spatial: int = 8, channel_div: int = 1) -> "NetworkGraph":
         """A structurally identical conv graph at reduced scale: every tensor
         becomes ``max(1, channels // channel_div)`` x spatial x spatial and
@@ -155,6 +275,8 @@ class NetworkGraph:
             if wl is None:
                 nodes.append(node)
                 continue
+            if not isinstance(wl, ConvWorkload):
+                raise TypeError("shrink() supports conv graphs only")
             cin = sum(tensors[t].channels for t in node.ins)
             cout = tensors[node.out].channels
             if wl.groups == 1:

@@ -20,6 +20,7 @@ class Strategy(enum.Enum):
     EQUAL = "equal"                    # m = n = sqrt(P)/K  (paper baseline 3)
     PAPER_OPT = "paper_opt"            # eq (7) closed form, snapped to factors
     EXACT_OPT = "exact_opt"            # integer-exact search
+    FIRST_ORDER = "first_order"        # closed-form block rule (GEMM eq-7 analogue)
     EXHAUSTIVE_VMEM = "exhaustive_vmem"  # exact search over aligned GEMM blocks
 
     @classmethod

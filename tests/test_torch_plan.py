@@ -131,8 +131,9 @@ def test_gemm_blocks_on_the_card():
     want = jgemm.plan_gemm(jplan.MatmulWorkload(m=4096, n=8960, k=1536), 1000,
                            jplan.Strategy.EXHAUSTIVE_VMEM, jplan.Controller.PASSIVE)
     assert _sched(tiny) == _sched(want)
-    with pytest.raises(ValueError, match="not ported"):
-        tplan.plan(wl, None, "paper_opt", "active")
+    # the first-order rule plans GEMMs too (it raised before the DSE port)
+    assert _sched(tplan.plan(wl, None, "paper_opt", "active").schedule) \
+        == ("matmul", 128, 128, 128, "active")
 
 
 def test_schedule_and_enum_validation():
