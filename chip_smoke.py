@@ -93,6 +93,21 @@
       controllers (one active launch, ceil(K / bk) passive launches),
       within 2e-2 of ``matmul_ref``. mobilenet and mnasnet have grouped
       convs, which the runner refuses: they are planned, not run.
+   e. the fused-residency network planner: ``plan.plan_graph`` plans the
+      eight zoo CNNs under both controllers (exact_opt, P = 2048, the 2 MiB
+      residency of the paper's SoC) on the host, timed; it fails unless
+      every plan holds an edge resident, carries fewer words than its
+      per-layer baseline and stays within the residency budget, and unless
+      ``fleet.plan_graphs`` over the eight gives each sequential plan's
+      traffic. Then the NetPlan of ``resnet18.shrink(56, 1)`` (exact_opt,
+      active) itself goes to ``run_network_kernels`` with one seeded fp32
+      image, beside ``plan_many``'s schedules for the same graph: a warm-up
+      walk, 3 walks timed, one replayed as a CUDA graph; each walk must
+      launch 20 conv2d_psum and 20 pack passes and give every tensor within
+      1e-3 of the reference walk. Each layer whose schedule the NetPlan
+      changed is then timed under both schedules. The card holds no feature
+      map resident: the plan's peak resident bytes are printed beside the
+      card's L2 size.
    Every output is checked against a library reference (the served logits
    against the model with `ref.attention_ref` as its attention, and against
    one full forward of prompt plus generated tokens; the fp32 forward's
@@ -139,6 +154,20 @@ WALK_PX, WALKS = 56, 3
 LM_ARCH, LM_SEQ, LM_TOL = "qwen2-1.5b", 4096, 2e-2
 
 
+def body_work(torch, wl, sc) -> int:
+    """The fp32 ``cuda_core`` body's work for one conv under a schedule:
+    every block's accumulator tile (channel lanes x output positions) over
+    the padded cin walk, in MACs; narrow or uneven blocks pad it."""
+    from repro_torch.kernels import conv2d_psum
+    pad = wl.k // 2
+    lp = conv2d_psum.conv_launch_plan(
+        cin=wl.cin, hp=wl.hi + 2 * pad, wp=wl.wi + 2 * pad, cout=wl.cout,
+        kk=wl.k, block_m=sc.m, block_n=sc.n, dtype=torch.float32)
+    acc = next(sp.shape for sp in lp.scratch if sp.name == "acc")
+    return (lp.grid[0] * lp.grid[1] * acc[0] * acc[1]
+            * lp.inputs[0].array_shape[0] * wl.k ** 2)
+
+
 def paper_strategies(torch, dev, graph_ms, bound) -> dict[str, int]:
     """Phase 4d. (i) The paper's Tables I-III from the port's DSE, planned
     on the host and timed. (ii) Table I's schedules at P = 2048 for each
@@ -151,7 +180,7 @@ def paper_strategies(torch, dev, graph_ms, bound) -> dict[str, int]:
     from repro_torch import plan
     from repro_torch.configs import get_config
     from repro_torch.core.cnn_zoo import PAPER_CNNS, PAPER_TABLE3
-    from repro_torch.kernels import conv2d_psum, launch, psum_matmul, ref
+    from repro_torch.kernels import launch, psum_matmul, ref
     from repro_torch.kernels.conv_network import (init_network_params,
                                                   run_network_kernels,
                                                   run_network_reference)
@@ -225,19 +254,9 @@ def paper_strategies(torch, dev, graph_ms, bound) -> dict[str, int]:
                     fail(f"{net} {node.name}: shrunk node {(wl.cin, wl.cout, wl.k)}"
                          f" != its row's workload {(full.cin, full.cout, full.k)}")
                 schedules[node.name] = by_name[node.name]["schedule"]
-            # the fp32 body's work: every block's accumulator tile (channel
-            # lanes x output positions) over the padded cin walk, against the
-            # convs' MACs; narrow or uneven blocks pad it
-            work = 0
-            for node in nodes:
-                wl, sc, pad = node.workload, schedules[node.name], node.workload.k // 2
-                lp = conv2d_psum.conv_launch_plan(
-                    cin=wl.cin, hp=wl.hi + 2 * pad, wp=wl.wi + 2 * pad, cout=wl.cout,
-                    kk=wl.k, block_m=sc.m, block_n=sc.n, dtype=torch.float32)
-                acc = next(sp.shape for sp in lp.scratch if sp.name == "acc")
-                work += (lp.grid[0] * lp.grid[1] * acc[0] * acc[1]
-                         * lp.inputs[0].array_shape[0] * wl.k ** 2)
-            padded = work / sum(node.workload.macs for node in nodes)
+            padded = (sum(body_work(torch, n.workload, schedules[n.name])
+                          for n in nodes)
+                      / sum(node.workload.macs for node in nodes))
             full_words = {c: dse.sweep(net, P_MACS, (s,), (c,))[0]["interconnect_words"]
                           for c in ("passive", "active")}
             small_words = {c: sum(plan.traffic_report(n.workload, dataclasses.replace(
@@ -338,6 +357,160 @@ def paper_strategies(torch, dev, graph_ms, bound) -> dict[str, int]:
                   f"({b_by}); launches {counts}; max_abs_err={err:.3g} "
                   f"(rtol = atol = {LM_TOL})")
         del x, w, want
+    return phase
+
+
+# 4e: the fused-residency network planner
+NETPLAN_NET, NETPLAN_WALKS = "resnet18", 3
+
+
+def netplan_on_card(torch, dev, graph_ms, card: str) -> dict[str, int]:
+    """Phase 4e. (a) `plan.plan_graph` on the eight zoo CNNs under both
+    controllers, and `fleet.plan_graphs` over them, on the host and timed.
+    (b) The NetPlan of ResNet-18 at ``shrink(56, 1)`` passed itself to
+    `run_network_kernels` in fp32, beside the same graph's `plan_many`
+    schedules, against `run_network_reference`. Returns the launches of the
+    NetPlan's timed walks."""
+    from repro_torch import plan
+    from repro_torch.core.cnn_zoo import PAPER_CNNS
+    from repro_torch.kernels import launch
+    from repro_torch.kernels.conv_network import (init_network_params,
+                                                  run_network_kernels,
+                                                  run_network_reference)
+    from repro_torch.plan import fleet
+    from repro_torch.plan.graph import NetworkGraph
+
+    def same(a, b) -> bool:
+        return (a.traffic == b.traffic and a.schedules == b.schedules
+                and a.resident_tensors == b.resident_tensors
+                and a.peak_resident_bytes == b.peak_resident_bytes)
+
+    # (a) the zoo, planned on the host; the cache is cleared before each
+    # call so that every time is a plan, not a lookup
+    for c in ("passive", "active"):
+        seq, seq_ms = {}, 0.0
+        for net in PAPER_CNNS:
+            plan.clear_plan_graph_cache()
+            t0 = time.perf_counter()
+            p = plan.plan_graph(net, P_MACS, "exact_opt", c)
+            ms = 1e3 * (time.perf_counter() - t0)
+            seq[net], seq_ms = p, seq_ms + ms
+            resident = [e for e in p.edges if e.resident]
+            if not resident:
+                fail(f"netplan {net} {c}: no edge resident")
+            if not p.total_words < p.baseline_words:
+                fail(f"netplan {net} {c}: {p.total_words} words, not under the "
+                     f"per-layer baseline's {p.baseline_words}")
+            if p.peak_resident_bytes > p.residency_bytes:
+                fail(f"netplan {net} {c}: peak resident {p.peak_resident_bytes}"
+                     f" B over the budget {p.residency_bytes} B")
+            print(f"netplan {net} {c} (exact_opt, P {P_MACS}, residency "
+                  f"{p.residency_bytes} B): host {ms:.3f} ms; "
+                  f"{len(resident)} of {len(p.edges)} edges resident; words "
+                  f"{p.baseline_words / 1e6:.3f} M per layer -> "
+                  f"{p.total_words / 1e6:.3f} M fused (saving "
+                  f"{p.saving_pct:.2f} %); peak resident "
+                  f"{p.peak_resident_bytes} B ({card})")
+        plan.clear_plan_graph_cache()
+        t0 = time.perf_counter()
+        batch = fleet.plan_graphs(PAPER_CNNS, P_MACS, "exact_opt", c)
+        fleet_ms = 1e3 * (time.perf_counter() - t0)
+        for net, p in zip(PAPER_CNNS, batch):
+            if not same(p, seq[net]):
+                fail(f"fleet.plan_graphs {net} {c}: differs from plan_graph "
+                     f"(traffic {p.traffic} vs {seq[net].traffic})")
+        print(f"fleet.plan_graphs {c} ({len(PAPER_CNNS)} CNNs): host "
+              f"{fleet_ms:.3f} ms against {seq_ms:.3f} ms for the sequential "
+              f"plan_graph calls; every plan's traffic, schedules and residency "
+              f"equal ({card})")
+    plan.clear_plan_graph_cache()
+
+    # (b) the NetPlan on the card, beside plan_many's schedules
+    g = NetworkGraph.from_cnn(NETPLAN_NET).shrink(WALK_PX, 1)
+    nodes = g.workload_nodes
+    netp = plan.plan_graph(g, P_MACS, "exact_opt", "active")
+    per_layer = {n.name: q.schedule for n, q in zip(
+        nodes, plan.plan_many(g.workloads, P_MACS, "exact_opt", "active"))}
+    differ = [n.name for n in nodes if netp.schedules[n.name] != per_layer[n.name]]
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    print(f"netplan {g.name} (exact_opt, active, P {P_MACS}): {len(differ)} of "
+          f"{len(nodes)} conv schedules differ from plan_many's "
+          f"({', '.join(differ)}); resident set "
+          f"{sorted(netp.resident_tensors)}; saving {netp.saving_pct:.2f} % of "
+          f"the words; peak resident {netp.peak_resident_bytes} B of the "
+          f"model's {netp.residency_bytes} B SoC buffer, against the card's L2 "
+          f"of {l2} B. The resident edges are the model's, not the card's: "
+          f"every conv2d_psum launch writes its output to device memory")
+    params = init_network_params(g, seed=0, device=dev)
+    gen = torch.Generator().manual_seed(22)
+    inputs = {g.inputs[0]: torch.randn(3, WALK_PX, WALK_PX, generator=gen).to(dev)}
+    want = run_network_reference(g, params, inputs=inputs, device=dev)
+    expect = {"conv2d_psum": len(nodes), "conv2d_psum/pack": len(nodes)}
+    phase = {key: 0 for key in expect}
+    for label, plan_ in (("NetPlan", netp), ("plan_many", per_layer)):
+        run_network_kernels(g, plan_, params, inputs=inputs, device=dev)
+        walk_ms, worst_rel, worst_abs = [], 0.0, 0.0
+        for _ in range(NETPLAN_WALKS):
+            torch.cuda.synchronize()
+            launch.reset_launches()
+            t0 = time.perf_counter()
+            got = run_network_kernels(g, plan_, params, inputs=inputs,
+                                      device=dev)
+            torch.cuda.synchronize()
+            walk_ms.append(1e3 * (time.perf_counter() - t0))
+            counts = dict(launch.LAUNCHES)
+            if counts != expect:
+                fail(f"{label} walk of {g.name}: launched {counts}, expected "
+                     f"{expect}")
+            if plan_ is netp:
+                for key in phase:
+                    phase[key] += counts[key]
+            for name, value in want.items():
+                out = got[name]
+                if out.shape != value.shape or not torch.isfinite(out).all():
+                    fail(f"{label} {name}: shape or non-finite values")
+                err = (out - value).abs().max().item()
+                rel = err / value.abs().max().item()
+                if rel > NETWORK_REL_TOL:
+                    fail(f"{label} {name}: max abs err / max abs = {rel}")
+                worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, err)
+            del got
+        dev_ms = graph_ms(lambda: run_network_kernels(
+            g, plan_, params, inputs=inputs, device=dev), calls=1, reps=3)
+        med = sorted(walk_ms)[NETPLAN_WALKS // 2]
+        print(f"netplan walk {g.name} {label} schedules (fp32, one image): "
+              f"walk median {med:.3f} ms (walks "
+              f"{', '.join(f'{t:.3f}' for t in walk_ms)}), replayed "
+              f"{dev_ms:.3f} ms (idle share of the median walk "
+              f"{1 - dev_ms / med:.3f}); launches a walk {expect}; worst max "
+              f"abs err {worst_abs:.3g}, worst rel err {worst_rel:.3g} (limit "
+              f"{NETWORK_REL_TOL}) ({card})")
+
+    # where the two walks differ: each layer whose schedule the NetPlan
+    # changed, on the reference walk's input, under both schedules
+    import torch.nn.functional as F
+    from repro_torch.kernels.conv2d_psum import conv2d_psum
+    sums = {"plan_many": 0.0, "NetPlan": 0.0}
+    for node in nodes:
+        if node.name not in differ:
+            continue
+        wl, pad = node.workload, node.workload.k // 2
+        x = F.pad(torch.cat([want[t] for t in node.ins], dim=0),
+                  (pad, pad, pad, pad)).contiguous()
+        cells = []
+        for label, sc in (("plan_many", per_layer[node.name]),
+                          ("NetPlan", netp.schedules[node.name])):
+            ms = graph_ms(lambda: conv2d_psum(x, params[node.name], schedule=sc,
+                                              stride=wl.stride))
+            sums[label] += ms
+            cells.append(f"{label} m {sc.m} n {sc.n}: {ms:.4f} ms, body work "
+                         f"{body_work(torch, wl, sc) / wl.macs:.2f} x the MACs")
+        print(f"netplan layer {node.name} ({wl.cin} -> {wl.cout}, {wl.k}x{wl.k}, "
+              f"{WALK_PX} px, fp32, graph replays): " + "; ".join(cells)
+              + f" ({card})")
+    print(f"netplan layers changed: {len(differ)} convs sum to "
+          f"{sums['plan_many']:.4f} ms under plan_many's schedules and "
+          f"{sums['NetPlan']:.4f} ms under the NetPlan's ({card})")
     return phase
 
 
@@ -1453,6 +1626,12 @@ def main() -> None:
     print(f"paper strategies phase: {time.perf_counter() - t0:.1f} s, launches "
           f"{strategy_launches}")
 
+    # 4e. the fused-residency network planner, and its NetPlan on the card
+    t0 = time.perf_counter()
+    netplan_launches = netplan_on_card(torch, dev, graph_ms, smi)
+    print(f"netplan phase: {time.perf_counter() - t0:.1f} s, launches "
+          f"{netplan_launches}")
+
     # 5. result lines
     sources = {"psum_matmul/active": ("psum_matmul", "src/repro/kernels/psum_matmul.py:48"),
                "psum_matmul/passive": ("psum_matmul", "src/repro/kernels/psum_matmul.py:66"),
@@ -1476,6 +1655,10 @@ def main() -> None:
             "strategy_launches": strategy_launches[name],
             **({"strategy_pack_launches": strategy_launches[f"{name}/pack"]}
                if f"{name}/pack" in strategy_launches else {}),
+            # phase 4e's launches: the NetPlan's ResNet-18 walks (conv)
+            **({"netplan_launches": netplan_launches[name],
+                "netplan_pack_launches": netplan_launches[f"{name}/pack"]}
+               if name in netplan_launches else {}),
             "dtype": "float32",
             "body_by_dtype": {d: v["body"] for d, v in by_dtype.items()},
             "by_dtype": by_dtype})

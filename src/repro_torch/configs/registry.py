@@ -2,7 +2,7 @@
 
 ``ARCHS`` lists the archs whose modules the port has: the dense
 decoder-only ones. The reference's other archs are known by name and wait
-for the modules that ROADMAP A5 lists.
+for the modules that ROADMAP A7 lists.
 """
 
 from __future__ import annotations
@@ -24,14 +24,14 @@ _MODULES = {
     "gemma-2b": "gemma_2b",
 }
 
-#: the reference's other archs, with what each waits for (ROADMAP A5)
+#: the reference's other archs, with what each waits for (ROADMAP A7)
 _WAITING = {
-    "mamba2-1.3b": "the SSM stack (ROADMAP A5: models/ssm.py)",
-    "llama-3.2-vision-90b": "cross-attention and the vlm inputs (ROADMAP A5)",
-    "seamless-m4t-large-v2": "the encoder and cross-attention (ROADMAP A5)",
-    "deepseek-v2-lite-16b": "MLA and MoE (ROADMAP A5)",
-    "qwen2-moe-a2.7b": "MoE with a grouped GEMM (ROADMAP A5: models/moe.py)",
-    "jamba-v0.1-52b": "the SSM stack and MoE (ROADMAP A5)",
+    "mamba2-1.3b": "the SSM stack (ROADMAP A7: models/ssm.py)",
+    "llama-3.2-vision-90b": "cross-attention and the vlm inputs (ROADMAP A7)",
+    "seamless-m4t-large-v2": "the encoder and cross-attention (ROADMAP A7)",
+    "deepseek-v2-lite-16b": "MLA and MoE (ROADMAP A7)",
+    "qwen2-moe-a2.7b": "MoE with a grouped GEMM (ROADMAP A7: models/moe.py)",
+    "jamba-v0.1-52b": "the SSM stack and MoE (ROADMAP A7)",
 }
 
 

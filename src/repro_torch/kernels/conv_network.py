@@ -1,11 +1,12 @@
 """Whole-network kernel runner: chain `conv2d_psum` over a `NetworkGraph`.
 
-`run_network_kernels` walks a planned graph ({conv node name: Schedule}) and
-runs every conv node through the kernel under its planned channel partition,
-materializing the branch structure the graph records: residual adds,
-fire/inception concats (a multi-input conv reads the channel-concatenated
-branch tensors) and shape-preserving pools. `run_network_reference` walks the
-same graph with the library oracle `ref.conv2d_ref`.
+`run_network_kernels` walks a planned graph (a `NetPlan`, or a {conv node
+name: Schedule} mapping) and runs every conv node through the kernel under
+its planned channel partition, materializing the branch structure the graph
+records: residual adds, fire/inception concats (a multi-input conv reads the
+channel-concatenated branch tensors) and shape-preserving pools.
+`run_network_reference` walks the same graph with the library oracle
+`ref.conv2d_ref`.
 
 Graphs must be dense (groups == 1) with "same"-padded shapes: use
 ``NetworkGraph.shrink()`` on zoo nets. Both run on ``device`` ("cuda" unless
@@ -50,13 +51,20 @@ def params_from_jax(params: Mapping[str, np.ndarray], device="cuda"
             for name, value in params.items()}
 
 
-def check_network(graph, schedules: Mapping, params: Mapping,
+def _schedules_of(plan) -> Mapping:
+    """{conv node name: Schedule} from a `NetPlan` or such a mapping."""
+    return plan.schedules if hasattr(plan, "schedules") else plan
+
+
+def check_network(graph, schedules, params: Mapping,
                   inputs: Mapping | None = None) -> None:
-    """Reject a plan the runner cannot execute, before the first launch:
-    a conv node without a schedule or weights, weights of the wrong shape, a
-    grouped conv, a conv that is not "same"-padded, a schedule no kernel
-    body takes at the runner's float32 (`conv2d_psum.conv_refusal`), or an
-    input of the wrong shape."""
+    """Reject a plan (a `NetPlan` or a {conv node name: Schedule} mapping)
+    the runner cannot execute, before the first launch: a conv node without
+    a schedule or weights, weights of the wrong shape, a grouped conv, a
+    conv that is not "same"-padded, a schedule no kernel body takes at the
+    runner's float32 (`conv2d_psum.conv_refusal`), or an input of the wrong
+    shape."""
+    schedules = _schedules_of(schedules)
     problems = []
     for name, value in (inputs or {}).items():
         t = graph.tensors.get(name)
@@ -133,18 +141,21 @@ def _walk(graph, params, inputs, seed, device,
     return values
 
 
-def run_network_kernels(graph, schedules: Mapping, params: Mapping,
+def run_network_kernels(graph, schedules, params: Mapping,
                         inputs: Mapping | None = None, seed: int = 0,
                         device="cuda") -> dict[str, torch.Tensor]:
     """Execute every conv of a planned graph with `conv2d_psum`.
 
-    ``schedules`` is a {conv node name: Schedule} mapping (conv-kind
+    ``schedules`` is a `NetPlan` (its ``schedules``; the feature maps it
+    holds resident are the SoC model's, and every launch writes its output
+    to device memory) or a {conv node name: Schedule} mapping (conv-kind
     schedules; the kernel always keeps the partial sums on chip). Inputs not
     given are drawn from ``seed``. Returns {tensor name: value} for every
     tensor in the graph. The plan is checked (`check_network`) before the
     first launch.
     """
     device = resolve_device(device)
+    schedules = _schedules_of(schedules)
     check_network(graph, schedules, params, inputs)
     return _walk(graph, params, inputs, seed, device,
                  lambda x, node, wt: conv2d_psum(

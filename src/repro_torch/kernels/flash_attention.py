@@ -67,6 +67,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import _build, launch
 from repro_torch.kernels.psum_matmul import tf32_split
 from repro_torch.plan.gemm_model import SMEM_BUDGET
+from repro_torch.plan.units import nbytes
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128, 256)     # head dims the CUDA kernels are built for
@@ -209,7 +210,8 @@ def split_smem_bytes(d: int, rows: int, dtype: torch.dtype) -> int:
     """Shared memory of one split_kv block (``split::Cfg<T, D>::smem``): fp32
     q rows, p rows and (m, l, alpha) per row, and two stages of K and V
     tiles whose rows carry 16 bytes of padding."""
-    return 4 * rows * (d + 4 + SPLIT_KT + 4 + 3) + 4 * SPLIT_KT * (dtype.itemsize * d + 16)
+    return (4 * rows * (d + 4 + SPLIT_KT + 4 + 3)
+            + 4 * SPLIT_KT * (nbytes(d, dtype.itemsize) + 16))
 
 
 def split_keys(*, hkv: int, rows: int, skv: int, d: int) -> tuple[int, int]:

@@ -8,7 +8,7 @@ tensors. Attention runs through `ops.gqa_flash_attention`: the flash kernel
 keeps the running (m, l, acc) partial sums on chip and never materialises
 S = QK^T, the schedule the reference's ``chunked_attention`` computes at the
 XLA level. MLA, cross-attention and ``chunked_attention`` itself wait for
-later slices (ROADMAP A5).
+later slices (ROADMAP A7).
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 greedy sampling loop. The factories return the plain step bodies, as the
 reference's do; `repro_torch.launch.graph` compiles them (captured CUDA
 graphs on the card), as the reference's callers wrap them in ``jax.jit``.
-``lm_loss`` and the train step wait for the training slice (ROADMAP A6)."""
+``lm_loss`` and the train step wait for the training slice (ROADMAP A8)."""
 
 from __future__ import annotations
 

@@ -6,7 +6,7 @@ The reference stacks parameters over periods and runs the stack with
 loop over them. KV caches follow the same structure: one head-major (k, v)
 pair per layer plus the position ``pos``, a 0-d int32 tensor on the caches'
 device as in the reference, so that a step reads it only there. MoE, SSM, hybrid, vlm and audio archs, MLA
-and leading dense layers wait for later slices (ROADMAP A5).
+and leading dense layers wait for later slices (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ def check_dense(cfg: ArchConfig) -> None:
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: the port runs dense decoder-only LMs only; "
-            f"{', '.join(missing)} wait(s) for ROADMAP A5")
+            f"{', '.join(missing)} wait(s) for ROADMAP A7")
 
 
 def _layer_init(gen, cfg: ArchConfig, device) -> Params:

@@ -8,9 +8,13 @@
                          paper_convention=True)          # a Table I cell
     plan.dse.sweep(["resnet18"], (512, 2048), ("paper_opt", "exact_opt"),
                    ("passive", "active"))                # tidy rows
+
+    netp = plan.plan_graph("resnet18", 2048, "exact_opt", "active")
+    netp.schedules, netp.resident_tensors, netp.saving_pct   # fused plan
+    plan.plan_graphs(["alexnet", "resnet18"], 2048)      # a fleet batch
 """
 
-from repro_torch.plan import dse, graph, objectives, space
+from repro_torch.plan import dse, fleet, graph, netplan, objectives, space
 from repro_torch.plan.api import (DEFAULT_P_MACS, Plan, clear_plan_cache,
                                   coerce_strategy, default_budget,
                                   min_network_traffic, network_traffic, plan,
@@ -19,7 +23,12 @@ from repro_torch.plan.conv_model import optimal_m_realvalued
 from repro_torch.plan.dse import (Constraint, SearchResult, StrategySpec,
                                   register_strategy, unregister_strategy)
 from repro_torch.plan.gemm_model import LANE, SMEM_BUDGET, SUBLANE
+from repro_torch.plan.fleet import plan_graphs
 from repro_torch.plan.graph import NetworkGraph, Node, Tensor
+from repro_torch.plan.netplan import (DEFAULT_RESIDENCY_BYTES, EdgePlan,
+                                      NetPlan, NodePlan, PlanContext,
+                                      clear_plan_graph_cache, network_report,
+                                      plan_graph, plan_graph_cache_info)
 from repro_torch.plan.objectives import (OBJECTIVES, Objective, get_objective,
                                         register_objective)
 from repro_torch.plan.planners import (PLANNERS, Planner, get_planner,
@@ -46,6 +55,11 @@ __all__ = [
     "register_strategy", "unregister_strategy",
     "OBJECTIVES", "Objective", "get_objective", "register_objective",
     "Candidates", "SearchSpace",
-    # network graphs (repro_torch.plan.graph)
-    "graph", "NetworkGraph", "Node", "Tensor",
+    # network-graph planning (repro_torch.plan.graph / .netplan)
+    "graph", "netplan", "NetworkGraph", "Node", "Tensor",
+    "NetPlan", "NodePlan", "EdgePlan", "plan_graph", "network_report",
+    "DEFAULT_RESIDENCY_BYTES",
+    # fleet planning (repro_torch.plan.fleet)
+    "fleet", "plan_graphs", "PlanContext",
+    "plan_graph_cache_info", "clear_plan_graph_cache",
 ]

@@ -16,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 
+from repro_torch.errors import PlanError
 from repro_torch.plan import conv_model, gemm_model
 from repro_torch.plan.planners import PLANNERS, get_planner
 from repro_torch.plan.schedule import Controller, Schedule, Strategy
@@ -50,7 +51,8 @@ def default_budget(workload: Workload) -> int:
 def coerce_strategy(value: "Strategy | str") -> "Strategy | str":
     """Coerce to a `Strategy` member, or pass through the name of a custom
     strategy registered with ``dse.register_strategy`` / ``register_planner``
-    (strings stay strings, so the plan cache keys them)."""
+    (strings stay strings, so the plan cache keys them). Any other name
+    raises `PlanError`."""
     if isinstance(value, Strategy):
         return value
     try:
@@ -60,7 +62,7 @@ def coerce_strategy(value: "Strategy | str") -> "Strategy | str":
             return value
         waits = (" (the sim_* strategies wait for the SoC simulator, ROADMAP "
                  "A10)" if str(value).startswith("sim_") else "")
-        raise ValueError(
+        raise PlanError(
             f"unknown strategy {value!r}{waits}; known: "
             f"{sorted(set([s.value for s in Strategy]) | set(PLANNERS))}"
         ) from None

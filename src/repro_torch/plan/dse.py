@@ -264,8 +264,10 @@ def register_strategy(name: str, *, conv: StrategySpec | None = None,
     if matmul is not None:
         _CUSTOM_SPECS[("matmul", name)] = matmul
     # plans are cached on the strategy *name*: drop anything cached under a
-    # previous registration of this name
+    # previous registration of this name, per layer and per graph alike
     api.clear_plan_cache()
+    from repro_torch.plan import netplan
+    netplan.clear_plan_graph_cache()
 
 
 def unregister_strategy(name: str) -> None:
@@ -278,6 +280,8 @@ def unregister_strategy(name: str) -> None:
     _CUSTOM_SPECS.pop(("matmul", name), None)
     planners.PLANNERS.pop(name, None)
     api.clear_plan_cache()
+    from repro_torch.plan import netplan
+    netplan.clear_plan_graph_cache()
 
 
 # ---------------------------------------------------------------------- sweep

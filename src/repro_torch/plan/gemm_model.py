@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.plan.schedule import Controller, Schedule, Strategy
+from repro_torch.plan.units import nbytes
 from repro_torch.plan.workload import MatmulWorkload
 
 #: shared memory one H100 thread block may use (NVIDIA Hopper tuning guide)
@@ -86,10 +87,9 @@ def working_set_bytes(wl: MatmulWorkload, bm, bn, bk,
     bm = np.asarray(bm, np.int64)
     bn = np.asarray(bn, np.int64)
     bk = np.asarray(bk, np.int64)
-    in_size = wl.in_dtype.itemsize
-    acc_size = wl.acc_dtype.itemsize
     buffers = 2 if double_buffer else 1
-    return buffers * (bm * bk + bk * bn) * in_size + bm * bn * acc_size
+    return (nbytes(buffers * (bm * bk + bk * bn), wl.in_dtype.itemsize)
+            + nbytes(bm * bn, wl.acc_dtype.itemsize))
 
 
 def matmul_traffic_grid(m: int, n: int, k: int, bm, bn, bk,
@@ -140,11 +140,11 @@ def first_order_block(wl: MatmulWorkload, budget: int,
     terms dominating, minimize 1/bm + 1/bn s.t. bk*(bm+bn)*|in| <= budget
     -> bm = bn (the 'square block' rule), bk as large as the leftover
     allows; every block a multiple of `LANE`. Returns (bm, bn, bk)."""
-    in_size = wl.in_dtype.itemsize
-    side = min(int(math.sqrt(budget / (4 * in_size))), max_block)
+    side = min(int(math.sqrt(budget / nbytes(4, wl.in_dtype.itemsize))),
+               max_block)
     bm = max(LANE, (min(side, wl.m) // LANE) * LANE)
     bn = max(LANE, (min(side, wl.n) // LANE) * LANE)
-    bk_budget = budget // (2 * in_size * (bm + bn))
+    bk_budget = budget // nbytes(2 * (bm + bn), wl.in_dtype.itemsize)
     bk = max(LANE, (min(bk_budget, wl.k) // LANE) * LANE)
     return bm, bn, bk
 

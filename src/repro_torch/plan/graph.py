@@ -1,11 +1,11 @@
 """Network-graph IR: nodes are `Workload`s, edges are feature-map tensors.
 
-  `Tensor`        one feature map (channels x h x w)
+  `Tensor`        one feature map (channels x h x w) and its bytes
   `Node`          one op: a conv/matmul workload, or a virtual op (input /
                   pool / add / attn / act / route) that moves no modelled
                   traffic
   `NetworkGraph`  topologically ordered nodes + tensors, with producer and
-                  consumer maps
+                  consumer maps and live intervals
 
 Concatenation is structural, not an op: a consumer that reads a concat has
 several input tensors (its ``cin`` is the channel sum).
@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 
+from repro_torch.plan.units import nbytes
 from repro_torch.plan.workload import ConvWorkload, MatmulWorkload, Workload
 
 VIRTUAL_OPS = ("input", "pool", "add", "attn", "act", "route")
@@ -39,6 +40,10 @@ class Tensor:
     @property
     def words(self) -> int:
         return self.channels * self.h * self.w
+
+    @property
+    def nbytes(self) -> int:
+        return nbytes(self.words, self.word_bytes)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,6 +100,19 @@ class NetworkGraph:
     def outputs(self) -> tuple[str, ...]:
         """Tensors leaving the network (no consumer)."""
         return tuple(t for t in self.tensors if not self.consumers[t])
+
+    def live_ranges(self) -> dict[str, tuple[int, int]]:
+        """tensor -> (producing step, last consuming step) over node indices.
+        A tensor held resident occupies the budget for this whole interval."""
+        return {t: (self.producer[t],
+                    max(self.consumers[t]) if self.consumers[t]
+                    else self.producer[t])
+                for t in self.tensors}
+
+    def edge_list(self) -> list[tuple[str, int, tuple[int, ...]]]:
+        """(tensor, producer step, consumer steps) for every tensor."""
+        return [(t, self.producer[t], self.consumers[t])
+                for t in self.tensors]
 
     def validate(self) -> None:
         for i, node in enumerate(self.nodes):

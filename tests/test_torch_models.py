@@ -158,7 +158,7 @@ def test_configs_are_the_reference_data(arch):
                                   "llama-3.2-vision-90b",
                                   "seamless-m4t-large-v2"])
 def test_unported_archs_name_what_they_wait_for(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         tconfigs.get_config(arch)
     with pytest.raises(KeyError):
         tconfigs.get_config("no-such-arch")
