@@ -108,6 +108,20 @@
       changed is then timed under both schedules. The card holds no feature
       map resident: the plan's peak resident bytes are printed beside the
       card's L2 size.
+   f. the verifier and the active memory controller's meter: on the same
+      graph, the per-layer baseline (``plan_many``) and the 2 MiB NetPlan
+      under both controllers pass ``check.verify`` and their word-count
+      certificates (``check.check_network_dataflow``), every layer's search
+      space certifies (``certify_conv_space``), and so do Qwen2-1.5B's five
+      GEMMs at one block's shared memory; the pre-flight's host ms on a
+      graph's first and a later walk are printed. ``amc.run_network`` then
+      meters each of the four plans on the card, its interconnect words and
+      SRAM reads and writes equal to ``network_report``'s with ``==``, and
+      the active plans' metered tensors are held (1e-3) against
+      ``run_network_kernels`` on the meter's own input and weights (20 + 20
+      launches a walk). Last, ``amc.validate_network`` on the six dense zoo
+      CNNs under both controllers and ``core.planner.plan_network`` over the
+      eight.
    Every output is checked against a library reference (the served logits
    against the model with `ref.attention_ref` as its attention, and against
    one full forward of prompt plus generated tokens; the fp32 forward's
@@ -511,6 +525,186 @@ def netplan_on_card(torch, dev, graph_ms, card: str) -> dict[str, int]:
     print(f"netplan layers changed: {len(differ)} convs sum to "
           f"{sums['plan_many']:.4f} ms under plan_many's schedules and "
           f"{sums['NetPlan']:.4f} ms under the NetPlan's ({card})")
+    return phase
+
+
+# 4f: the verifier, the certificates and the active memory controller's meter
+AMC_NET = "resnet18"
+DENSE_CNNS = ("alexnet", "vgg16", "squeezenet", "googlenet", "resnet18",
+              "resnet50")
+
+
+def amc_on_card(torch, dev, card: str) -> dict[str, int]:
+    """Phase 4f. On ResNet-18 at ``shrink(56, 1)``, P = 2048, exact_opt,
+    the per-layer baseline (`plan_many`) and the 2 MiB NetPlan under both
+    controllers: (a) `check.verify` and the word-count certificates clean,
+    every layer's search space certified, Qwen2-1.5B's GEMM spaces at one
+    block's shared memory, the pre-flight's host ms on a first and a later
+    walk; (b) `amc.run_network` on the card meters each plan, its words
+    equal to `network_report`'s with ``==``; (c) the active plans' metered
+    tensors against `run_network_kernels` on the meter's own input and
+    weights (fp32 conv2d_psum, 20 + 20 launches a walk, counted); (d)
+    `amc.validate_network` on the six dense zoo CNNs under both
+    controllers, and `core.planner.plan_network` over the eight. Returns
+    the launches of (c)."""
+    from repro_torch import check, plan
+    from repro_torch.configs import get_config
+    from repro_torch.core import amc, planner
+    from repro_torch.core.cnn_zoo import PAPER_CNNS
+    from repro_torch.kernels import launch
+    from repro_torch.kernels.conv_network import run_network_kernels
+    from repro_torch.plan.graph import NetworkGraph
+
+    g = NetworkGraph.from_cnn(AMC_NET).shrink(WALK_PX, 1)
+    nodes = g.workload_nodes
+    plans = {}
+    for c in ("passive", "active"):
+        base = plan.plan_many(g.workloads, P_MACS, "exact_opt", c)
+        plans[("baseline", c)] = ({n.name: q.schedule for n, q in zip(nodes, base)},
+                                  frozenset(), base)
+        netp = plan.plan_graph(g, P_MACS, "exact_opt", c)
+        plans[("NetPlan", c)] = (netp.schedules, netp.resident_tensors, netp)
+
+    # (a) the verifier and the certificates, on the host
+    for (label, c), (sched, _, obj) in plans.items():
+        t0 = time.perf_counter()
+        if label == "baseline":
+            for q in obj:
+                check.verify(q)
+        else:
+            check.verify(obj)
+        verify_ms = 1e3 * (time.perf_counter() - t0)
+        check.clear_preflight_cache()
+        t0 = time.perf_counter()
+        found = check.check_network_dataflow(g, sched)
+        cert_ms = 1e3 * (time.perf_counter() - t0)
+        if found:
+            fail(f"certificates of {label} {c}: {check.render_all(found)}")
+        print(f"check {AMC_NET} {label} {c}: verify {verify_ms:.3f} ms, "
+              f"{len(nodes)} launch certificates clean in {cert_ms:.3f} ms "
+              f"(host)")
+    for c in ("passive", "active"):
+        t0 = time.perf_counter()
+        tally = dict.fromkeys(("n_candidates", "n_equal_hbm", "n_bounded_hbm",
+                               "n_exceeding", "n_unlaunchable"), 0)
+        for wl in g.workloads:
+            cert = check.certify_conv_space(wl, P_MACS, c)
+            if not cert.ok or cert.diagnostics:
+                fail(f"certify_conv_space {wl.name} {c}: "
+                     f"{check.render_all(cert.diagnostics)}")
+            for key in tally:
+                tally[key] += getattr(cert, key)
+        ms = 1e3 * (time.perf_counter() - t0)
+        print(f"certify_conv_space {AMC_NET} {c} ({len(nodes)} layers, "
+              f"ConvExactSpace at P {P_MACS}): {tally['n_candidates']} "
+              f"candidates certified, x read the model's number of times by "
+              f"{tally['n_equal_hbm']}, fewer by {tally['n_bounded_hbm']}, more "
+              f"by {tally['n_exceeding']}, {tally['n_unlaunchable']} that no "
+              f"body takes; host {ms:.3f} ms")
+        t0 = time.perf_counter()
+        n_gemm = 0
+        for wl in plan.transformer_matmuls(get_config(LM_ARCH), seq_len=LM_SEQ):
+            cert = check.certify_matmul_space(wl, plan.SMEM_BUDGET, c)
+            if not cert.ok or cert.diagnostics:
+                fail(f"certify_matmul_space {wl.name} {c}: "
+                     f"{check.render_all(cert.diagnostics)}")
+            n_gemm += cert.n_candidates
+        ms = 1e3 * (time.perf_counter() - t0)
+        print(f"certify_matmul_space {LM_ARCH} {c} (5 GEMMs at "
+              f"{plan.SMEM_BUDGET} B): {n_gemm} candidates certified; host "
+              f"{ms:.3f} ms")
+    sched_a = plans[("NetPlan", "active")][0]
+    inputs, weights = amc.draw_network(g, 0, dev)
+    check.clear_preflight_cache()
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        check.preflight_network_kernels(g, sched_a, weights, inputs)
+        walls.append(1e3 * (time.perf_counter() - t0))
+    print(f"preflight {AMC_NET} NetPlan active (launch checks and certificates "
+          f"of {len(nodes)} convs): first walk {walls[0]:.3f} ms, a later walk "
+          f"{walls[1]:.3f} ms (host)")
+
+    # (b) the meter on the card, held against the model with ==
+    meters = {}
+    for (label, c), (sched, resident, _) in plans.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        values, meter = amc.run_network(g, sched, resident, rng_seed=0,
+                                        device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        report = plan.network_report(g, sched, resident)
+        for field in ("interconnect_words", "sram_reads", "sram_writes"):
+            if getattr(meter, field) != getattr(report, field):
+                fail(f"meter {label} {c}: {field} {getattr(meter, field)} != "
+                     f"network_report {getattr(report, field)}")
+        meters[(label, c)] = (meter, values)
+        print(f"meter {AMC_NET} {label} {c} (P {P_MACS}, exact_opt, "
+              f"{len(resident)} tensors resident): interconnect words "
+              f"{meter.interconnect_words}, SRAM reads {meter.sram_reads}, "
+              f"SRAM writes {meter.sram_writes}, equal to network_report; "
+              f"walk {wall:.2f} s on {dev} ({card})")
+    for label in ("baseline", "NetPlan"):
+        pas = meters[(label, "passive")][0].interconnect_words
+        act = meters[(label, "active")][0].interconnect_words
+        if act > pas:
+            fail(f"meter {label}: active {act} words over passive {pas}")
+        print(f"meter {AMC_NET} {label}: the active controller saves "
+              f"{100 * (1 - act / pas):.2f} % of the interconnect words")
+
+    # (c) the active plans' metered tensors against the card's kernels, on
+    #     the meter's own input and weights
+    expect = {"conv2d_psum": len(nodes), "conv2d_psum/pack": len(nodes)}
+    phase = {key: 0 for key in expect}
+    for label in ("baseline", "NetPlan"):
+        sched = plans[(label, "active")][0]
+        want = meters[(label, "active")][1]
+        torch.cuda.synchronize()
+        launch.reset_launches()
+        got = run_network_kernels(g, sched, weights, inputs=inputs,
+                                  device=dev)
+        torch.cuda.synchronize()
+        counts = dict(launch.LAUNCHES)
+        if counts != expect:
+            fail(f"kernel walk of the {label} schedules: launched {counts}, "
+                 f"expected {expect}")
+        for key in phase:
+            phase[key] += counts[key]
+        worst = 0.0
+        for name, value in want.items():
+            out = got[name]
+            if out.shape != value.shape or not torch.isfinite(out).all():
+                fail(f"meter vs kernels {label} {name}: shape or non-finite")
+            rel = ((out - value).abs().max() / value.abs().max()).item()
+            if rel > NETWORK_REL_TOL:
+                fail(f"meter vs kernels {label} {name}: max abs err / max abs "
+                     f"= {rel}")
+            worst = max(worst, rel)
+        print(f"meter vs conv2d_psum {AMC_NET} {label} active (fp32, the "
+              f"meter's input and weights): {len(want)} tensors, worst max abs "
+              f"err / max abs {worst:.3g} (limit {NETWORK_REL_TOL}); launches "
+              f"{counts} ({card})")
+    del meters
+
+    # (d) validate_network on the dense zoo, and plan_network on the eight
+    for net in DENSE_CNNS:
+        for c in ("passive", "active"):
+            t0 = time.perf_counter()
+            netp, meter, _ = amc.validate_network(net, controller=c, device=dev)
+            ms = 1e3 * (time.perf_counter() - t0)
+            print(f"validate_network {net} {c} (shrink(8, 8), residency a third "
+                  f"of the tensor bytes): {meter.interconnect_words} words, "
+                  f"{len(netp.resident_tensors)} tensors resident, equal to the "
+                  f"model; {ms:.1f} ms on {dev} ({card})")
+    for net in PAPER_CNNS:
+        t0 = time.perf_counter()
+        npl = planner.plan_network(net, P_MACS, "exact_opt")
+        ms = 1e3 * (time.perf_counter() - t0)
+        print(f"plan_network {net} (exact_opt, P {P_MACS}): passive "
+              f"{npl.total_passive / 1e6:.3f} M words, active "
+              f"{npl.total_active / 1e6:.3f} M (saving {npl.saving_pct:.2f} %); "
+              f"host {ms:.3f} ms")
     return phase
 
 
@@ -1632,6 +1826,13 @@ def main() -> None:
     print(f"netplan phase: {time.perf_counter() - t0:.1f} s, launches "
           f"{netplan_launches}")
 
+    # 4f. the verifier, the certificates and the active memory controller's
+    #     meter, its ResNet-18 walk held against conv2d_psum's
+    t0 = time.perf_counter()
+    amc_launches = amc_on_card(torch, dev, smi)
+    print(f"amc phase: {time.perf_counter() - t0:.1f} s, launches "
+          f"{amc_launches}")
+
     # 5. result lines
     sources = {"psum_matmul/active": ("psum_matmul", "src/repro/kernels/psum_matmul.py:48"),
                "psum_matmul/passive": ("psum_matmul", "src/repro/kernels/psum_matmul.py:66"),
@@ -1659,6 +1860,10 @@ def main() -> None:
             **({"netplan_launches": netplan_launches[name],
                 "netplan_pack_launches": netplan_launches[f"{name}/pack"]}
                if name in netplan_launches else {}),
+            # phase 4f's launches: the meter's plans walked on the kernels
+            **({"amc_launches": amc_launches[name],
+                "amc_pack_launches": amc_launches[f"{name}/pack"]}
+               if name in amc_launches else {}),
             "dtype": "float32",
             "body_by_dtype": {d: v["body"] for d, v in by_dtype.items()},
             "by_dtype": by_dtype})

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.conv2d_psum import conv2d_psum, conv_refusal
+from repro_torch.kernels.conv2d_psum import conv2d_psum
 from repro_torch.kernels.launch import resolve_device
 from repro_torch.kernels.ref import conv2d_ref
 
@@ -61,47 +61,15 @@ def check_network(graph, schedules, params: Mapping,
     """Reject a plan (a `NetPlan` or a {conv node name: Schedule} mapping)
     the runner cannot execute, before the first launch: a conv node without
     a schedule or weights, weights of the wrong shape, a grouped conv, a
-    conv that is not "same"-padded, a schedule no kernel body takes at the
-    runner's float32 (`conv2d_psum.conv_refusal`), or an input of the wrong
-    shape."""
-    schedules = _schedules_of(schedules)
-    problems = []
-    for name, value in (inputs or {}).items():
-        t = graph.tensors.get(name)
-        if t is None or tuple(value.shape) != (t.channels, t.h, t.w):
-            want = None if t is None else (t.channels, t.h, t.w)
-            problems.append(f"input tensor {name}: shaped "
-                            f"{tuple(value.shape)}, graph needs {want}")
-    for node in graph.workload_nodes:
-        wl = node.workload
-        if node.name not in schedules:
-            problems.append(f"{node.name}: conv node has no schedule")
-        elif schedules[node.name].kind != "conv":
-            problems.append(f"{node.name}: needs a conv schedule, got "
-                            f"{schedules[node.name]}")
-        else:
-            sched, pad = schedules[node.name], wl.k // 2
-            refusal = conv_refusal(cin=wl.cin, hp=wl.hi + 2 * pad,
-                                   wp=wl.wi + 2 * pad, cout=wl.cout, kk=wl.k,
-                                   stride=wl.stride, block_m=sched.m,
-                                   block_n=sched.n, dtype=torch.float32)
-            if refusal:
-                problems.append(f"{node.name}: {refusal}")
-        if node.name not in params:
-            problems.append(f"{node.name}: conv node has no weights")
-        elif tuple(params[node.name].shape) != (wl.cout, wl.cin, wl.k, wl.k):
-            problems.append(f"{node.name}: weights shaped "
-                            f"{tuple(params[node.name].shape)}, workload needs "
-                            f"{(wl.cout, wl.cin, wl.k, wl.k)}")
-        if wl.groups != 1:
-            problems.append(f"{node.name}: groups={wl.groups}; the runner "
-                            f"executes dense convs only")
-        pad = wl.k // 2
-        if (wl.hi + 2 * pad - wl.k) // wl.stride + 1 != wl.ho:
-            problems.append(f"{node.name}: not 'same'-padded; shrink() first")
-    if problems:
-        raise ValueError("network plan rejected before launch:\n  "
-                         + "\n  ".join(problems))
+    conv that is not "same"-padded, a launch no kernel body takes at the
+    runner's float32 (`conv2d_psum.conv_refusal`) or whose plan fails its
+    geometry, or an input of the wrong shape. The checks are
+    `repro_torch.check.check_network_kernels`'s; the error, a
+    `repro_torch.check.CheckError`, is a `ValueError`."""
+    from repro_torch.check import check_network_kernels, raise_on_error
+    raise_on_error(check_network_kernels(graph, _schedules_of(schedules),
+                                         params, inputs),
+                   context="network plan rejected before launch")
 
 
 def _walk(graph, params, inputs, seed, device,
@@ -151,12 +119,15 @@ def run_network_kernels(graph, schedules, params: Mapping,
     to device memory) or a {conv node name: Schedule} mapping (conv-kind
     schedules; the kernel always keeps the partial sums on chip). Inputs not
     given are drawn from ``seed``. Returns {tensor name: value} for every
-    tensor in the graph. The plan is checked (`check_network`) before the
-    first launch.
+    tensor in the graph. Before the first launch the plan is pre-flighted
+    (`repro_torch.check.preflight_network_kernels`): the checks of
+    `check_network`, then every node's word-count certificate, both cached
+    per launch geometry, so a graph's later walks only look them up.
     """
+    from repro_torch.check import preflight_network_kernels
     device = resolve_device(device)
     schedules = _schedules_of(schedules)
-    check_network(graph, schedules, params, inputs)
+    preflight_network_kernels(graph, schedules, params, inputs)
     return _walk(graph, params, inputs, seed, device,
                  lambda x, node, wt: conv2d_psum(
                      x, wt, schedule=schedules[node.name],

@@ -262,31 +262,6 @@ def flash_body(*, bh: int, sq_p: int, kv_group: int, dtype: torch.dtype,
     return one_pass_body(dtype, d_run)
 
 
-def check_flash_launch(bh: int, sq: int, skv: int, d: int, bq: int = 128,
-                       bk: int = 128, causal: bool = True,
-                       q_offset: int = 0, device_pos: bool = False) -> None:
-    """The launch-level check the reference makes before it builds a plan;
-    raises `ValueError` on a degenerate shape, on a non-causal call whose
-    keys would be padded (padded keys would get weight exp(0): only the
-    causal mask hides them), and on a causal call with a negative q_offset.
-    A device position pads no key and is not known on the host: only its
-    shape is checked."""
-    if min(bh, sq, skv, d) < 1:
-        raise ValueError(f"flash_attention: degenerate attention shape "
-                         f"bh={bh} sq={sq} skv={skv} d={d}")
-    if device_pos:
-        return
-    bk_eff = max(1, min(bk, skv))
-    if skv % bk_eff and not causal:
-        raise ValueError(f"flash_attention: skv={skv} is not a multiple of "
-                         f"bk={bk_eff} and causal=False: padded keys are "
-                         f"masked by the causal mask only; pad kv to a block "
-                         f"multiple or use causal masking")
-    if causal and q_offset < 0:
-        raise ValueError(f"flash_attention: negative q_offset={q_offset} puts "
-                         f"query ids before key id 0")
-
-
 def _partials(q, kp, vp, q_ids, *, k_begin: int, k_end: int, bk: int,
               causal: bool, skv, scale: float):
     """The reference kernel's kv-block loop over keys [k_begin, k_end) from
@@ -627,15 +602,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     at or past it are masked: a cache's tail), the position is read on the
     device and never on the host, as the reference's ``chunked_attention``
     takes a traced one: k and v are a cache of Skv = its capacity, passed
-    without a pad or a copy, and the call takes split_kv (`flash_body`)."""
+    without a pad or a copy, and the call takes split_kv (`flash_body`).
+
+    Before its plan is built the call is pre-flighted by
+    `repro_torch.check`: a host position runs the launch checks and the
+    word-count certificate once per geometry (`preflight_flash_dataflow`),
+    a device position its shape checks alone. A refusal raises
+    `repro_torch.check.CheckError`, a `ValueError`."""
+    from repro_torch import check       # deferred: check imports this module
     bh, sq, d = q.shape
     hkv, skv, _ = k.shape
     device_pos = isinstance(q_offset, torch.Tensor) or kv_valid_len is not None
-    check_flash_launch(bh, sq, skv, d, bq, bk, causal,
-                       0 if device_pos else q_offset, device_pos=device_pos)
+    if device_pos:
+        check.preflight_flash_launch(bh, sq, skv, d, bq, bk, causal,
+                                     device_pos=True)
     if hkv < 1 or bh % hkv or tuple(v.shape) != tuple(k.shape):
         raise ValueError(f"flash_attention: q {tuple(q.shape)} over k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    if not device_pos:
+        check.preflight_flash_dataflow(bh, sq, skv, d, bq, bk, causal,
+                                       q_offset, kv_group=bh // hkv,
+                                       dtype=q.dtype)
     plan = flash_launch_plan(bh=bh, sq=sq, skv=skv, d=d, bq=bq, bk=bk,
                              causal=causal,
                              q_offset=0 if device_pos else q_offset,

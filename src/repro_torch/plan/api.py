@@ -21,7 +21,8 @@ from repro_torch.plan import conv_model, gemm_model
 from repro_torch.plan.planners import PLANNERS, get_planner
 from repro_torch.plan.schedule import Controller, Schedule, Strategy
 from repro_torch.plan.traffic import TrafficReport, traffic_report
-from repro_torch.plan.workload import ConvWorkload, Workload, conv_workloads
+from repro_torch.plan.workload import (ConvWorkload, MatmulWorkload, Workload,
+                                       conv_workloads)
 
 DEFAULT_P_MACS = 2048          # the paper's central MAC budget
 _CACHE_SIZE = 4096
@@ -39,6 +40,16 @@ class Plan:
     @property
     def controller(self) -> Controller:
         return self.schedule.controller
+
+    @property
+    def vmem_bytes(self) -> int:
+        """The planner's on-chip bytes of a matmul plan at the workload's
+        element types (`Schedule.vmem_bytes`)."""
+        if not isinstance(self.workload, MatmulWorkload):
+            raise TypeError("vmem_bytes is defined for matmul plans only; "
+                            f"this plan schedules a "
+                            f"{type(self.workload).__name__}")
+        return self.schedule.vmem_bytes(workload=self.workload)
 
 
 def default_budget(workload: Workload) -> int:
@@ -79,18 +90,25 @@ def _plan_cached(workload: Workload, budget: int, strategy: "Strategy | str",
 def plan(workload: Workload, budget: int | None = None,
          strategy: "Strategy | str" = Strategy.PAPER_OPT,
          controller: "Controller | str" = Controller.PASSIVE,
-         exact_iters: bool = True) -> Plan:
+         exact_iters: bool = True, *, checked: bool = False) -> Plan:
     """Plan one workload: choose a `Schedule` and predict its traffic.
 
     budget: P MACs (conv) or bytes (matmul); None picks the kind's default.
     ``exact_iters`` selects ceil iteration counts for the conv traffic report
     (False reproduces the paper's real-valued convention). ``strategy``
     takes the built-in `Strategy` values and any name registered through
-    ``dse.register_strategy``.
+    ``dse.register_strategy``. ``checked=True`` runs the
+    `repro_torch.check` verifier passes on the result and raises
+    `repro_torch.check.CheckError` on any error-severity diagnostic (e.g. a
+    budget so small that the fallback schedule breaks eq 1).
     """
     budget = default_budget(workload) if budget is None else int(budget)
-    return _plan_cached(workload, budget, coerce_strategy(strategy),
-                        Controller.coerce(controller), exact_iters)
+    result = _plan_cached(workload, budget, coerce_strategy(strategy),
+                          Controller.coerce(controller), exact_iters)
+    if checked:
+        from repro_torch.check import verify     # deferred: check imports plan
+        verify(result, context=f"plan({workload!r}) failed verification")
+    return result
 
 
 def plan_many(workloads, budget: int | None = None,

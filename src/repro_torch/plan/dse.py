@@ -16,6 +16,7 @@ and ``sweep()`` by name. On top:
 
   sweep(networks x budgets x strategies x controllers) -> tidy rows
   pareto(rows)                                         -> frontier subset
+  certify_space(workload)                              -> SpaceCertificate
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ __all__ = [
     "Constraint", "MacBudget", "VmemBudget", "LaneAligned", "GroupDivisible",
     "StrategySpec", "SearchResult", "search", "plan_with_strategy",
     "strategy_spec", "register_strategy", "unregister_strategy",
-    "sweep", "pareto", "register_objective", "get_objective",
+    "sweep", "pareto", "certify_space", "register_objective", "get_objective",
     "SearchSpace", "Candidates", "ConvExactSpace", "ConvGridSpace",
     "AlignedBlockSpace", "ClosedFormSpace", "Objective",
 ]
@@ -316,7 +317,8 @@ def sweep(networks, budgets, strategies=("paper_opt",),
     (ceil iteration counts); selection follows each strategy's own preset.
     ``interconnect_words`` and the other word columns follow the sweep's
     ``exact_iters``/``paper_convention`` conventions, as ``network_traffic``
-    does. Rows carry no planning time: the caller times a sweep.
+    does, and ``bytes`` weighs them by element width. Rows carry no
+    planning time: the caller times a sweep.
     """
     from repro_torch.plan import api
     obj_fn = get_objective(objective)
@@ -369,6 +371,20 @@ def sweep(networks, budgets, strategies=("paper_opt",),
                         rows.append({**base, "cost": float(sum(costs)),
                                      "n_layers": len(plans), **totals})
     return rows
+
+
+def certify_space(workload: Workload, budget: int | None = None, *,
+                  controller="passive", space: "SearchSpace | None" = None):
+    """Certify every candidate this module would search over: delegates to
+    `repro_torch.check.dataflow`, which proves the matching kernel's
+    launches once per grid-degeneracy class and the vectorized word counts
+    equal to the model over the whole space. Returns a
+    `repro_torch.check.dataflow.SpaceCertificate`."""
+    from repro_torch.check.dataflow import (certify_conv_space,
+                                            certify_matmul_space)
+    if isinstance(workload, ConvWorkload):
+        return certify_conv_space(workload, budget, controller, space)
+    return certify_matmul_space(workload, budget, controller, space)
 
 
 def pareto(rows, x: str = "budget", y: str = "cost") -> list[dict]:

@@ -69,14 +69,20 @@ def plan_graphs(graphs, budget: int | None = None,
     across fleet calls too; by default each call gets a fresh one. Results
     hit and fill the same graph-level LRU as ``plan_graph``.
     """
-    _np._refuse_checked(checked)
     _np._check_objective(objective)
     strategy = _api.coerce_strategy(strategy)
     controller = Controller.coerce(controller)
     ctx = PlanContext() if context is None else context
     coerced = [ctx.graph_of(g) for g in graphs]
-    return _plan_graphs_batched(coerced, budget, strategy, controller,
-                                residency_bytes, beam_width, objective, ctx)
+    results = _plan_graphs_batched(coerced, budget, strategy, controller,
+                                   residency_bytes, beam_width, objective, ctx)
+    if checked:
+        seen: set[int] = set()
+        for netp in results:
+            if id(netp) not in seen:
+                seen.add(id(netp))
+                _np._verified(netp, True)
+    return results
 
 
 def _plan_graphs_batched(coerced, budget, strategy, controller,

@@ -14,11 +14,18 @@ Traffic in words for C[M,N] = A[M,K] @ B[K,N] with grid (M/bm, N/bn, K/bk):
   C,active: M * N                        (accumulator resident across k)
   C,passive: (2*ceil(K/bk) - 1) * M * N  (spill + read-back per k step)
 
+The byte models weigh those words by element width: `traffic_model_bytes`
+(operands in the input type, passive spills in the accumulator's fp32, the
+active final write in the output type) and `MatmulBlocks.vmem_bytes` /
+`vmem_bytes_grid` (the working set the budget bounds). Every words -> bytes
+product goes through `units.nbytes`.
+
 On an H100 the budget is one thread block's shared memory (`SMEM_BUDGET`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -32,6 +39,23 @@ from repro_torch.plan.workload import MatmulWorkload
 SMEM_BUDGET = 232_448
 LANE = 128      # block sizes are multiples of these two alignments
 SUBLANE = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class MatmulBlocks:
+    """A GEMM's (bm, bn, bk) blocks without a controller."""
+
+    bm: int
+    bn: int
+    bk: int
+
+    def vmem_bytes(self, in_bytes: int = 2, acc_bytes: int = 4,
+                   double_buffer: bool = True) -> int:
+        """The planner's working set: the operand blocks (twice when
+        double-buffered) plus the accumulator tile."""
+        buffers = 2 if double_buffer else 1
+        return (nbytes(buffers * (self.bm * self.bk + self.bk * self.bn), in_bytes)
+                + nbytes(self.bm * self.bn, acc_bytes))
 
 
 def matmul_traffic(m: int, n: int, k: int, blocks, controller="active"
@@ -81,15 +105,20 @@ def aligned_block_candidates(m: int, n: int, k: int, max_block: int = 4096
 
 def working_set_bytes(wl: MatmulWorkload, bm, bn, bk,
                       double_buffer: bool = True) -> np.ndarray:
-    """On-chip bytes one block holds: the A/B blocks in the operand type
-    (twice when double-buffered) plus the accumulator tile, over candidate
-    arrays."""
+    """`vmem_bytes_grid` at the workload's operand and accumulator types."""
+    return vmem_bytes_grid(bm, bn, bk, wl.in_dtype.itemsize,
+                           wl.acc_dtype.itemsize, double_buffer)
+
+
+def vmem_bytes_grid(bm, bn, bk, in_bytes: int = 2, acc_bytes: int = 4,
+                    double_buffer: bool = True) -> np.ndarray:
+    """Vectorized `MatmulBlocks.vmem_bytes` over candidate arrays."""
     bm = np.asarray(bm, np.int64)
     bn = np.asarray(bn, np.int64)
     bk = np.asarray(bk, np.int64)
     buffers = 2 if double_buffer else 1
-    return (nbytes(buffers * (bm * bk + bk * bn), wl.in_dtype.itemsize)
-            + nbytes(bm * bn, wl.acc_dtype.itemsize))
+    return (nbytes(buffers * (bm * bk + bk * bn), in_bytes)
+            + nbytes(bm * bn, acc_bytes))
 
 
 def matmul_traffic_grid(m: int, n: int, k: int, bm, bn, bk,
@@ -114,6 +143,64 @@ def matmul_traffic_grid(m: int, n: int, k: int, bm, bn, bk,
             "b_reads": b_reads.astype(np.float64),
             "c_traffic": c_traffic.astype(np.float64),
             "total": (a_reads + b_reads + c_traffic).astype(np.float64)}
+
+
+def traffic_model_bytes_grid(m: int, n: int, k: int, bm, bn, bk, controller,
+                             in_bytes: int = 2, out_bytes: int = 2,
+                             acc_bytes: int = 4) -> np.ndarray:
+    """Vectorized `traffic_model_bytes` over candidate block arrays, entry
+    for entry equal to the scalar model."""
+    controller = Controller.coerce(controller)
+    t = matmul_traffic_grid(m, n, k, bm, bn, bk, controller)
+    io = nbytes(t["a_reads"] + t["b_reads"], in_bytes)
+    if controller is Controller.ACTIVE:
+        return io + float(nbytes(m * n, out_bytes))
+    gk = -(-k // np.asarray(bk, np.int64))
+    return io + nbytes(((gk - 1) * 2 + 1) * (m * n), acc_bytes)
+
+
+def traffic_model_bytes(m: int, n: int, k: int, blocks, controller,
+                        in_bytes: int = 2, out_bytes: int = 2,
+                        acc_bytes: int = 4) -> float:
+    """Device-memory traffic in bytes, with separate input, output and
+    accumulator widths: passive spills move fp32 partial sums, the active
+    final write is the output type (a saving the word model hides)."""
+    controller = Controller.coerce(controller)
+    t = matmul_traffic(m, n, k, blocks, controller)
+    io = nbytes(t["a_reads"] + t["b_reads"], in_bytes)
+    if controller is Controller.ACTIVE:
+        c = nbytes(m * n, out_bytes)
+    else:
+        gk = math.ceil(k / blocks.bk)
+        c = nbytes(((gk - 1) * 2 + 1) * m * n, acc_bytes)   # spills are fp32
+    return io + c
+
+
+def plan_matmul_blocks_scalar(m: int, n: int, k: int, *,
+                              in_dtype: torch.dtype = torch.bfloat16,
+                              acc_dtype: torch.dtype = torch.float32,
+                              budget: int = SMEM_BUDGET, controller="active",
+                              max_block: int = 4096) -> MatmulBlocks:
+    """The exhaustive search as a triple Python loop over the aligned
+    candidates, bm-major: the parity oracle of the vectorized
+    `plan_matmul_blocks` (the same blocks, ties to the first candidate).
+    A budget below the smallest tile takes the smallest tile. Do not
+    optimise."""
+    controller = Controller.coerce(controller)
+    best: MatmulBlocks | None = None
+    best_t = float("inf")
+    for bm in _aligned_candidates(m, SUBLANE * 16, max_block):
+        for bn in _aligned_candidates(n, LANE, max_block):
+            for bk in _aligned_candidates(k, LANE, max_block):
+                b = MatmulBlocks(bm, bn, bk)
+                if b.vmem_bytes(in_dtype.itemsize, acc_dtype.itemsize) > budget:
+                    continue
+                t = matmul_traffic(m, n, k, b, controller)["total"]
+                if t < best_t:
+                    best, best_t = b, t
+    if best is None:
+        best = MatmulBlocks(SUBLANE * 16, LANE, LANE)
+    return best
 
 
 def plan_matmul_blocks(m: int, n: int, k: int, *,

@@ -32,8 +32,10 @@ from the first step that differs, equal to a fresh ``plan_graph``.
 
 The residency budget models the SoC's buffer, not the card: the kernels
 write every feature map to device memory whatever the plan holds resident.
-Word totals only (`TrafficReport` has no byte field yet, ROADMAP A4); the
-simulated-cost objectives wait for the SoC simulator (ROADMAP A10).
+Every total carries its bytes beside its words (`TrafficReport.bytes`), and
+``checked=True`` runs the `repro_torch.check` NetPlan verifier on the
+result; the simulated-cost objectives wait for the SoC simulator (ROADMAP
+A10).
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ from repro_torch.plan import conv_model, dse, gemm_model
 from repro_torch.plan.graph import NetworkGraph, Node
 from repro_torch.plan.schedule import Controller, Schedule, Strategy
 from repro_torch.plan.traffic import TrafficReport, traffic_report
+from repro_torch.plan.units import nbytes
 from repro_torch.plan.workload import ConvWorkload, MatmulWorkload
 
 # Engine-side residency buffer (bytes) for holding inter-layer feature maps
@@ -234,13 +237,6 @@ def _check_objective(objective) -> None:
         f"objectives wait for the SoC simulator, repro.sim (ROADMAP A10)")
 
 
-def _refuse_checked(checked: bool) -> None:
-    if checked:
-        raise NotImplementedError(
-            "checked=True is not ported yet: the NetPlan verifier waits for "
-            "the word-count certificates (ROADMAP A4)")
-
-
 # ------------------------------------------------------- analytical totals
 def _node_bus_report(wl, schedule: Schedule, spilled_in_words: int,
                      out_spilled: bool) -> TrafficReport:
@@ -259,6 +255,7 @@ def _node_bus_report(wl, schedule: Schedule, spilled_in_words: int,
         out_bus = b_o if out_spilled else 0.0
         sram_reads = b_i + (in_iters - 1) * wl.out_acts
         sram_writes = float(in_iters * wl.out_acts)
+        word_bytes = wl.word_bytes
     elif isinstance(wl, MatmulWorkload):
         t = gemm_model.matmul_traffic(wl.m, wl.n, wl.k, schedule,
                                       schedule.controller)
@@ -269,21 +266,25 @@ def _node_bus_report(wl, schedule: Schedule, spilled_in_words: int,
         acc = wl.m * wl.n
         sram_reads = float((gk - 1) * acc)
         sram_writes = float(gk * acc)
+        word_bytes = wl.in_dtype.itemsize
     else:
         raise TypeError(f"unknown workload {type(wl).__name__}")
-    return TrafficReport(interconnect_words=in_bus + out_bus,
-                         input_words=in_bus, output_words=out_bus,
-                         sram_reads=sram_reads, sram_writes=sram_writes)
+    total = in_bus + out_bus
+    return TrafficReport(interconnect_words=total, input_words=in_bus,
+                         output_words=out_bus, sram_reads=sram_reads,
+                         sram_writes=sram_writes,
+                         bytes=nbytes(total, word_bytes))
 
 
 def network_report(graph: NetworkGraph, schedules: dict[str, Schedule],
                    resident=frozenset(), *,
                    context: PlanContext | None = None) -> TrafficReport:
-    """Analytical network totals for (schedules, residency assignment). With
+    """Analytical network totals for (schedules, residency assignment): the
+    quantity `repro_torch.core.amc.run_network` meters word for word. With
     an empty resident set this is the sum of the per-layer reports.
     ``context`` optionally memoizes the per-node reports across calls."""
     resident = frozenset(resident)
-    totals = np.zeros(5, dtype=np.float64)
+    totals = np.zeros(6, dtype=np.float64)
     for node in graph.workload_nodes:
         spilled = sum(graph.tensors[t].words for t in node.ins
                       if t not in resident)
@@ -296,7 +297,7 @@ def network_report(graph: NetworkGraph, schedules: dict[str, Schedule],
                                    spilled, out_spilled)
         totals += np.asarray([rep.interconnect_words, rep.input_words,
                               rep.output_words, rep.sram_reads,
-                              rep.sram_writes])
+                              rep.sram_writes, rep.bytes])
     return TrafficReport(*totals)
 
 
@@ -388,9 +389,10 @@ class NetPlan:
         tensor, live range, residability) differs, from the recorded state
         frontier. Everything the beam transition at step *i* reads is fixed
         by those per-step invariants, so the resumed search is the fresh one.
+        ``checked=True`` verifies the result as `plan_graph` does.
         """
-        _refuse_checked(checked)
-        return _replan(self, budget, residency_bytes, subgraph, beam_width)
+        return _verified(_replan(self, budget, residency_bytes, subgraph,
+                                 beam_width), checked)
 
     def report(self) -> str:
         lines = [f"# netplan: {self.graph.name} strategy={self.strategy} "
@@ -715,13 +717,17 @@ def plan_graph(graph_or_name, budget: int | None = None,
     never held resident: external data must cross the bus.
 
     The beam minimizes interconnect words (``objective`` None or
-    ``"interconnect_words"``); the reference's sim objectives and
-    ``checked=True`` raise, naming what they wait for. Repeat calls with
-    identical arguments hit a graph-level LRU (`plan_graph_cache_info` /
-    `clear_plan_graph_cache`). ``context`` supplies a `PlanContext` whose
-    shape-keyed memos are shared across calls.
+    ``"interconnect_words"``); the reference's sim objectives raise, naming
+    what they wait for. Repeat calls with identical arguments hit a
+    graph-level LRU (`plan_graph_cache_info` / `clear_plan_graph_cache`).
+    ``context`` supplies a `PlanContext` whose shape-keyed memos are shared
+    across calls.
+
+    ``checked=True`` runs the full `repro_torch.check` NetPlan verifier on
+    the result (graph invariants, per-node feasibility, word conservation,
+    the residency-budget proof) and raises `repro_torch.check.CheckError`
+    on any error-severity diagnostic, a cached plan included.
     """
-    _refuse_checked(checked)
     _check_objective(objective)
     graph = _coerce_graph(graph_or_name)
     strategy = _api.coerce_strategy(strategy)
@@ -730,11 +736,19 @@ def plan_graph(graph_or_name, budget: int | None = None,
                      beam_width, objective)
     hit = _cache_get(key)
     if hit is not None:
-        return hit
+        return _verified(hit, checked)
     ctx = PlanContext() if context is None else context
     netp = _plan_graph_uncached(graph, budget, strategy, controller,
                                 residency_bytes, beam_width, objective, ctx)
     _cache_put(key, netp)
+    return _verified(netp, checked)
+
+
+def _verified(netp: NetPlan, checked: bool) -> NetPlan:
+    if checked:
+        from repro_torch.check import verify     # deferred: check imports plan
+        verify(netp, context=f"plan_graph({netp.graph.name!r}) failed "
+                             f"verification")
     return netp
 
 

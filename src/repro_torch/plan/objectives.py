@@ -15,7 +15,7 @@ Built-ins:
                       as `plan.traffic` counts them
 
 Both use ceil iteration counts (the executable semantics). The reference's
-byte-weighted objectives are not here yet: `get_objective` names the
+energy and roofline objectives are not here yet: `get_objective` names the
 ROADMAP item each waits for (`WAITING`).
 """
 
@@ -38,7 +38,8 @@ OBJECTIVES: dict[str, ObjectiveFn] = {}
 #: the reference's objectives this package does not have yet, and what each
 #: waits for
 WAITING = {
-    "energy_bytes": "the byte models (ROADMAP A4)",
+    "energy_bytes": "the per-access energy table of the roofline models "
+                    "(ROADMAP A10)",
     "roofline_latency": "the H100 roofline constants (ROADMAP A10)",
 }
 _SIM_WAITS_FOR = "the SoC simulator, repro.sim (ROADMAP A10)"

@@ -4,6 +4,9 @@
 conv, ``bm``/``bn`` are the paper's m input maps and n output maps per
 iteration (eq 1) and ``bk`` is 0 (space is never tiled by the planner). For a
 GEMM, ``bm`` x ``bn`` is the output tile and ``bk`` the reduction block.
+`Partition` is the paper's bare (m, n) pair, which the meter
+(`repro_torch.core.amc`) also takes; a conv `Schedule` round-trips through
+it (``from_partition`` / ``as_partition``).
 """
 
 from __future__ import annotations
@@ -54,6 +57,17 @@ class Controller(enum.Enum):
 
 
 @dataclasses.dataclass(frozen=True)
+class Partition:
+    """Channel partition: m input maps x n output maps per iteration."""
+
+    m: int
+    n: int
+
+    def macs(self, k: int) -> int:
+        return k * k * self.m * self.n
+
+
+@dataclasses.dataclass(frozen=True)
 class Schedule:
     """One execution schedule, for either workload kind.
 
@@ -85,3 +99,53 @@ class Schedule:
     def n(self) -> int:
         """The paper's n (output feature maps per iteration)."""
         return self.bn
+
+    def macs(self, k: int) -> int:
+        """eq (1) left-hand side: K^2 * m * n."""
+        return k * k * self.bm * self.bn
+
+    @classmethod
+    def from_partition(cls, part: Partition,
+                       controller: "Controller | str" = Controller.PASSIVE
+                       ) -> "Schedule":
+        return cls(kind="conv", bm=part.m, bn=part.n, bk=0,
+                   controller=Controller.coerce(controller))
+
+    def as_partition(self) -> Partition:
+        if self.kind != "conv":
+            raise ValueError(f"not a conv schedule: {self}")
+        return Partition(m=self.bm, n=self.bn)
+
+    @classmethod
+    def from_blocks(cls, blocks, controller: "Controller | str" = Controller.ACTIVE
+                    ) -> "Schedule":
+        """From a `gemm_model.MatmulBlocks` (or anything with bm/bn/bk)."""
+        return cls(kind="matmul", bm=blocks.bm, bn=blocks.bn, bk=blocks.bk,
+                   controller=Controller.coerce(controller))
+
+    def as_blocks(self):
+        if self.kind != "matmul":
+            raise ValueError(f"not a matmul schedule: {self}")
+        from repro_torch.plan.gemm_model import MatmulBlocks
+        return MatmulBlocks(bm=self.bm, bn=self.bn, bk=self.bk)
+
+    def vmem_bytes(self, in_bytes: int | None = None,
+                   acc_bytes: int | None = None,
+                   double_buffer: bool = True, *, workload=None) -> int:
+        """The planner's on-chip bytes of a matmul schedule: the operand
+        blocks (twice when double-buffered) plus the accumulator tile, the
+        reference's formula (`gemm_model.MatmulBlocks.vmem_bytes`).
+
+        Element widths resolve in order: explicit ``in_bytes``/``acc_bytes``
+        > the ``workload``'s dtypes > bf16 operands and an fp32
+        accumulator. These are the bytes the planner's budget bounds
+        (RPC006), not what a kernel body holds: the card's ``tc_bf16``
+        block keeps its accumulator in registers and stages k-chunks in
+        shared memory (`repro_torch.check.kernels`, RPC032).
+        """
+        if workload is not None:
+            in_bytes = workload.in_dtype.itemsize if in_bytes is None else in_bytes
+            acc_bytes = workload.acc_dtype.itemsize if acc_bytes is None else acc_bytes
+        in_bytes = 2 if in_bytes is None else in_bytes
+        acc_bytes = 4 if acc_bytes is None else acc_bytes
+        return self.as_blocks().vmem_bytes(in_bytes, acc_bytes, double_buffer)

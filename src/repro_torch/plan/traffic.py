@@ -1,9 +1,12 @@
-"""`TrafficReport`: the word counts of one (workload, schedule) pair.
+"""`TrafficReport`: the traffic of one (workload, schedule) pair.
 
-Words crossing the interconnect (the paper's "BW") and accesses at the
-memory that owns the accumulator. The conv numbers are eqs (2)/(3); the
-matmul numbers are the blocked-GEMM model of `gemm_model`. Byte counts are
-not part of this port yet.
+Words crossing the interconnect (the paper's "BW"), accesses at the memory
+that owns the accumulator, and the interconnect words weighed by element
+width. The conv numbers are eqs (2)/(3) (bytes: words x the workload's
+``word_bytes``); the matmul numbers are the blocked-GEMM model of
+`gemm_model` (bytes: `gemm_model.traffic_model_bytes`, operand, accumulator
+and output widths from the workload's dtypes). The meter
+(`repro_torch.core.amc`) counts the same words access by access.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ import math
 
 from repro_torch.plan import conv_model, gemm_model
 from repro_torch.plan.schedule import Schedule
+from repro_torch.plan.units import nbytes
 from repro_torch.plan.workload import ConvWorkload, MatmulWorkload, Workload
 
 
@@ -27,6 +31,7 @@ class TrafficReport:
                          identical for both controllers (the active
                          controller moves work off the bus, it does not
                          remove it)
+    bytes              — the interconnect words weighed by element width
     """
 
     interconnect_words: float
@@ -34,6 +39,11 @@ class TrafficReport:
     output_words: float
     sram_reads: float
     sram_writes: float
+    bytes: float
+
+    @property
+    def total_words(self) -> float:
+        return self.interconnect_words
 
     def as_dict(self) -> dict[str, float]:
         return dataclasses.asdict(self)
@@ -49,10 +59,12 @@ def conv_traffic(wl: ConvWorkload, schedule: Schedule,
     in_iters = math.ceil(mg / min(schedule.m, mg))
     # Every input word is read from input SRAM once per arrival; the
     # accumulator is written every iteration and read on every non-first one.
-    return TrafficReport(interconnect_words=b_i + b_o, input_words=b_i,
+    total = b_i + b_o
+    return TrafficReport(interconnect_words=total, input_words=b_i,
                          output_words=b_o,
                          sram_reads=b_i + (in_iters - 1) * wl.out_acts,
-                         sram_writes=float(in_iters * wl.out_acts))
+                         sram_writes=float(in_iters * wl.out_acts),
+                         bytes=nbytes(total, wl.word_bytes))
 
 
 def matmul_traffic_report(wl: MatmulWorkload, schedule: Schedule) -> TrafficReport:
@@ -65,7 +77,11 @@ def matmul_traffic_report(wl: MatmulWorkload, schedule: Schedule) -> TrafficRepo
         input_words=t["a_reads"] + t["b_reads"],
         output_words=t["c_traffic"],
         sram_reads=float((gk - 1) * acc),   # accumulator re-reads per k step
-        sram_writes=float(gk * acc))
+        sram_writes=float(gk * acc),
+        bytes=gemm_model.traffic_model_bytes(
+            wl.m, wl.n, wl.k, schedule, schedule.controller,
+            in_bytes=wl.in_dtype.itemsize, out_bytes=wl.out_dtype.itemsize,
+            acc_bytes=wl.acc_dtype.itemsize))
 
 
 def traffic_report(workload: Workload, schedule: Schedule,

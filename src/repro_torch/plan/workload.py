@@ -50,6 +50,14 @@ class ConvWorkload:
                    wi=layer.wi, hi=layer.hi, wo=layer.wo, ho=layer.ho,
                    stride=layer.stride, groups=layer.groups)
 
+    def to_layer(self):
+        """Back to a `repro_torch.core.cnn_zoo.ConvLayer` (the meter and the
+        network planner wrapper take layers)."""
+        from repro_torch.core.cnn_zoo import ConvLayer
+        return ConvLayer(name=self.name, cin=self.cin, cout=self.cout, k=self.k,
+                         wi=self.wi, hi=self.hi, wo=self.wo, ho=self.ho,
+                         stride=self.stride, groups=self.groups)
+
 
 @dataclasses.dataclass(frozen=True)
 class MatmulWorkload:
@@ -61,6 +69,7 @@ class MatmulWorkload:
     name: str = "matmul"
     in_dtype: torch.dtype = torch.bfloat16    # operands
     acc_dtype: torch.dtype = torch.float32    # partial sums
+    out_dtype: torch.dtype = torch.bfloat16   # the final store
 
     @property
     def flops(self) -> int:

@@ -36,6 +36,7 @@ P = 2048
 ZOO4 = ("alexnet", "squeezenet", "resnet18", "mobilenet")
 WORD_FIELDS = ("interconnect_words", "input_words", "output_words",
                "sram_reads", "sram_writes")
+REPORT_FIELDS = WORD_FIELDS + ("bytes",)
 TOL = 1e-4
 
 
@@ -53,9 +54,8 @@ def _sched(s):
 
 
 def _words(rep):
-    """A traffic report's word fields (the reference's also carries bytes,
-    which the port does not model yet)."""
-    return None if rep is None else tuple(getattr(rep, f) for f in WORD_FIELDS)
+    """A traffic report's word fields and its bytes."""
+    return None if rep is None else tuple(getattr(rep, f) for f in REPORT_FIELDS)
 
 
 def _wl(wl):
@@ -476,13 +476,18 @@ def test_sim_objectives_and_strategies_raise_naming_a10(call):
 
 
 @pytest.mark.parametrize("call", [
-    lambda: tplan.plan_graph("alexnet", P, checked=True),
-    lambda: tplan.plan_graphs(["alexnet"], P, checked=True),
-    lambda: tplan.plan_graph("alexnet", P).replan(checked=True),
+    lambda pk: [pk.plan_graph("alexnet", P, checked=True)],
+    lambda pk: pk.plan_graphs(["alexnet", "resnet18", "alexnet"], P,
+                              checked=True),
+    lambda pk: [pk.plan_graph("alexnet", P).replan(residency_bytes=1 << 20,
+                                                   checked=True)],
 ])
-def test_checked_raises_naming_a4(call):
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        call()
+def test_checked_matches_the_reference(call):
+    """``checked=True`` verifies the plan (`repro_torch.check`) and returns
+    what the reference's returns, on a cache miss and on a hit."""
+    for _ in range(2):
+        got, want = call(tplan), call(jplan)
+        assert [_view(p) for p in got] == [_view(p) for p in want]
 
 
 def test_interconnect_words_objective_is_the_default():
