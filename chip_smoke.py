@@ -122,6 +122,20 @@
       launches a walk). Last, ``amc.validate_network`` on the six dense zoo
       CNNs under both controllers and ``core.planner.plan_network`` over the
       eight.
+   g. observability: the port's tracer (``repro_torch.obs``) over the card's
+      paths. Phase 4's image walls (tracer off), then 21 walks without and 21
+      with a tracer, in turns (the enabled overhead a span). Under one
+      tracer: one walk of (a)'s graph, (a)'s GEMM under both controllers in
+      both dtypes, and one eager prefill and two eager decode steps of
+      (b)'s model; every ``launch.run`` call must give one ``kernel.launch``
+      span, the spans' ``launches`` must sum per kernel to the window's
+      launch counts, and the walk must give one ``kernel.preflight`` span
+      with no diagnostics. One replay of the compiled decode step must give
+      no ``kernel.launch`` span and add its capture's counts. The spans go
+      to ``build/obs_trace.json`` (Perfetto), read back and checked;
+      the host time inside the walk's launch spans is printed beside its
+      wall. Last, the planner service (``launch.planserve``) at smoke size
+      on the card's host, with no word mismatch.
    Every output is checked against a library reference (the served logits
    against the model with `ref.attention_ref` as its attention, and against
    one full forward of prompt plus generated tokens; the fp32 forward's
@@ -137,6 +151,7 @@ result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import pathlib
@@ -706,6 +721,202 @@ def amc_on_card(torch, dev, card: str) -> dict[str, int]:
               f"{npl.total_active / 1e6:.3f} M (saving {npl.saving_pct:.2f} %); "
               f"host {ms:.3f} ms")
     return phase
+
+
+# 4g: observability on the card
+OBS_WALKS = 21                      # untraced and traced walks, in turns
+OBS_TRACE = ROOT / "build" / "obs_trace.json"    # git-ignored
+
+
+def obs_on_card(torch, dev, card: str, walk, gemm, lm: dict,
+                image_ms: list) -> dict[str, int]:
+    """Phase 4g. The port's tracer (`repro_torch.obs`) over the card's paths.
+    (a) Tracer off: phase 4's image walls, and ``OBS_WALKS`` walks without
+    and with a tracer, in turns. (b) Tracer on, eager: one ResNet-18 walk
+    (``walk``), the GEMM under both controllers in both dtypes (``gemm``),
+    and one eager prefill and two eager decode steps of the served model
+    (``lm``); every `launch.run` call must give one ``kernel.launch`` span,
+    the spans' ``launches`` must sum per kernel to the `launch.LAUNCHES`
+    counts of the window, and the walk must give one ``kernel.preflight``
+    span with no diagnostics. (c) One replay of the compiled decode step
+    under the tracer: no ``kernel.launch`` span, and `launch.LAUNCHES` grows
+    by the capture's recorded counts. (d) (b)'s spans exported as a
+    Perfetto trace to ``build/obs_trace.json`` and read back; the
+    host time inside the walk's launch spans against its wall. (e) The
+    planner service on the card's host: `planserve.run_load` and
+    `planserve.run_speedup` at smoke size, no word mismatch. Returns the
+    launches of (b)."""
+    import collections
+    from unittest import mock
+
+    from repro_torch import obs
+    from repro_torch.kernels import launch
+    from repro_torch.launch import planserve
+
+    def timed(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0)
+
+    def median(xs):
+        return sorted(xs)[len(xs) // 2]
+
+    # (a) the tracer off, and off and on in turns
+    off, on, spans_a_walk = [], [], set()
+    for _ in range(OBS_WALKS):
+        off.append(timed(walk))
+        with obs.tracing() as tr:
+            on.append(timed(walk))
+        spans_a_walk.add(len(tr))
+    if obs.enabled() or len(spans_a_walk) != 1:
+        fail(f"obs (a): tracer left on, or walks gave {spans_a_walk} spans")
+    n_spans = spans_a_walk.pop()
+    print(f"obs (a) tracer off: phase 4's image walls {image_ms} ms, median "
+          f"{median(image_ms):.3f} ms ({card})")
+    print(f"obs (a) in turns: untraced walks {[round(x, 3) for x in off]} ms "
+          f"(median {median(off):.3f}), traced {[round(x, 3) for x in on]} ms "
+          f"(median {median(on):.3f}, {n_spans} spans a walk): "
+          f"{1e3 * (median(on) - median(off)) / n_spans:.2f} us a span, "
+          f"{100 * (median(on) / median(off) - 1):.2f} % of a walk ({card})")
+
+    # (b) the tracer on, eager: every run call counted beside its span
+    params, prompts = lm["params"], lm["prompts"]
+
+    def lm_steps():
+        with torch.inference_mode():
+            logits, caches = lm["prefill"](params, {"tokens": prompts})
+            for _ in range(2):
+                tok = torch.argmax(logits, -1)[:, None]
+                logits, caches = lm["decode"](params, caches, tok)
+
+    runs = []
+    real_run = launch.run
+
+    def counted_run(plan, *operands, **extra):
+        runs.append(plan.name)
+        return real_run(plan, *operands, **extra)
+
+    torch.cuda.synchronize()
+    launch.reset_launches()
+    walls = {}
+    with mock.patch.object(launch, "run", counted_run), \
+            obs.tracing() as tr:
+        for what, fn in (("walk", walk), ("gemm", gemm), ("lm", lm_steps)):
+            n0 = len(tr)
+            walls[what] = (timed(fn), len(tr) - n0)
+    counts = dict(launch.LAUNCHES)
+    spans = [s for s in tr.spans if s.name == "kernel.launch"]
+    attrs = [dict(s.attrs) for s in spans]
+    if len(spans) != len(runs) or collections.Counter(
+            a["plan"] for a in attrs) != collections.Counter(runs):
+        fail(f"obs (b): {len(runs)} launch.run calls gave {len(spans)} "
+             f"kernel.launch spans")
+    if {a["device"] for a in attrs} != {dev.type} or any("error" in a
+                                                        for a in attrs):
+        fail(f"obs (b): launch spans on {sorted({a['device'] for a in attrs})}"
+             f" or with errors")
+    by_span, by_count = collections.Counter(), collections.Counter()
+    for a in attrs:
+        by_span[a["plan"].split("/")[0]] += a["launches"]
+    for name, n in counts.items():
+        by_count[name.split("/")[0]] += n
+    kernels = {"conv2d_psum", "psum_matmul", "flash_attention"}
+    if by_span != by_count or set(by_count) != kernels:
+        fail(f"obs (b): the spans' launches {dict(by_span)} against "
+             f"LAUNCHES {counts}")
+    pre = [dict(s.attrs) for s in tr.spans if s.name == "kernel.preflight"]
+    if len(pre) != 1 or pre[0]["diagnostics"] != 0:
+        fail(f"obs (b): kernel.preflight spans {pre}")
+    print(f"obs (b) tracer on: {len(runs)} launch.run calls, {len(spans)} "
+          f"kernel.launch spans; launches by span {dict(by_span)} == "
+          f"LAUNCHES {counts}; kernel.preflight {pre[0]}; walls "
+          + ", ".join(f"{k} {ms:.3f} ms ({n} spans)"
+                      for k, (ms, n) in walls.items()) + f" ({card})")
+
+    # (c) a compiled replay records no span and adds its recorded counts
+    with torch.inference_mode():
+        logits, caches = lm["prefill_c"](params, {"tokens": prompts})
+        tok = torch.argmax(logits, -1)[:, None]
+        recorded = lm["decode_c"].graphs[(tuple(tok.shape), tok.dtype)][
+            "graph"].launches
+        torch.cuda.synchronize()
+        before = dict(launch.LAUNCHES)
+        with obs.tracing() as tr_c:
+            lm["decode_c"](params, caches, tok)
+            torch.cuda.synchronize()
+    added = {k: n - before.get(k, 0) for k, n in launch.LAUNCHES.items()
+             if n != before.get(k, 0)}
+    replay_spans = [s.name for s in tr_c.spans if s.name == "kernel.launch"]
+    if replay_spans or added != recorded:
+        fail(f"obs (c): a replay gave {len(replay_spans)} kernel.launch spans "
+             f"and added {added}, recorded {recorded}")
+    print(f"obs (c) compiled decode replay: 0 kernel.launch spans, LAUNCHES "
+          f"grew by the recorded {recorded}")
+    del logits, caches
+
+    # (d) the Perfetto export, read back
+    events = obs.spans_to_trace(tr, process_name="chip_smoke 4g")
+    OBS_TRACE.parent.mkdir(parents=True, exist_ok=True)
+    with open(OBS_TRACE, "w") as fp:
+        obs.write_trace(events, fp)
+    back = json.loads(OBS_TRACE.read_text())["traceEvents"]
+    bad = [e for e in back if e["ph"] not in ("X", "M") or (
+        e["ph"] == "X" and (e["ts"] < 0 or e["dur"] < 0))]
+    if bad or len(back) != len(events) or sum(
+            e["ph"] == "X" for e in back) != len(tr):
+        fail(f"obs (d): {len(back)} events read back, {len(bad)} invalid, "
+             f"e.g. {bad[:2]}")
+    conv = [s for s, a in zip(spans, attrs) if a["plan"] == "conv2d_psum"]
+    host_ms = 1e3 * sum(s.dur_s for s in conv)
+    walk_ms = walls["walk"][0]
+    print(f"obs (d) export: {len(events)} events ({len(tr)} spans) to "
+          f"{OBS_TRACE.relative_to(ROOT)}; walk: host {host_ms:.3f} ms inside "
+          f"{len(conv)} conv kernel.launch spans of a {walk_ms:.3f} ms wall, "
+          f"{host_ms / len(conv):.4f} ms a conv call; traced walk "
+          f"{walk_ms:.3f} ms against phase 4's median "
+          f"{median(image_ms):.3f} ms ({card})")
+    # the walk's host timeline: the pre-flight, the runner before the first
+    # launch, inside the launches, and between them
+    (pre_span,) = [s for s in tr.spans if s.name == "kernel.preflight"]
+    conv.sort(key=lambda s: s.t0_s)
+    ends = [s.t0_s + s.dur_s for s in conv]
+    before = conv[0].t0_s - (pre_span.t0_s + pre_span.dur_s)
+    between = sum(b.t0_s - e for e, b in zip(ends, conv[1:]))
+    print(f"obs (d) walk host timeline: pre-flight {1e3 * pre_span.dur_s:.3f} "
+          f"ms, runner before the first launch {1e3 * before:.3f} ms, inside "
+          f"the launches {host_ms:.3f} ms (first {1e3 * conv[0].dur_s:.3f}, "
+          f"median {1e3 * median([s.dur_s for s in conv]):.4f}), between them "
+          f"{1e3 * between:.3f} ms ({1e3 * between / (len(conv) - 1):.4f} ms a "
+          f"gap); first span to last end {1e3 * (ends[-1] - pre_span.t0_s):.3f}"
+          f" ms of the {walk_ms:.3f} ms wall ({card})")
+    for plan_name in ("psum_matmul/active", "psum_matmul/passive",
+                      "flash_attention"):
+        durs = {}
+        for s, a in zip(spans, attrs):
+            if a["plan"] == plan_name:
+                durs.setdefault(a["body"], []).append(1e3 * s.dur_s)
+        print(f"obs (d) host ms inside kernel.launch, {plan_name}: "
+              + ", ".join(f"{body} {len(d)} calls, median {median(d):.4f}, "
+                          f"max {max(d):.4f}" for body, d in durs.items())
+              + f" ({card})")
+
+    # (e) the planner service on the card's host
+    load = planserve.run_load(smoke=True)
+    speed = planserve.run_speedup(passes=1, smoke=True)
+    if speed["word_mismatches"] != 0:
+        fail(f"obs (e): planserve word_mismatches {speed['word_mismatches']}")
+    print(f"obs (e) planserve (host, smoke catalog of {load['catalog_size']}):"
+          f" {load['requests']} requests in {load['batches']} batches, "
+          f"{load['plans_per_s']:.1f} plans/s, p50 {load['p50_ms']:.3f} ms, "
+          f"p99 {load['p99_ms']:.3f} ms (histogram {load['p50_ms_hist']:.3f} /"
+          f" {load['p99_ms_hist']:.3f}); batched "
+          f"{speed['batched_vs_sequential']:.2f}x sequential, "
+          f"word_mismatches 0, fleet "
+          f"{speed['fleet_total_mwords']:.6f} M words; REGISTRY "
+          f"{len(obs.REGISTRY.families())} families")
+    return counts
 
 
 def kernel_name(mangled: str) -> str:
@@ -1420,6 +1631,9 @@ def main() -> None:
         del want
     print(f"network: {IMAGES} images x {convs} convs, worst max-abs-err/max-abs "
           f"{worst:.3g} (limit {NETWORK_REL_TOL}); image ms {image_ms}")
+    # image 0's walk again, for phase 4g (``graph`` names a module from 4b on)
+    image_walk = functools.partial(run_network_kernels, graph, schedules, params,
+                                   inputs={image_in: images[0]}, device=dev)
 
     # where one image's time goes on the device
     from torch.profiler import ProfilerActivity, profile
@@ -1716,7 +1930,7 @@ def main() -> None:
              str(GEN), "--device", "cuda"])
     print(f"serve report, eager steps: {json.dumps(eager_report)}")
     print(f"serve report, compiled steps: {json.dumps(report)}")
-    del prefill_c, decode_c, cc, ce, lc, le
+    del cc, ce, lc, le              # the compiled steps serve phase 4g
 
     # 4b''. one decode step of every ported dense arch at smoke size (bf16;
     #       StableLM at its own head dim 160, which the flash wrapper pads
@@ -1762,7 +1976,7 @@ def main() -> None:
     #     attention layer runs tc_3xtf32 and its pack pass; the logits are
     #     held against the same forward with `ref.attention_ref`.
     prompts = b0["prompts"]
-    del record, sparams, b0
+    del record, b0
     fcfg = dataclasses.replace(scfg, dtype="float32")
     with torch.inference_mode():
         fparams = init_lm(fcfg, seed=0, device=dev)
@@ -1833,6 +2047,24 @@ def main() -> None:
     print(f"amc phase: {time.perf_counter() - t0:.1f} s, launches "
           f"{amc_launches}")
 
+    # 4g. observability on the card: the port's tracer over phase 4's walk
+    #     and GEMM and the served model's eager and compiled steps
+    def gemm_calls():
+        for dtype, (x, w) in gemm_in.items():
+            for controller in ("active", "passive"):
+                ops.matmul(x, w, controller=controller,
+                           vmem_budget=plan.SMEM_BUDGET)
+
+    t0 = time.perf_counter()
+    obs_launches = obs_on_card(
+        torch, dev, smi, image_walk, gemm_calls,
+        {"params": sparams, "prompts": prompts, "prefill": prefill_e,
+         "decode": decode_e, "prefill_c": prefill_c, "decode_c": decode_c},
+        image_ms)
+    print(f"obs phase: {time.perf_counter() - t0:.1f} s, launches "
+          f"{obs_launches}")
+    del sparams, prefill_c, decode_c
+
     # 5. result lines
     sources = {"psum_matmul/active": ("psum_matmul", "src/repro/kernels/psum_matmul.py:48"),
                "psum_matmul/passive": ("psum_matmul", "src/repro/kernels/psum_matmul.py:66"),
@@ -1864,6 +2096,8 @@ def main() -> None:
             **({"amc_launches": amc_launches[name],
                 "amc_pack_launches": amc_launches[f"{name}/pack"]}
                if name in amc_launches else {}),
+            # phase 4g's launches: the traced walk and GEMM
+            "obs_launches": obs_launches.get(name, 0),
             "dtype": "float32",
             "body_by_dtype": {d: v["body"] for d, v in by_dtype.items()},
             "by_dtype": by_dtype})
@@ -1875,6 +2109,8 @@ def main() -> None:
         "replaces": "src/repro/kernels/flash_attention.py:26",
         "launches": serve_counts["flash_attention"],
         "combine_launches": serve_counts["flash_attention/combine"],
+        # phase 4g's launches: the traced eager prefill and decode steps
+        "obs_launches": obs_launches["flash_attention"],
         "max_abs_err": head["max_abs_err"], "ms": head["ms"],
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],

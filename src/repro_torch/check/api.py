@@ -3,13 +3,13 @@ modes, and `check_plans`, the CLI's sweep over the zoo."""
 
 from __future__ import annotations
 
-import time
 from typing import List, Optional, Sequence, Tuple
 
 from repro_torch.check.diagnostics import Diagnostic, raise_on_error
 from repro_torch.check.kernels import check_network_kernels, same_padded
 from repro_torch.check.passes import check
 from repro_torch.core.cnn_zoo import PAPER_CNNS
+from repro_torch.obs.trace import Stopwatch
 from repro_torch.plan.api import coerce_strategy
 from repro_torch.plan.schedule import Controller
 
@@ -32,7 +32,8 @@ def check_plans(nets: Sequence[str] = PAPER_CNNS,
                 ) -> Tuple[List[Diagnostic], dict[str, float]]:
     """Plan every (net, controller) pair and verify the NetPlan end to end.
 
-    Returns (diagnostics, wall seconds per "net/controller" subject). With
+    Returns (diagnostics, host seconds per "net/controller" subject, each
+    timed by a `Stopwatch` spanned as ``check.plans/{net}/{ctrl}``). With
     ``with_kernels=True`` also pre-flights the launch of every dense
     "same"-padded conv node (the others the runner never launches).
     """
@@ -43,20 +44,22 @@ def check_plans(nets: Sequence[str] = PAPER_CNNS,
     timings: dict[str, float] = {}
     for net in nets:
         for ctrl in controllers:
-            t0 = time.time()
-            netp = plan_graph(net, budget=budget, strategy=strat,
-                              controller=Controller(ctrl))
-            found = check(netp)
-            if with_kernels:
-                sub = {n.name: netp.schedules.get(n.name)
-                       for n in netp.graph.workload_nodes
-                       if n.workload.groups == 1 and same_padded(n.workload)}
-                launchable = [n.name for n in netp.graph.workload_nodes
-                              if n.name in sub]
-                found += [d for d in check_network_kernels(netp.graph, sub)
-                          if d.subject in launchable and d.code != "RPC033"]
-            diags += [Diagnostic(d.code, f"{net}/{ctrl}:{d.subject}",
-                                 d.message, d.severity, d.hint, d.file,
-                                 d.line) for d in found]
-            timings[f"{net}/{ctrl}"] = time.time() - t0
+            with Stopwatch(f"check.plans/{net}/{ctrl}", cat="check") as sw:
+                netp = plan_graph(net, budget=budget, strategy=strat,
+                                  controller=Controller(ctrl))
+                found = check(netp)
+                if with_kernels:
+                    sub = {n.name: netp.schedules.get(n.name)
+                           for n in netp.graph.workload_nodes
+                           if n.workload.groups == 1
+                           and same_padded(n.workload)}
+                    launchable = [n.name for n in netp.graph.workload_nodes
+                                  if n.name in sub]
+                    found += [d for d in check_network_kernels(netp.graph, sub)
+                              if d.subject in launchable
+                              and d.code != "RPC033"]
+                diags += [Diagnostic(d.code, f"{net}/{ctrl}:{d.subject}",
+                                     d.message, d.severity, d.hint, d.file,
+                                     d.line) for d in found]
+            timings[f"{net}/{ctrl}"] = sw.s
     return diags, timings

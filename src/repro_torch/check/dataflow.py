@@ -58,7 +58,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -71,6 +70,7 @@ from repro_torch.check.kernels import (check_conv_launch, check_flash_launch,
 from repro_torch.kernels import conv2d_psum as _conv
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import psum_matmul as _matmul
+from repro_torch.obs.trace import Stopwatch
 from repro_torch.plan.schedule import Controller, Schedule
 from repro_torch.plan.workload import ConvWorkload, MatmulWorkload
 
@@ -667,45 +667,47 @@ def check_dataflow(nets: Sequence[str] = ("resnet18",),
     every launchable conv layer of each net under both controllers, (3)
     a 4096^3 GEMM's `AlignedBlockSpace` at one block's shared memory under
     both controllers. Returns (diagnostics, {subject: seconds}) with the
-    certified candidates under ``"_certified"``."""
+    certified candidates under ``"_certified"``; each part is timed by a
+    `Stopwatch` spanned as ``check.dataflow/kernels``,
+    ``check.dataflow/space/{net}`` and ``check.dataflow/space/gemm``."""
     from repro_torch.plan.workload import conv_workloads
     diags: List[Diagnostic] = []
     timings: dict = {}
     n_cand = 0
 
-    t0 = time.time()
-    diags += conv_dataflow(
-        ConvWorkload(name="conv64", cin=64, cout=128, k=3, wi=16, hi=16,
-                     wo=16, ho=16),
-        Schedule(kind="conv", bm=32, bn=32,
-                 controller=Controller.PASSIVE)).diagnostics
-    for ctrl in ("active", "passive"):
-        diags += matmul_dataflow(
-            MatmulWorkload(m=512, n=512, k=1024),
-            Schedule(kind="matmul", bm=128, bn=128, bk=256,
-                     controller=Controller.coerce(ctrl))).diagnostics
-    diags += flash_dataflow(2, 256, 256, 64).diagnostics
-    diags += flash_dataflow(2, 1, 256, 64, bq=1, q_offset=255).diagnostics
-    timings["kernels"] = time.time() - t0
+    with Stopwatch("check.dataflow/kernels", cat="check") as sw:
+        diags += conv_dataflow(
+            ConvWorkload(name="conv64", cin=64, cout=128, k=3, wi=16, hi=16,
+                         wo=16, ho=16),
+            Schedule(kind="conv", bm=32, bn=32,
+                     controller=Controller.PASSIVE)).diagnostics
+        for ctrl in ("active", "passive"):
+            diags += matmul_dataflow(
+                MatmulWorkload(m=512, n=512, k=1024),
+                Schedule(kind="matmul", bm=128, bn=128, bk=256,
+                         controller=Controller.coerce(ctrl))).diagnostics
+        diags += flash_dataflow(2, 256, 256, 64).diagnostics
+        diags += flash_dataflow(2, 1, 256, 64, bq=1, q_offset=255).diagnostics
+    timings["kernels"] = sw.s
 
     for net in nets:
-        t0 = time.time()
-        for wl in conv_workloads(net):
-            if wl.groups != 1 or not same_padded(wl):
-                continue          # the runner never launches it
-            for ctrl in controllers:
-                cert = certify_conv_space(wl, controller=ctrl)
-                diags += cert.diagnostics
-                n_cand += cert.n_candidates
-        timings[f"space/{net}"] = time.time() - t0
+        with Stopwatch(f"check.dataflow/space/{net}", cat="check") as sw:
+            for wl in conv_workloads(net):
+                if wl.groups != 1 or not same_padded(wl):
+                    continue          # the runner never launches it
+                for ctrl in controllers:
+                    cert = certify_conv_space(wl, controller=ctrl)
+                    diags += cert.diagnostics
+                    n_cand += cert.n_candidates
+        timings[f"space/{net}"] = sw.s
 
-    t0 = time.time()
-    for ctrl in controllers:
-        cert = certify_matmul_space(MatmulWorkload(m=4096, n=4096, k=4096),
-                                    controller=ctrl)
-        diags += cert.diagnostics
-        n_cand += cert.n_candidates
-    timings["space/gemm"] = time.time() - t0
+    with Stopwatch("check.dataflow/space/gemm", cat="check") as sw:
+        for ctrl in controllers:
+            cert = certify_matmul_space(
+                MatmulWorkload(m=4096, n=4096, k=4096), controller=ctrl)
+            diags += cert.diagnostics
+            n_cand += cert.n_candidates
+    timings["space/gemm"] = sw.s
     timings["_certified"] = n_cand
     return diags, timings
 

@@ -41,6 +41,7 @@ from repro_torch.kernels import conv2d_psum as _conv
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import psum_matmul as _matmul
 from repro_torch.kernels.launch import LaunchPlan
+from repro_torch.obs.trace import span
 from repro_torch.plan.gemm_model import SMEM_BUDGET
 from repro_torch.plan.schedule import Schedule
 from repro_torch.plan.workload import ConvWorkload
@@ -298,10 +299,15 @@ def preflight_network_kernels(graph, schedules: Any,
     by `repro_torch.check.dataflow` (the eq (2)/(3) word counts from the
     LaunchPlan, the grid's race and coverage proofs), cached per launch
     geometry like the launch checks: a graph's first walk pays for them,
-    later walks look them up.
+    later walks look them up. The gate is spanned as ``kernel.preflight``
+    (attributes ``graph``, ``dataflow`` and ``diagnostics``, the count of
+    findings).
     """
-    found = check_network_kernels(graph, schedules, params, inputs, dtype)
-    if dataflow and not errors(found):
-        from repro_torch.check.dataflow import check_network_dataflow
-        found += check_network_dataflow(graph, schedules, dtype)
-    raise_on_error(found, context="network plan rejected before launch")
+    with span("kernel.preflight", cat="kernel", graph=graph.name,
+              dataflow=dataflow) as sp:
+        found = check_network_kernels(graph, schedules, params, inputs, dtype)
+        if dataflow and not errors(found):
+            from repro_torch.check.dataflow import check_network_dataflow
+            found += check_network_dataflow(graph, schedules, dtype)
+        sp.set("diagnostics", len(found))
+        raise_on_error(found, context="network plan rejected before launch")

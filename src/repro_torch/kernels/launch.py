@@ -12,6 +12,15 @@ its accumulator, plus two callables over the same padded operands:
 no fallback from one to the other. Each CUDA wrapper adds one to
 ``LAUNCHES[name]`` where it launches its kernel, and nowhere else, so a run
 can show that it went through the kernels.
+
+`run` is spanned as ``kernel.launch`` (`repro_torch.obs`; attributes
+``plan``, ``grid``, ``device``, ``body`` and ``launches``, the plan's kernel
+launches per call with its pack and combine passes). The span is a host
+interval: it measures the checks, the wrapper and the launch calls, not the
+card's execution, which runs on the stream after it. Under CUDA-graph
+capture (`repro_torch.launch.graph`) the span records the capture; a replay
+runs no Python and records nothing, as a span inside ``jax.jit`` records
+only when the function is traced.
 """
 
 from __future__ import annotations
@@ -21,6 +30,8 @@ import dataclasses
 from typing import Callable, Iterator
 
 import torch
+
+from repro_torch.obs.trace import span
 
 #: kernel launches per kernel name since the last `reset_launches`
 LAUNCHES: dict[str, int] = {}
@@ -140,9 +151,13 @@ def run(plan: LaunchPlan, *operands: torch.Tensor, **extra) -> torch.Tensor:
             raise ValueError(f"{plan.name}: operand {spec.name} shaped "
                              f"{tuple(op.shape)}, plan needs {spec.array_shape}")
     devices = {op.device.type for op in operands}
-    if devices == {"cuda"}:
-        return plan.cuda(*operands, **extra)
-    if devices == {"cpu"}:
-        return plan.plain(*operands, **extra)
+    if devices in ({"cuda"}, {"cpu"}):
+        (device,) = devices
+        with span("kernel.launch", cat="kernel", plan=plan.name,
+                  grid=plan.grid, device=device, body=plan.body,
+                  launches=plan.launches):
+            if device == "cuda":
+                return plan.cuda(*operands, **extra)
+            return plan.plain(*operands, **extra)
     raise ValueError(f"{plan.name}: operands on {sorted(devices)}; they must "
                      f"all be on one CUDA device or all on the CPU")

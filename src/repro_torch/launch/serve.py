@@ -10,13 +10,12 @@ compiled as the reference's ``serve.py`` jits them (`graph.compile_prefill`,
 replayed per call, and a request's first batch pays for the capture. Every
 attention layer of prefill and decode goes through the flash kernel
 (`ops.gqa_flash_attention`). The card is synchronised before each clock
-read.
+read; each interval is a `repro_torch.obs.Stopwatch`.
 """
 
 from __future__ import annotations
 
 import argparse
-import time
 
 import numpy as np
 import torch
@@ -26,6 +25,7 @@ from repro_torch.kernels.launch import resolve_device
 from repro_torch.launch import graph
 from repro_torch.models import steps as ST
 from repro_torch.models.transformer import init_lm
+from repro_torch.obs.trace import Stopwatch
 
 
 def _sync(device: torch.device) -> None:
@@ -60,34 +60,35 @@ def main(argv=None, *, record: dict | None = None) -> dict:
         prefill = graph.compile_prefill(ST.make_prefill_step(cfg, max_len))
         decode = graph.compile_decode(ST.make_decode_step(cfg))
         _sync(device)
-        t_start = time.time()
-        for bi in range(n_batches):
-            prompts = torch.from_numpy(rng.integers(
-                0, cfg.vocab, (args.batch, args.prompt_len))).to(device)
-            _sync(device)
-            t0 = time.time()
-            logits, caches = prefill(params, {"tokens": prompts})
-            tok = torch.argmax(logits, -1)[:, None]
-            _sync(device)
-            lat_first.append(time.time() - t0)
-            step_logits, out = [logits], [tok]
-            for _ in range(args.gen_len - 1):
-                logits, caches = decode(params, caches, tok)
-                tok = torch.argmax(logits, -1)[:, None]
+        with Stopwatch() as run:
+            for bi in range(n_batches):
+                prompts = torch.from_numpy(rng.integers(
+                    0, cfg.vocab, (args.batch, args.prompt_len))).to(device)
+                _sync(device)
+                with Stopwatch() as total:
+                    with Stopwatch() as first:
+                        logits, caches = prefill(params, {"tokens": prompts})
+                        tok = torch.argmax(logits, -1)[:, None]
+                        _sync(device)
+                    step_logits, out = [logits], [tok]
+                    for _ in range(args.gen_len - 1):
+                        logits, caches = decode(params, caches, tok)
+                        tok = torch.argmax(logits, -1)[:, None]
+                        if record is not None:
+                            step_logits.append(logits)
+                            out.append(tok)
+                    _sync(device)
+                lat_first.append(first.s)
+                lat_total.append(total.s)
+                toks += args.batch * args.gen_len
+                print(f"batch {bi}: ttft={lat_first[-1]*1e3:.0f}ms "
+                      f"total={lat_total[-1]*1e3:.0f}ms", flush=True)
                 if record is not None:
-                    step_logits.append(logits)
-                    out.append(tok)
-            _sync(device)
-            lat_total.append(time.time() - t0)
-            toks += args.batch * args.gen_len
-            print(f"batch {bi}: ttft={lat_first[-1]*1e3:.0f}ms "
-                  f"total={lat_total[-1]*1e3:.0f}ms", flush=True)
-            if record is not None:
-                record.setdefault("batches", []).append({
-                    "prompts": prompts, "tokens": torch.cat(out, 1),
-                    "logits": torch.stack(step_logits, 1)})
-            del caches
-        wall = time.time() - t_start
+                    record.setdefault("batches", []).append({
+                        "prompts": prompts, "tokens": torch.cat(out, 1),
+                        "logits": torch.stack(step_logits, 1)})
+                del caches
+        wall = run.s
     if record is not None:
         record.update(cfg=cfg, params=params)
     report = {

@@ -17,6 +17,8 @@ import dataclasses
 import functools
 
 from repro_torch.errors import PlanError
+from repro_torch.obs.metrics import REGISTRY
+from repro_torch.obs.trace import span
 from repro_torch.plan import conv_model, gemm_model
 from repro_torch.plan.planners import PLANNERS, get_planner
 from repro_torch.plan.schedule import Controller, Schedule, Strategy
@@ -82,9 +84,23 @@ def coerce_strategy(value: "Strategy | str") -> "Strategy | str":
 @functools.lru_cache(maxsize=_CACHE_SIZE)
 def _plan_cached(workload: Workload, budget: int, strategy: "Strategy | str",
                  controller: Controller, exact_iters: bool) -> Plan:
-    schedule = get_planner(strategy)(workload, budget, controller)
-    return Plan(workload=workload, budget=budget, schedule=schedule,
-                traffic=traffic_report(workload, schedule, exact_iters))
+    with span("plan", cat="plan", workload=workload.name or "shape",
+              strategy=(strategy.value if isinstance(strategy, Strategy)
+                        else str(strategy)),
+              controller=controller.value):
+        schedule = get_planner(strategy)(workload, budget, controller)
+        return Plan(workload=workload, budget=budget, schedule=schedule,
+                    traffic=traffic_report(workload, schedule, exact_iters))
+
+
+# ``plan()``'s LRU statistics, sampled straight off the lru_cache at
+# metric-collection time (callback gauges: no bookkeeping on the hot path).
+for _field in ("hits", "misses", "currsize"):
+    REGISTRY.gauge("plan_cache", "plan() LRU statistics",
+                   labels={"field": _field},
+                   fn=(lambda f=_field:
+                       float(getattr(_plan_cached.cache_info(), f))))
+del _field
 
 
 def plan(workload: Workload, budget: int | None = None,

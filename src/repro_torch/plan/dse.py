@@ -27,6 +27,7 @@ from typing import Protocol, runtime_checkable
 
 import numpy as np
 
+from repro_torch.obs.trace import Stopwatch
 from repro_torch.plan import conv_model, gemm_model
 from repro_torch.plan.objectives import Objective, get_objective, register_objective
 from repro_torch.plan.schedule import Controller, Schedule, Strategy
@@ -317,8 +318,8 @@ def sweep(networks, budgets, strategies=("paper_opt",),
     (ceil iteration counts); selection follows each strategy's own preset.
     ``interconnect_words`` and the other word columns follow the sweep's
     ``exact_iters``/``paper_convention`` conventions, as ``network_traffic``
-    does, and ``bytes`` weighs them by element width. Rows carry no
-    planning time: the caller times a sweep.
+    does, and ``bytes`` weighs them by element width. ``us_per_call`` is
+    the host time of the cell's ``plan_many`` call, in microseconds.
     """
     from repro_torch.plan import api
     obj_fn = get_objective(objective)
@@ -341,8 +342,11 @@ def sweep(networks, budgets, strategies=("paper_opt",),
                         if paper_convention and isinstance(w, ConvWorkload)
                         and w.groups > 1 else w
                         for w in workloads)
-                    plans = api.plan_many(wls, budget, strat, ctrl,
-                                          exact_iters=exact)
+                    # us_per_call times the planning itself; the
+                    # objective re-scoring below is reporting, not planning
+                    with Stopwatch() as sw:
+                        plans = api.plan_many(wls, budget, strat, ctrl,
+                                              exact_iters=exact)
                     costs = [
                         float(obj_fn(p.workload,
                                      Candidates.single(p.schedule.kind,
@@ -353,7 +357,7 @@ def sweep(networks, budgets, strategies=("paper_opt",),
                         for p in plans]
                     base = {"network": net_name, "budget": int(budget),
                             "strategy": strat_name, "controller": ctrl.value,
-                            "objective": obj_name}
+                            "objective": obj_name, "us_per_call": sw.us}
                     if per_layer:
                         for p, c in zip(plans, costs):
                             rows.append({

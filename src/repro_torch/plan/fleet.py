@@ -29,6 +29,7 @@ from typing import Any
 
 import numpy as np
 
+from repro_torch.obs.trace import span
 from repro_torch.plan import api as _api
 from repro_torch.plan import netplan as _np
 from repro_torch.plan.graph import NetworkGraph
@@ -74,15 +75,18 @@ def plan_graphs(graphs, budget: int | None = None,
     controller = Controller.coerce(controller)
     ctx = PlanContext() if context is None else context
     coerced = [ctx.graph_of(g) for g in graphs]
-    results = _plan_graphs_batched(coerced, budget, strategy, controller,
-                                   residency_bytes, beam_width, objective, ctx)
-    if checked:
-        seen: set[int] = set()
-        for netp in results:
-            if id(netp) not in seen:
-                seen.add(id(netp))
-                _np._verified(netp, True)
-    return results
+    with span("fleet.plan_graphs", cat="plan", nets=len(coerced),
+              controller=controller.value):
+        results = _plan_graphs_batched(coerced, budget, strategy, controller,
+                                       residency_bytes, beam_width, objective,
+                                       ctx)
+        if checked:
+            seen: set[int] = set()
+            for netp in results:
+                if id(netp) not in seen:
+                    seen.add(id(netp))
+                    _np._verified(netp, True)
+        return results
 
 
 def _plan_graphs_batched(coerced, budget, strategy, controller,
@@ -142,7 +146,10 @@ def _plan_graphs_batched(coerced, budget, strategy, controller,
                 lane.beam.advance(step, node, grid.score_frontier(spills[0]))
                 continue
             ctx.stats["fleet_bucketed_steps"] += 1
-            cat = grid.score_frontier(np.concatenate(spills))
+            joint = np.concatenate(spills)
+            with span("fleet.bucket_step", cat="plan", step=step,
+                      lanes=len(group), states=len(joint)):
+                cat = grid.score_frontier(joint)
             off = 0
             for (lane, node, _), sp in zip(group, spills):
                 lane.beam.advance(step, node,

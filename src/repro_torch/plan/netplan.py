@@ -48,6 +48,8 @@ from typing import Any, NamedTuple
 import numpy as np
 
 from repro_torch.errors import BudgetError, PlanError
+from repro_torch.obs.metrics import REGISTRY, StatsCounter
+from repro_torch.obs.trace import span
 from repro_torch.plan import api as _api
 from repro_torch.plan import conv_model, dse, gemm_model
 from repro_torch.plan.graph import NetworkGraph, Node
@@ -80,14 +82,16 @@ class PlanContext:
     ``plan_graph`` call). All memos key on name-stripped workload shapes, so
     two nodes, in one network or across a fleet, that share a shape share
     candidate grids, per-layer baseline schedules and residency-adjusted
-    traffic reports. ``stats`` counts hits and misses per memo.
+    traffic reports. ``stats`` counts hits and misses per memo; it is a
+    `collections.Counter` whose increments also roll up into the
+    process-wide ``plan_context_stats{key=...}`` metrics.
     """
 
     def __init__(self) -> None:
         self.grids: dict = {}       # grid key -> _NodeGrid
         self.scheds: dict = {}      # baseline key -> (Schedule, TrafficReport)
         self.reports: dict = {}     # bus-report key -> TrafficReport
-        self.stats: collections.Counter = collections.Counter()
+        self.stats: collections.Counter = StatsCounter()
         self._shapes: dict = {}     # workload -> name-stripped workload
         self._graphs: dict = {}     # zoo CNN name -> NetworkGraph
 
@@ -651,7 +655,17 @@ class PlanGraphCacheInfo(NamedTuple):
 _GRAPH_CACHE: "collections.OrderedDict[tuple, NetPlan]" = \
     collections.OrderedDict()
 _GRAPH_CACHE_MAXSIZE = 128
-_CACHE_COUNTS = {"hits": 0, "misses": 0}
+# Hit/miss counts live in the obs registry (``plan_graph_cache{event=...}``)
+# so the planner service and the CLI expose them without private imports;
+# `plan_graph_cache_info` reads them back as ints.
+_CACHE_HITS = REGISTRY.counter("plan_graph_cache",
+                               "plan_graph LRU lookups by outcome",
+                               labels={"event": "hits"})
+_CACHE_MISSES = REGISTRY.counter("plan_graph_cache",
+                                 "plan_graph LRU lookups by outcome",
+                                 labels={"event": "misses"})
+REGISTRY.gauge("plan_graph_cache_size", "entries in the plan_graph LRU",
+               fn=lambda: float(len(_GRAPH_CACHE)))
 
 
 def _graph_signature(graph: NetworkGraph) -> tuple:
@@ -674,10 +688,10 @@ def _cache_key(graph: NetworkGraph, budget, strategy,
 def _cache_get(key: tuple) -> "NetPlan | None":
     netp = _GRAPH_CACHE.get(key)
     if netp is None:
-        _CACHE_COUNTS["misses"] += 1
+        _CACHE_MISSES.inc()
         return None
     _GRAPH_CACHE.move_to_end(key)
-    _CACHE_COUNTS["hits"] += 1
+    _CACHE_HITS.inc()
     return netp
 
 
@@ -690,15 +704,16 @@ def _cache_put(key: tuple, netp: NetPlan) -> None:
 
 def plan_graph_cache_info() -> PlanGraphCacheInfo:
     """``plan()``-style cache statistics for the graph-level plan cache."""
-    return PlanGraphCacheInfo(hits=_CACHE_COUNTS["hits"],
-                              misses=_CACHE_COUNTS["misses"],
+    return PlanGraphCacheInfo(hits=int(_CACHE_HITS.value),
+                              misses=int(_CACHE_MISSES.value),
                               maxsize=_GRAPH_CACHE_MAXSIZE,
                               currsize=len(_GRAPH_CACHE))
 
 
 def clear_plan_graph_cache() -> None:
     _GRAPH_CACHE.clear()
-    _CACHE_COUNTS["hits"] = _CACHE_COUNTS["misses"] = 0
+    _CACHE_HITS.reset()
+    _CACHE_MISSES.reset()
 
 
 # ------------------------------------------------------------------ planning
@@ -732,16 +747,23 @@ def plan_graph(graph_or_name, budget: int | None = None,
     graph = _coerce_graph(graph_or_name)
     strategy = _api.coerce_strategy(strategy)
     controller = Controller.coerce(controller)
-    key = _cache_key(graph, budget, strategy, controller, residency_bytes,
-                     beam_width, objective)
-    hit = _cache_get(key)
-    if hit is not None:
-        return _verified(hit, checked)
-    ctx = PlanContext() if context is None else context
-    netp = _plan_graph_uncached(graph, budget, strategy, controller,
-                                residency_bytes, beam_width, objective, ctx)
-    _cache_put(key, netp)
-    return _verified(netp, checked)
+    with span("plan_graph", cat="plan", graph=graph.name,
+              strategy=(strategy.value if isinstance(strategy, Strategy)
+                        else str(strategy)),
+              controller=controller.value) as sp:
+        key = _cache_key(graph, budget, strategy, controller,
+                         residency_bytes, beam_width, objective)
+        hit = _cache_get(key)
+        if hit is not None:
+            sp.set("cache", "hit")
+            return _verified(hit, checked)
+        sp.set("cache", "miss")
+        ctx = PlanContext() if context is None else context
+        netp = _plan_graph_uncached(graph, budget, strategy, controller,
+                                    residency_bytes, beam_width, objective,
+                                    ctx)
+        _cache_put(key, netp)
+        return _verified(netp, checked)
 
 
 def _verified(netp: NetPlan, checked: bool) -> NetPlan:

@@ -44,7 +44,10 @@ def test_port_imports_without_jax_or_repro():
     assert {"repro_torch.check", "repro_torch.check.passes",
             "repro_torch.check.kernels", "repro_torch.check.dataflow",
             "repro_torch.check.__main__", "repro_torch.core.amc",
-            "repro_torch.core.planner"} <= names
+            "repro_torch.core.planner", "repro_torch.obs",
+            "repro_torch.obs.trace", "repro_torch.obs.metrics",
+            "repro_torch.obs.export", "repro_torch.obs.__main__",
+            "repro_torch.launch.planserve"} <= names
 
 
 def test_chip_smoke_imports_nothing_of_jax_or_repro():
