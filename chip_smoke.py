@@ -136,6 +136,22 @@
       the host time inside the walk's launch spans is printed beside its
       wall. Last, the planner service (``launch.planserve``) at smoke size
       on the card's host, with no word mismatch.
+   h. the mixture of experts: ``launch.serve`` serves Qwen1.5-MoE-A2.7B at
+      its published widths (24 layers, d_model 2048, 16 heads, 60 routed
+      experts top-4 of ff 1408 and a gated shared expert of 5632, bf16,
+      seeded weights, capacity dispatch) as (b) serves Qwen2-1.5B: 8
+      requests in batches of 4, prompt 1024, 32 new tokens, each step a
+      graph replay (24 ``flash_attention`` a prefill, 24 split_kv and 24
+      combines a decode step), every step of batch 0 equal to the eager
+      step bodies bit for bit; the steps' device busy time and the MoE's
+      share (routing, dispatch, expert products, combine, shared expert),
+      peak memory and the steps' bounds. Then the reference's cache-plumbing
+      check at full width on the first 4 layers (fp32, ragged dispatch,
+      eager: tc_3xtf32 prefill and split_kv decode steps against one full
+      forward, 1e-3), one full-width MoE block of 1024 tokens in fp32 on
+      the card against the same function on the CPU (routes equal but at
+      near-ties, which are counted; aux 1e-5, outputs 1e-3) and in bf16,
+      timed, and the flash kernel at the MoE's attention beside SDPA.
    Every output is checked against a library reference (the served logits
    against the model with `ref.attention_ref` as its attention, and against
    one full forward of prompt plus generated tokens; the fp32 forward's
@@ -916,6 +932,438 @@ def obs_on_card(torch, dev, card: str, walk, gemm, lm: dict,
           f"word_mismatches 0, fleet "
           f"{speed['fleet_total_mwords']:.6f} M words; REGISTRY "
           f"{len(obs.REGISTRY.families())} families")
+    return counts
+
+
+# 4h: the mixture of experts, Qwen1.5-MoE-A2.7B at its published widths
+MOE_ARCH = "qwen2-moe-a2.7b"
+MOE_SMOKE = False                    # True only in a CPU rehearsal
+MOE_SERVE = (8, 4, 1024, 32)         # requests, batch, prompt, new tokens
+MOE_PLUMB = (4, 2, 128, 8)           # layers, batch, tokens, decode steps
+MOE_BLOCK_T = 1024
+MOE_TIE = 1e-5                       # k-th vs (k+1)-th probability
+MOE_OUT_TOL, MOE_AUX_TOL, MOE_PLUMB_TOL = 1e-3, 1e-5, 1e-3
+MOE_PARTS = {"route": "moe/route", "_capacity_ffn": "moe/ffn",
+             "_dispatch": "moe/dispatch", "_expert_products": "moe/experts",
+             "moe_apply": "moe/apply"}
+
+
+def moe_on_card(torch, dev, card: str, graph_ms, time_ms, bound) -> dict:
+    """Phase 4h. (a) `launch.serve` serves Qwen1.5-MoE-A2.7B at full width
+    and depth in bf16 with capacity dispatch, each step a graph replay: the
+    run's launch counts, and every step of batch 0 against the eager step
+    bodies bit for bit; then a fresh compiled prefill and decode step,
+    counted one call at a time (24 `flash_attention`; 24 split_kv and 24
+    combines) and profiled: device busy, wall, and from the eager steps
+    the MoE's routing, dispatch, expert products, combine and shared
+    expert; peak memory and the steps' bounds. (b) The reference's
+    cache-plumbing check at full width on the first ``MOE_PLUMB[0]``
+    layers, fp32, ragged, eager: prefill on tc_3xtf32 and teacher-forced
+    split_kv decode steps against one full forward. (c) One full-width MoE
+    block of ``MOE_BLOCK_T`` tokens in fp32 on the card against the same
+    function on the CPU (routes equal but at near-ties, which are counted;
+    aux and outputs), then in bf16, timed. (d) The flash kernel at the
+    MoE's attention, timed beside its plain version and SDPA. Returns the
+    launch counts of (a)."""
+    from unittest import mock
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.kernels import flash_attention, launch
+    from repro_torch.launch import graph, serve
+    from repro_torch.models import moe
+    from repro_torch.models import steps as model_steps
+    from repro_torch.models.transformer import (count_params, forward,
+                                                init_caches, init_lm)
+
+    cfg = (get_smoke if MOE_SMOKE else get_config)(MOE_ARCH)
+    mc, n_layers = cfg.moe, cfg.n_layers
+    requests, batch, prompt, gen_len = MOE_SERVE
+    n_batches = -(-requests // batch)
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    def dev_ms(evt, total=False) -> float:
+        name = "device_time_total" if total else "self_device_time_total"
+        us = getattr(evt, name, None)
+        if us is None:
+            us = getattr(evt, name.replace("device", "cuda"), 0.0)
+        return us / 1e3
+
+    def profiled(fn) -> dict:
+        """Device busy ms of one call (kernel events: a range of MOE_PARTS
+        is not a kernel) and each range's device ms."""
+        sync()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            sync()
+        out = {"busy": 0.0}
+        for evt in prof.key_averages():
+            if evt.key.startswith("moe/"):
+                if evt.device_type != torch.autograd.DeviceType.CUDA:
+                    out[evt.key] = dev_ms(evt, total=True)
+            elif evt.device_type == torch.autograd.DeviceType.CUDA:
+                out["busy"] += dev_ms(evt)
+        return out
+
+    def scoped():
+        """Patches that put each MoE part of `repro_torch.models.moe` in a
+        profiler range named in MOE_PARTS."""
+        patches = []
+        for fn_name, label in MOE_PARTS.items():
+            def run(*args, _fn=getattr(moe, fn_name), _label=label, **kwargs):
+                with torch.profiler.record_function(_label):
+                    return _fn(*args, **kwargs)
+            patches.append(mock.patch.object(moe, fn_name, run))
+        return patches
+
+    def recording(where: list, shape_of=None):
+        """`moe.route` as it stands (in its profiler range, where one is
+        patched in), keeping each call's expert ids."""
+        current = moe.route
+
+        def run(*args, **kwargs):
+            out = current(*args, **kwargs)
+            where.append(out[1] if shape_of is None else out[1].view(*shape_of, -1))
+            return out
+        return mock.patch.object(moe, "route", run)
+
+    def tree_map(fn, tree, key=""):
+        if isinstance(tree, dict):
+            return {k: tree_map(fn, v, k if k == "router" else key)
+                    for k, v in tree.items()}
+        return fn(tree, key)
+
+    def rel(got, want) -> float:
+        got, want = got.float(), want.float()
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            fail(f"moe: shape {tuple(got.shape)} vs {tuple(want.shape)} or "
+                 f"non-finite values")
+        return ((got - want).abs().max() / want.abs().max()).item()
+
+    # (a) serving, counted
+    sync()
+    base_gb = 0.0
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base_gb = torch.cuda.memory_allocated(dev) / 1e9
+    record: dict = {}
+    launch.reset_launches()
+    report = serve.main(["--arch", MOE_ARCH, *(["--smoke"] if MOE_SMOKE else []),
+                         "--requests", str(requests), "--batch", str(batch),
+                         "--prompt-len", str(prompt), "--gen-len", str(gen_len),
+                         "--device", dev.type], record=record)
+    sync()
+    counts = dict(launch.LAUNCHES)
+    expect = {"flash_attention": n_layers * gen_len * n_batches,
+              "flash_attention/combine": n_layers * (gen_len - 1) * n_batches}
+    if counts != expect:
+        fail(f"moe serve launched {counts}, expected {expect} ({n_layers} "
+             f"layers x {gen_len} steps x {n_batches} batches)")
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9 if on_card else 0.0
+    params = record["params"]
+    n_params = count_params(cfg)
+    print(f"moe serve ({MOE_ARCH}, {n_layers} layers, d {cfg.d_model}, "
+          f"{mc.n_routed} experts top-{mc.top_k}, {cfg.dtype}, {mc.impl}, "
+          f"{n_params} parameters, {count_params(cfg, active_only=True)} "
+          f"active): launches {counts}; report {json.dumps(report)}; peak "
+          f"memory {peak_gb:.3f} GB ({base_gb:.3f} GB before the phase) ({card})")
+
+    # every step of batch 0, served from graph replays, against the eager
+    # step bodies teacher-forced with the served tokens, bit for bit
+    b0 = record["batches"][0]
+    cap_len = prompt + gen_len
+    prefill_e = model_steps.make_prefill_step(cfg, cap_len)
+    decode_e = model_steps.make_decode_step(cfg)
+    with torch.inference_mode():
+        logits, caches = prefill_e(params, {"tokens": b0["prompts"]})
+        eager = [logits]
+        for i in range(gen_len - 1):
+            logits, caches = decode_e(params, caches, b0["tokens"][:, i:i + 1])
+            eager.append(logits)
+        eager = torch.stack(eager, 1)
+        differ = [i for i in range(gen_len)
+                  if not torch.equal(b0["logits"][:, i], eager[:, i])]
+        if differ:
+            fail(f"moe serve: steps {differ} of batch 0 differ from the eager "
+                 f"steps (max-abs-err/max-abs {rel(b0['logits'], eager):.3g})")
+        if not torch.equal(torch.argmax(eager, -1), b0["tokens"]):
+            fail("moe serve: batch 0's tokens are not the eager steps' argmax")
+        del caches, eager, logits
+    print(f"moe serve: batch 0's {gen_len} steps (prefill and {gen_len - 1} "
+          f"decodes, graph replays) equal the eager steps bit for bit")
+
+    # a fresh compiled prefill and decode, counted one call at a time, and
+    # where each step's device time goes
+    prefill_c = graph.compile_prefill(model_steps.make_prefill_step(cfg, cap_len))
+    decode_c = graph.compile_decode(model_steps.make_decode_step(cfg))
+    tok = b0["tokens"][:, :1]
+    rows = {}
+    with torch.inference_mode():
+        launch.reset_launches()
+        _, caches = prefill_c(params, {"tokens": b0["prompts"]})
+        sync()
+        got = dict(launch.LAUNCHES)
+        if got != {"flash_attention": n_layers}:
+            fail(f"moe compiled prefill launched {got}, expected "
+                 f"{n_layers} flash_attention")
+        step_counts = []
+        for i in range(3):
+            launch.reset_launches()
+            _, caches = decode_c(params, caches, b0["tokens"][:, i:i + 1])
+            sync()
+            step_counts.append(dict(launch.LAUNCHES))
+        want = {"flash_attention": n_layers, "flash_attention/combine": n_layers}
+        if any(c != want for c in step_counts):
+            fail(f"moe compiled decode steps launched {step_counts}, expected {want}")
+        # the prefill's calls zero the static cache; the decode's then
+        # advance it one token a call
+        for name, fn in (("prefill", lambda: prefill_c(params, {"tokens": b0["prompts"]})),
+                         ("decode", lambda: decode_c(params, caches, tok))):
+            rows[(name, "compiled")] = profiled(fn)
+            walls = []
+            for _ in range(5):
+                sync()
+                t0 = time.perf_counter()
+                fn()
+                sync()
+                walls.append(1e3 * (time.perf_counter() - t0))
+            rows[(name, "compiled")]["wall"] = sorted(walls)[2]
+        # the eager steps, each MoE part in a profiler range; the experts
+        # each decode layer routes to, for a grouped GEMM's bound
+        routed: list = []
+        eager_caches = {}
+        patches = scoped()
+        for patch in patches:
+            patch.start()
+        try:
+            rows[("prefill", "eager")] = profiled(lambda: eager_caches.update(
+                c=prefill_e(params, {"tokens": b0["prompts"]})[1]))
+            with recording(routed):
+                rows[("decode", "eager")] = profiled(
+                    lambda: decode_e(params, eager_caches["c"], tok))
+        finally:
+            for patch in patches:
+                patch.stop()
+        touched = [int(torch.unique(idx).numel()) for idx in routed]
+        del caches, eager_caches
+    elem = params["lm_head"]["w"].element_size()
+    kv_bytes = 2 * n_layers * batch * cfg.n_kv_heads * prompt * cfg.hd * elem
+    unread = (cfg.padded_vocab - batch) * cfg.d_model * elem   # embedding rows
+    expert_bytes = 3 * cfg.d_model * mc.expert_ff * elem
+    weight_bytes = n_params * elem - unread
+    grouped_bytes = weight_bytes - (n_layers * mc.n_routed - sum(touched)) * expert_bytes
+    bounds = {
+        "decode": 1e3 * (weight_bytes + kv_bytes) / HBM_BYTES_PER_S,
+        "prefill": bound(2.0 * count_params(cfg, active_only=True) * batch * prompt,
+                         n_params * elem, torch.bfloat16)[0]}
+    grouped_ms = 1e3 * (grouped_bytes + kv_bytes) / HBM_BYTES_PER_S
+    print(f"moe step bounds (batch {batch}): decode {bounds['decode']:.3f} ms "
+          f"(bytes: {weight_bytes / 1e9:.3f} GB of weights, all "
+          f"{mc.n_routed} experts of every layer, and {kv_bytes / 1e9:.3f} GB "
+          f"of cache, once); a grouped GEMM reading only the routed experts "
+          f"{grouped_ms:.3f} ms ({grouped_bytes / 1e9:.3f} GB of weights; "
+          f"experts routed a layer {touched}); prefill {bounds['prefill']:.3f} "
+          f"ms (operations, active parameters) ({card})")
+    for (name, mode), row in rows.items():
+        busy = max(row["busy"], 1e-9)
+        parts = ""
+        if mode == "eager":
+            ffn, apply = row.get("moe/ffn", 0.0), row.get("moe/apply", 0.0)
+            share = {"routing": row.get("moe/route", 0.0),
+                     "dispatch": row.get("moe/dispatch", 0.0),
+                     "expert products": row.get("moe/experts", 0.0),
+                     "combine": ffn - row.get("moe/dispatch", 0.0)
+                     - row.get("moe/experts", 0.0),
+                     "shared expert": apply - ffn - row.get("moe/route", 0.0)}
+            parts = (f"; MoE {apply:.3f} ms ({apply / busy:.3f} of busy): "
+                     + ", ".join(f"{k} {v:.3f} ms ({v / busy:.3f})"
+                                 for k, v in share.items()))
+        wall = f", wall {row['wall']:.3f} ms (median of 5)" if "wall" in row else ""
+        print(f"moe profile ({name}, {mode}, batch {batch}): device busy "
+              f"{row['busy']:.3f} ms (kernel events){wall}{parts}; bound "
+              f"{bounds[name]:.3f} ms ({card})")
+    del prefill_c, decode_c, record, b0, params
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (b) cache plumbing: the first layers at full width, fp32, ragged,
+    #     eager; prefill + teacher-forced decode against one full forward
+    p_layers, p_batch, p_len, p_steps = MOE_PLUMB
+    pcfg = dataclasses.replace(cfg, n_periods=p_layers, dtype="float32",
+                               moe=dataclasses.replace(mc, impl="ragged"))
+    n_pre = p_len - p_steps
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    toks = torch.randint(0, pcfg.vocab, (p_batch, p_len), generator=gen).to(dev)
+    full_routes, step_routes = [], []
+    with torch.inference_mode():
+        pparams = init_lm(pcfg, seed=3, device=dev)
+
+        def run(where, tokens, **kw):
+            launch.reset_launches()
+            with recording(where, tokens.shape):
+                out = forward(pparams, pcfg, tokens, **kw)
+            sync()
+            return out, dict(launch.LAUNCHES)
+
+        (full, _, _), full_counts = run(full_routes, toks)
+        caches = init_caches(pcfg, p_batch, p_len, device=dev)
+        (pre, caches, _), pre_counts = run(step_routes, toks[:, :n_pre],
+                                           caches=caches, start=0)
+        errs = [rel(pre[:, -1], full[:, n_pre - 1])]
+        step_counts = []
+        for i in range(n_pre, p_len):
+            (lg, caches, _), c = run(step_routes, toks[:, i:i + 1], caches=caches)
+            step_counts.append(c)
+            errs.append(rel(lg[:, 0], full[:, i]))
+        one_pass = {"flash_attention": p_layers, "flash_attention/pack": p_layers}
+        if full_counts != one_pass or pre_counts != one_pass:
+            fail(f"moe plumbing: forward launched {full_counts}, prefill "
+                 f"{pre_counts}, expected {one_pass} (tc_3xtf32 and its pack)")
+        split = {"flash_attention": p_layers, "flash_attention/combine": p_layers}
+        if any(c != split for c in step_counts):
+            fail(f"moe plumbing: decode steps launched {step_counts}, expected {split}")
+        # the routes of each layer, prefill and steps side by side
+        steps_idx = [torch.cat(step_routes[layer::p_layers], 1)
+                     for layer in range(p_layers)]
+        moved = sum(int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+                    for a, b in zip(full_routes, steps_idx))
+        if max(errs) > MOE_PLUMB_TOL:
+            fail(f"moe plumbing: prefill + decode vs full forward max-abs-err/"
+                 f"max-abs {max(errs)} (limit {MOE_PLUMB_TOL}); {moved} token "
+                 f"routes differ")
+        print(f"moe plumbing ({p_layers} layers, full width, fp32, ragged, "
+              f"batch {p_batch}, prefill {n_pre} + {p_steps} decode steps): "
+              f"vs one full forward, max-abs-err/max-abs {max(errs):.3g} (limit "
+              f"{MOE_PLUMB_TOL}), prefill {errs[0]:.3g}; {moved} of "
+              f"{p_layers * p_batch * p_len} token routes differ; launches: "
+              f"forward {full_counts}, prefill {pre_counts}, decode "
+              f"{step_counts[0]} a step ({card})")
+        del pparams, full, pre, caches, lg
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (c) one full-width MoE block in fp32: the card against the CPU, same
+    #     weights and inputs; then in bf16, timed
+    bcfg = dataclasses.replace(cfg, dtype="float32")
+    cpu = torch.device("cpu")
+    with torch.inference_mode():
+        bp = moe.moe_init(torch.Generator(device=dev).manual_seed(11), bcfg, dev)
+        x = torch.randn(1, MOE_BLOCK_T, cfg.d_model, generator=gen).to(dev)
+        bp_cpu = tree_map(lambda w, _: w.to(cpu), bp)
+        got, aux = moe.moe_apply(bp, x, bcfg)
+        idx = moe.route(bp["router"]["w"], x[0], mc)[1].cpu()
+        want, aux_cpu = moe.moe_apply(bp_cpu, x.cpu(), bcfg)
+        idx_cpu = moe.route(bp_cpu["router"]["w"], x[0].cpu(), mc)[1]
+        got = got[0].cpu()
+        want = want[0]
+        top = torch.softmax(x[0].cpu() @ bp_cpu["router"]["w"], -1).sort(
+            -1, descending=True).values
+        ties = (top[:, mc.top_k - 1] - top[:, mc.top_k]) < MOE_TIE
+        flipped = (idx.sort(-1).values != idx_cpu.sort(-1).values).any(-1)
+        if (flipped & ~ties).any():
+            fail(f"moe block: {int((flipped & ~ties).sum())} tokens routed "
+                 f"differently with no near-tie (< {MOE_TIE})")
+        # a flipped token moves rows between experts, so later tokens of
+        # those experts may keep or drop other slots: they are not compared
+        comparable = ~flipped
+        if flipped.any():
+            moved = torch.unique(torch.cat([idx[flipped].ravel(),
+                                            idx_cpu[flipped].ravel()]))
+            later = torch.arange(MOE_BLOCK_T) > int(flipped.nonzero()[0])
+            comparable &= ~(later & torch.isin(idx_cpu, moved).any(-1))
+        out_err = (got - want)[comparable].abs().max().item()
+        aux_err = abs(float(aux) - float(aux_cpu))
+        if not torch.allclose(got[comparable], want[comparable],
+                              rtol=MOE_OUT_TOL, atol=MOE_OUT_TOL):
+            fail(f"moe block: card vs CPU max abs err {out_err} (limit "
+                 f"{MOE_OUT_TOL}) at {int(comparable.sum())} tokens")
+        if aux_err > MOE_AUX_TOL:
+            fail(f"moe block: aux {float(aux)} vs {float(aux_cpu)} on the CPU")
+        cap = moe.capacity(MOE_BLOCK_T, mc)
+        dropped = int((moe.expert_counts(idx_cpu.reshape(-1), mc.n_routed) - cap)
+                      .clamp(min=0).sum())
+        print(f"moe block (T {MOE_BLOCK_T}, fp32, capacity {cap} slots, "
+              f"{dropped} of {MOE_BLOCK_T * mc.top_k} rows dropped): card vs "
+              f"CPU routes: {int(ties.sum())} near-ties (k-th vs (k+1)-th "
+              f"probability < {MOE_TIE}), {int(flipped.sum())} tokens routed "
+              f"differently, {int((~comparable).sum())} not compared; outputs "
+              f"max abs err {out_err:.3g} (limit {MOE_OUT_TOL}), aux "
+              f"{float(aux):.6g} vs {float(aux_cpu):.6g}, err {aux_err:.3g} "
+              f"(limit {MOE_AUX_TOL}) ({card})")
+        del got, want, bp_cpu
+
+        # the same block in bf16 (router fp32), timed as graph replays and
+        # eager; its least time reads every weight once and does the routed
+        # rows' products, the shared expert's and the router's
+        hcfg = dataclasses.replace(cfg, dtype="bfloat16")
+        hp = tree_map(lambda w, key: w if key == "router" else w.to(torch.bfloat16), bp)
+        xh = x.to(torch.bfloat16)
+        del bp, x
+        sizes = []
+        tree_map(lambda w, _: sizes.append(w.numel() * w.element_size()), hp)
+        w_bytes = sum(sizes)
+        shared_ff = mc.shared_ff or mc.expert_ff * mc.n_shared
+        flops = 2.0 * MOE_BLOCK_T * cfg.d_model * (
+            mc.n_routed + 3 * mc.top_k * mc.expert_ff + 3 * shared_ff + 1)
+        b_ms, b_by = bound(flops, w_bytes + 2 * xh.numel() * xh.element_size(),
+                           torch.bfloat16)
+        block = {"ms": graph_ms(lambda: moe.moe_apply(hp, xh, hcfg), calls=5),
+                 "eager_ms": time_ms(lambda: moe.moe_apply(hp, xh, hcfg)),
+                 "bound_ms": b_ms, "bound_by": b_by}
+        print(f"moe block bf16 (T {MOE_BLOCK_T}, capacity): " + " ".join(
+            f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in block.items()) + f" ({card})")
+        del hp, xh
+
+    # (d) the flash kernel at the MoE's attention: prefill (tc_bf16) and the
+    #     compiled decode's split_kv against a whole cache, bf16
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    for case, (sq, skv) in (("prefill", (prompt, prompt)),
+                            ("decode", (1, cap_len))):
+        fp = flash_attention.flash_launch_plan(
+            bh=batch * hq, sq=sq, skv=skv, d=hd, kv_group=hq // hkv,
+            dtype=torch.bfloat16, device_pos=case == "decode")
+        q = torch.randn(batch * hq, sq, hd, generator=gen).to(dev, torch.bfloat16)
+        k, v = (torch.randn(batch * hkv, skv, hd, generator=gen)
+                .to(dev, torch.bfloat16) for _ in range(2))
+        extra = ({"pos": torch.tensor([skv - 1, skv], dtype=torch.int32, device=dev)}
+                 if case == "decode" else {})
+        k, v = (torch.nn.functional.pad(
+            t, (0, 0, 0, fp.inputs[1].array_shape[1] - skv)).contiguous()
+            for t in (k, v))
+        if on_card and fp.body != ("split_kv" if case == "decode" else "tc_bf16"):
+            fail(f"flash at the MoE's attention, {case}: body {fp.body}")
+        call = fp.cuda if on_card else fp.plain
+        got, want = call(q, k, v, **extra), fp.plain(q, k, v, **extra)
+        err = (got.float() - want.float()).abs().max().item()
+        if not torch.allclose(got.float(), want.float(), rtol=FLASH_TOL["bfloat16"],
+                              atol=FLASH_TOL["bfloat16"]):
+            fail(f"flash at the MoE's attention, {case}: max abs err {err}")
+        q4 = q.view(batch, hq, sq, hd)
+        k4, v4 = (t[:, :skv].reshape(batch, hkv, skv, hd) for t in (k, v))
+        flops = 4.0 * batch * hq * sq * skv * hd / (2 if case == "prefill" else 1)
+        b_ms, b_by = bound(flops, 2 * (2 * q.numel() + k4.numel() + v4.numel()),
+                           torch.bfloat16)
+        row = {"body": fp.body, "max_abs_err": err,
+               "ms": graph_ms(lambda: call(q, k, v, **extra)),
+               "plain_ms": time_ms(lambda: fp.plain(q, k, v, **extra)),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": graph_ms(
+                   lambda: torch.nn.functional.scaled_dot_product_attention(
+                       q4, k4, v4, is_causal=case == "prefill")),
+               "launches": (counts["flash_attention/combine"] if case == "decode"
+                            else n_layers * n_batches)}
+        print(f"moe flash {case} bf16 (B {batch}, {hq}/{hkv} heads, d {hd}, "
+              f"Sq {sq}, Skv {skv}): " + " ".join(
+                  f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
+                  for k, v in row.items()) + f" ({card})")
+        del q, k, v, q4, k4, v4, got, want
     return counts
 
 
@@ -2063,7 +2511,14 @@ def main() -> None:
         image_ms)
     print(f"obs phase: {time.perf_counter() - t0:.1f} s, launches "
           f"{obs_launches}")
-    del sparams, prefill_c, decode_c
+    del sparams, prefill_c, decode_c, image_walk, gemm_in, gemm_out
+
+    # 4h. the mixture of experts: Qwen1.5-MoE-A2.7B served at full width,
+    #     its cache plumbing and one MoE block against the CPU
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    moe_launches = moe_on_card(torch, dev, smi, graph_ms, time_ms, bound)
+    print(f"moe phase: {time.perf_counter() - t0:.1f} s, launches {moe_launches}")
 
     # 5. result lines
     sources = {"psum_matmul/active": ("psum_matmul", "src/repro/kernels/psum_matmul.py:48"),
@@ -2111,6 +2566,9 @@ def main() -> None:
         "combine_launches": serve_counts["flash_attention/combine"],
         # phase 4g's launches: the traced eager prefill and decode steps
         "obs_launches": obs_launches["flash_attention"],
+        # phase 4h's launches: Qwen1.5-MoE-A2.7B served
+        "moe_launches": moe_launches["flash_attention"],
+        "moe_combine_launches": moe_launches["flash_attention/combine"],
         "max_abs_err": head["max_abs_err"], "ms": head["ms"],
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],

@@ -1,8 +1,8 @@
 """Architecture registry of the port + smoke reduction.
 
 ``ARCHS`` lists the archs whose modules the port has: the dense
-decoder-only ones. The reference's other archs are known by name and wait
-for the modules that ROADMAP A7 lists.
+decoder-only ones and the MoE decoder (qwen2-moe). The reference's other
+archs are known by name and wait for the modules that ROADMAP A7 lists.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ ARCHS: tuple[str, ...] = (
     "stablelm-12b",
     "granite-8b",
     "gemma-2b",
+    "qwen2-moe-a2.7b",
 )
 
 _MODULES = {
@@ -22,6 +23,7 @@ _MODULES = {
     "stablelm-12b": "stablelm_12b",
     "granite-8b": "granite_8b",
     "gemma-2b": "gemma_2b",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2p7b",
 }
 
 #: the reference's other archs, with what each waits for (ROADMAP A7)
@@ -29,9 +31,8 @@ _WAITING = {
     "mamba2-1.3b": "the SSM stack (ROADMAP A7: models/ssm.py)",
     "llama-3.2-vision-90b": "cross-attention and the vlm inputs (ROADMAP A7)",
     "seamless-m4t-large-v2": "the encoder and cross-attention (ROADMAP A7)",
-    "deepseek-v2-lite-16b": "MLA and MoE (ROADMAP A7)",
-    "qwen2-moe-a2.7b": "MoE with a grouped GEMM (ROADMAP A7: models/moe.py)",
-    "jamba-v0.1-52b": "the SSM stack and MoE (ROADMAP A7)",
+    "deepseek-v2-lite-16b": "MLA and leading dense layers (ROADMAP A7)",
+    "jamba-v0.1-52b": "the SSM stack (ROADMAP A7: models/ssm.py)",
 }
 
 

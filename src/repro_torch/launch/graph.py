@@ -32,7 +32,9 @@ caller that keeps them does not hold a buffer the next replay overwrites.
 
 On the CPU each call runs the step eagerly, with the same host checks: that
 is the device the caller asked for. A capture that fails raises; nothing
-falls back to eager execution on the card.
+falls back to eager execution on the card. A step whose config reads a
+tensor value on the host (MoE's ragged dispatch) is refused when it is
+compiled, on either device (`moe.check_capturable`).
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.kernels import launch
+from repro_torch.models.moe import check_capturable
 
 #: the caches' position as a host int, kept by the compiled steps
 HOST_POS = "host_pos"
@@ -98,6 +101,7 @@ class CompiledPrefill:
     compiled: see the module's docstring."""
 
     def __init__(self, step):
+        check_capturable(step.cfg)
         self.step = step
         self.caches: dict[int, dict] = {}       # batch size -> static cache
         self.graphs: dict[tuple, dict] = {}     # tokens' shape -> graph
@@ -149,6 +153,7 @@ class CompiledDecode:
     compiled: see the module's docstring."""
 
     def __init__(self, step):
+        check_capturable(step.cfg)
         self.step = step
         self.graphs: dict[tuple, dict] = {}     # token's shape -> graph
 

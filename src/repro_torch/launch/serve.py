@@ -9,7 +9,8 @@ compiled as the reference's ``serve.py`` jits them (`graph.compile_prefill`,
 `graph.compile_decode`): on the card each runs as one captured CUDA graph,
 replayed per call, and a request's first batch pays for the capture. Every
 attention layer of prefill and decode goes through the flash kernel
-(`ops.gqa_flash_attention`). The card is synchronised before each clock
+(`ops.gqa_flash_attention`). An MoE arch (``--arch qwen2-moe-a2.7b``) serves
+through its capacity dispatch, the config's default. The card is synchronised before each clock
 read; each interval is a `repro_torch.obs.Stopwatch`.
 """
 

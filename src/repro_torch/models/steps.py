@@ -1,7 +1,8 @@
-"""Step factories: prefill_step / decode_step for the dense stack, and the
+"""Step factories: prefill_step / decode_step for the port's stacks, and the
 greedy sampling loop. The factories return the plain step bodies, as the
-reference's do; `repro_torch.launch.graph` compiles them (captured CUDA
-graphs on the card), as the reference's callers wrap them in ``jax.jit``.
+reference's do, each carrying its config as ``step.cfg``;
+`repro_torch.launch.graph` compiles them (captured CUDA graphs on the card),
+as the reference's callers wrap them in ``jax.jit``.
 ``lm_loss`` and the train step wait for the training slice (ROADMAP A8)."""
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ def make_prefill_step(cfg: ArchConfig, max_len: int):
         logits, caches, _ = forward(params, cfg, tokens, caches=caches, start=0)
         return logits[:, -1], caches
 
+    prefill_step.cfg = cfg
     return prefill_step
 
 
@@ -37,6 +39,7 @@ def make_decode_step(cfg: ArchConfig):
         logits, caches, _ = forward(params, cfg, token, caches=caches)
         return logits[:, -1], caches
 
+    decode_step.cfg = cfg
     return decode_step
 
 

@@ -1,12 +1,14 @@
-"""Model assembly of the port: dense decoder-only LMs, whose period layout is
-made of ("attn", "dense") sublayers only.
+"""Model assembly of the port: decoder-only LMs whose period layout is made
+of ("attn", "dense") or ("attn", "moe") sublayers: the dense archs and the
+MoE decoder (qwen2-moe, `repro_torch.models.moe`).
 
 The reference stacks parameters over periods and runs the stack with
 ``jax.lax.scan``; the port keeps one params dict per layer and runs a Python
 loop over them. KV caches follow the same structure: one head-major (k, v)
 pair per layer plus the position ``pos``, a 0-d int32 tensor on the caches'
-device as in the reference, so that a step reads it only there. MoE, SSM, hybrid, vlm and audio archs, MLA
-and leading dense layers wait for later slices (ROADMAP A7).
+device as in the reference, so that a step reads it only there. SSM,
+hybrid, vlm and audio archs, MLA and leading dense layers wait for later
+slices (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -20,47 +22,59 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.launch import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 
 Params = dict[str, Any]
 
 
-def check_dense(cfg: ArchConfig) -> None:
-    """Raise `NotImplementedError` for anything outside the dense stack."""
+def check_ported(cfg: ArchConfig) -> None:
+    """Raise `NotImplementedError` for anything outside what the port runs:
+    decoder-only stacks of ("attn", "dense") or ("attn", "moe") sublayers."""
     missing = [what for what, on in (
-        (f"family {cfg.family!r}", cfg.family != "dense"),
-        ("a period layout other than ('attn', 'dense') sublayers",
-         any(tuple(sub) != ("attn", "dense") for sub in cfg.period_layout)),
-        ("MoE", cfg.moe is not None), ("MLA", cfg.mla is not None),
-        ("SSM", cfg.ssm is not None), ("an encoder", cfg.encoder is not None),
+        (f"family {cfg.family!r}", cfg.family not in ("dense", "moe")),
+        ("sublayers other than ('attn', 'dense') or ('attn', 'moe')",
+         any(tuple(sub) not in (("attn", "dense"), ("attn", "moe"))
+             for sub in cfg.period_layout)),
+        ("MLA", cfg.mla is not None), ("SSM", cfg.ssm is not None),
+        ("an encoder", cfg.encoder is not None),
         ("vision tokens", bool(cfg.n_vision_tokens)),
         ("leading dense layers", bool(cfg.first_dense_layers)))
         if on]
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense decoder-only LMs only; "
-            f"{', '.join(missing)} wait(s) for ROADMAP A7")
+            f"{cfg.name}: the port runs decoder-only stacks of attention with "
+            f"dense or MoE FFNs; {', '.join(missing)} wait(s) for ROADMAP A7")
 
 
-def _layer_init(gen, cfg: ArchConfig, device) -> Params:
+def _layer_init(gen, cfg: ArchConfig, ffn: str, device) -> Params:
     dt = L.dtype_of(cfg)
-    return {"norm1": L.norm_init(cfg.d_model, dt, device, cfg.norm),
-            "attn": L.attn_init(gen, cfg, device),
-            "norm2": L.norm_init(cfg.d_model, dt, device, cfg.norm),
-            "mlp": L.mlp_init(gen, cfg.d_model, cfg.d_ff, dt, device,
-                              gated=cfg.gated_mlp)}
+    p = {"norm1": L.norm_init(cfg.d_model, dt, device, cfg.norm),
+         "attn": L.attn_init(gen, cfg, device),
+         "norm2": L.norm_init(cfg.d_model, dt, device, cfg.norm)}
+    if ffn == "moe":
+        p["moe"] = M.moe_init(gen, cfg, device)
+    else:
+        p["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, dt, device,
+                              gated=cfg.gated_mlp)
+    return p
 
 
 def _layer_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
                  positions: torch.Tensor, cache: Params | None,
                  cache_pos: torch.Tensor | None, start: int | None
-                 ) -> tuple[torch.Tensor, Params | None]:
+                 ) -> tuple[torch.Tensor, Params | None, torch.Tensor | None]:
+    """One sublayer: attention, then the dense or MoE FFN. Returns (x,
+    cache, aux), aux the MoE's loss or None for a dense FFN."""
     h = L.norm_apply(p["norm1"], x, cfg.norm_eps)
     out, cache = L.attn_apply(p["attn"], h, cfg, positions=positions,
                               cache=cache, cache_pos=cache_pos, start=start)
     x = x + out
-    x = x + L.mlp_apply(p["mlp"], L.norm_apply(p["norm2"], x, cfg.norm_eps),
-                        cfg.act)
-    return x, cache
+    h = L.norm_apply(p["norm2"], x, cfg.norm_eps)
+    if "moe" in p:
+        out, aux = M.moe_apply(p["moe"], h, cfg)
+        return x + out, cache, aux
+    return x + L.mlp_apply(p["mlp"], h, cfg.act), cache, None
+
 
 
 # ----------------------------------------------------------------- full model
@@ -68,7 +82,7 @@ def init_lm(cfg: ArchConfig, *, seed: int = 0, device="cuda") -> Params:
     """Random weights from ``seed`` on ``device`` with the reference's
     distributions: fan-in normal / sqrt(d_in) for projections, normal * 0.02
     for the embedding, norms 1, biases 0. On the meta device only shapes."""
-    check_dense(cfg)
+    check_ported(cfg)
     device = resolve_device(device)
     gen = (None if device.type == "meta"
            else torch.Generator(device=device).manual_seed(seed))
@@ -77,7 +91,8 @@ def init_lm(cfg: ArchConfig, *, seed: int = 0, device="cuda") -> Params:
         "embed": {"w": L.normal(gen, (cfg.padded_vocab, cfg.d_model), 0.02,
                                 dt, device)},
         "final_norm": L.norm_init(cfg.d_model, dt, device, cfg.norm),
-        "layers": [_layer_init(gen, cfg, device) for _ in range(cfg.n_layers)],
+        "layers": [_layer_init(gen, cfg, ffn, device)
+                   for _ in range(cfg.n_periods) for _, ffn in cfg.period_layout],
     }
     if not cfg.tie_embed:
         p["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.padded_vocab, dt,
@@ -89,7 +104,7 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int, *,
                 device="cuda") -> Params:
     """``pos``, a 0-d int32 zero on ``device``, and one zeroed head-major
     (k, v) pair per layer (`layers.init_kv_cache`)."""
-    check_dense(cfg)
+    check_ported(cfg)
     device = resolve_device(device)
     return {"pos": torch.zeros((), dtype=torch.int32, device=device),
             "layers": [L.init_kv_cache(cfg, batch, max_len, device)
@@ -113,8 +128,8 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     device and nothing is read on the host. ``start`` is the position where
     the caller knows it on the host (a prefill into fresh caches: 0); the
     attention then takes it as an integer (`layers.attn_apply`). aux_loss
-    is 0 for the dense stack."""
-    check_dense(cfg)
+    is the MoE layers' losses summed in fp32 (0 for the dense stack)."""
+    check_ported(cfg)
     x = params["embed"]["w"][tokens]
     if cfg.embed_scale:
         x = x * embed_scale(cfg.d_model, x.dtype)
@@ -124,40 +139,46 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     if pos is not None:
         positions = pos + positions
     layer_caches = []
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, lp in enumerate(params["layers"]):
         c = caches["layers"][i] if caches is not None else None
-        x, c = _layer_apply(lp, x, cfg, positions=positions, cache=c,
-                            cache_pos=pos, start=start)
+        x, c, aux = _layer_apply(lp, x, cfg, positions=positions, cache=c,
+                                 cache_pos=pos, start=start)
         layer_caches.append(c)
+        if aux is not None:
+            aux_total = aux_total + aux
     new_caches = (None if caches is None
                   else {"pos": pos + s, "layers": layer_caches})
     x = L.norm_apply(params["final_norm"], x, cfg.norm_eps)
     head_w = (params["embed"]["w"].T if cfg.tie_embed
               else params["lm_head"]["w"])
     logits = x @ head_w
-    return logits, new_caches, torch.zeros((), dtype=torch.float32,
-                                           device=x.device)
+    return logits, new_caches, aux_total
 
 
 # ------------------------------------------------------------------- counting
 def count_params(cfg: ArchConfig, active_only: bool = False) -> int:
     """Parameters of `init_lm`'s tree, counted from shapes on the meta
-    device. The dense stack has no routed experts, so ``active_only`` counts
-    the same."""
-    leaves: list[torch.Tensor] = []
+    device. ``active_only`` counts a token's share of the routed experts,
+    top_k of n_routed, as the reference does."""
+    counts = {"total": 0, "routed": 0}
 
-    def walk(node) -> None:
+    def walk(node, routed: bool) -> None:
         if isinstance(node, torch.Tensor):
-            leaves.append(node)
+            counts["total"] += node.numel()
+            counts["routed"] += node.numel() if routed else 0
         elif isinstance(node, dict):
-            for value in node.values():
-                walk(value)
+            for key, value in node.items():
+                walk(value, routed or key == "routed")
         else:
             for value in node:
-                walk(value)
+                walk(value, routed)
 
-    walk(init_lm(cfg, device="meta"))
-    return sum(t.numel() for t in leaves)
+    walk(init_lm(cfg, device="meta"), False)
+    total = counts["total"]
+    if active_only and cfg.moe:
+        total -= round(counts["routed"] * (1 - cfg.moe.top_k / cfg.moe.n_routed))
+    return total
 
 
 # ------------------------------------------------------------ weight carrier
@@ -166,14 +187,15 @@ def params_from_jax(tree: Mapping[str, Any], cfg: ArchConfig,
     """The reference's ``init_lm`` tree, as nested dicts of numpy arrays,
     turned into `init_lm`'s structure: the leading ``n_periods`` axis of
     ``periods`` is unstacked into one params dict per layer, in the config's
-    dtype on ``device``."""
-    check_dense(cfg)
+    dtype on ``device``; the MoE router stays fp32, as the reference's is
+    (a router in bf16 would route differently)."""
+    check_ported(cfg)
     device = resolve_device(device)
-    dt = L.dtype_of(cfg)
 
-    def convert(node, index=None):
+    def convert(node, index=None, dt=L.dtype_of(cfg)):
         if isinstance(node, Mapping):
-            return {k: convert(v, index) for k, v in node.items()}
+            return {k: convert(v, index, torch.float32 if k == "router" else dt)
+                    for k, v in node.items()}
         a = np.array(node, dtype=np.float32)
         if index is not None:
             a = a[index]

@@ -10,7 +10,7 @@ and the device position it rests on), against the reference package.
   layout), against ``jax.jit`` of the reference's `make_prefill_step` and
   `make_decode_step` (tests/test_torch_models.py's tolerances).
 - A decode step reads no tensor value on the host: the CPU's proxy for
-  "capturable as a CUDA graph".
+  "capturable as a CUDA graph"; the MoE smoke config's included.
 - Decode past the capacity raises before anything is written.
 - The graph bookkeeping (warm-up, capture, replay, launch counts, static
   caches, foreign buffers) against a stub graph that re-runs the captured
@@ -135,7 +135,8 @@ def test_device_position_refusals():
 
 
 # ------------------------------------------------------- steps against JAX
-ARCHS = ("qwen2-1.5b", "gemma-2b")    # qkv bias; tied embedding x sqrt(d)
+# qkv bias; tied embedding x sqrt(d); MoE with capacity dispatch
+ARCHS = ("qwen2-1.5b", "gemma-2b", "qwen2-moe-a2.7b")
 PROMPT, MAX_LEN, DECODES = 7, 12, 4
 
 
@@ -209,7 +210,7 @@ def _no_host_reads():
 
 
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "gemma-2b", "granite-8b",
-                                  "stablelm-12b"])
+                                  "stablelm-12b", "qwen2-moe-a2.7b"])
 def test_decode_step_reads_nothing_on_the_host(arch):
     cfg = tconfigs.get_smoke(arch)
     params = ttf.init_lm(cfg, seed=1, device="cpu")
