@@ -152,6 +152,24 @@
       the card against the same function on the CPU (routes equal but at
       near-ties, which are counted; aux 1e-5, outputs 1e-3) and in bf16,
       timed, and the flash kernel at the MoE's attention beside SDPA.
+   i. multi-head latent attention: ``launch.serve`` serves DeepSeek-V2-Lite
+      at its published widths (27 layers: one dense of ff 10944 and 26 MoE
+      of 64 routed experts top-6 and 2 shared; MLA with kv_lora 512, 16
+      heads, q/k 192 and v 128 in prefill; bf16, seeded weights, capacity
+      dispatch) as (h) serves its model, each step a graph replay (the
+      replays counted): 27 ``flash_attention`` a prefill (the expanded
+      form; v padded to 192, the kernel at its built dim 256) and none in
+      decode (the absorbed form: ``chunked_attention``, the reference's
+      plain path, over the latent cache), every step of batch 0 equal to
+      the eager steps bit for bit; device busy, wall and idle share, the
+      MLA's and the MoE's parts, peak memory and the decode's bounds with
+      all experts and with the routed ones only. Then the cache plumbing
+      on the dense layer and one MoE layer (fp32, ragged, eager: an
+      expanded cuda_core prefill and absorbed decode steps against one
+      expanded forward, 1e-3), one full-width MLA block (prefill of 1024,
+      8 absorbed decode steps, fp32) on the card against the CPU (1e-3)
+      and in bf16, timed, and the flash kernel at MLA's prefill shapes
+      beside its plain version and SDPA.
    Every output is checked against a library reference (the served logits
    against the model with `ref.attention_ref` as its attention, and against
    one full forward of prompt plus generated tokens; the fp32 forward's
@@ -935,6 +953,129 @@ def obs_on_card(torch, dev, card: str, walk, gemm, lm: dict,
     return counts
 
 
+# shared by phases 4h and 4i
+def card_sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def device_ms(evt, total: bool = False) -> float:
+    """A profiler event's device ms (its own, or with its children's)."""
+    name = "device_time_total" if total else "self_device_time_total"
+    us = getattr(evt, name, None)
+    if us is None:
+        us = getattr(evt, name.replace("device", "cuda"), 0.0)
+    return us / 1e3
+
+
+def profiled_parts(torch, dev, fn, prefixes: tuple) -> dict:
+    """Device busy ms of one call of ``fn`` (kernel events: a profiler
+    range is not a kernel) and the device ms of each range whose name
+    starts with one of ``prefixes``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    card_sync(torch, dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        card_sync(torch, dev)
+    out = {"busy": 0.0}
+    for evt in prof.key_averages():
+        if evt.key.startswith(prefixes):
+            if evt.device_type != torch.autograd.DeviceType.CUDA:
+                out[evt.key] = device_ms(evt, total=True)
+        elif evt.device_type == torch.autograd.DeviceType.CUDA:
+            out["busy"] += device_ms(evt)
+    return out
+
+
+def scoped_parts(torch, module, parts: dict) -> list:
+    """Patches (not started) that put each function of ``module`` named in
+    ``parts`` in a profiler range of the label given there."""
+    from unittest import mock
+
+    patches = []
+    for fn_name, label in parts.items():
+        def run(*args, _fn=getattr(module, fn_name), _label=label, **kwargs):
+            with torch.profiler.record_function(_label):
+                return _fn(*args, **kwargs)
+        patches.append(mock.patch.object(module, fn_name, run))
+    return patches
+
+
+def recording_routes(moe, where: list, shape_of=None):
+    """A patch of `moe.route` as it stands (in its profiler range, where one
+    is patched in) that keeps each call's expert ids in ``where``."""
+    from unittest import mock
+
+    current = moe.route
+
+    def run(*args, **kwargs):
+        out = current(*args, **kwargs)
+        where.append(out[1] if shape_of is None else out[1].view(*shape_of, -1))
+        return out
+    return mock.patch.object(moe, "route", run)
+
+
+def tree_map(fn, tree, key=""):
+    """``fn(leaf, key)`` over nested dicts, key "router" under a router."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, k if k == "router" else key)
+                for k, v in tree.items()}
+    return fn(tree, key)
+
+
+def rel_err(torch, got, want, what: str) -> float:
+    """max |got - want| / max |want|; fails on another shape or a
+    non-finite value."""
+    got, want = got.float(), want.float()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        fail(f"{what}: shape {tuple(got.shape)} vs {tuple(want.shape)} or "
+             f"non-finite values")
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def served_equal_eager(torch, cfg, params, b0: dict, cap_len: int, what: str):
+    """Every step of batch 0 as `launch.serve` recorded it (graph replays)
+    against the eager step bodies teacher-forced with the served tokens,
+    bit for bit; fails otherwise. Returns the eager (prefill, decode)."""
+    from repro_torch.models import steps as model_steps
+
+    gen_len = b0["tokens"].shape[1]
+    prefill_e = model_steps.make_prefill_step(cfg, cap_len)
+    decode_e = model_steps.make_decode_step(cfg)
+    with torch.inference_mode():
+        logits, caches = prefill_e(params, {"tokens": b0["prompts"]})
+        eager = [logits]
+        for i in range(gen_len - 1):
+            logits, caches = decode_e(params, caches, b0["tokens"][:, i:i + 1])
+            eager.append(logits)
+        eager = torch.stack(eager, 1)
+        differ = [i for i in range(gen_len)
+                  if not torch.equal(b0["logits"][:, i], eager[:, i])]
+        if differ:
+            fail(f"{what} serve: steps {differ} of batch 0 differ from the "
+                 f"eager steps (max-abs-err/max-abs "
+                 f"{rel_err(torch, b0['logits'], eager, what):.3g})")
+        if not torch.equal(torch.argmax(eager, -1), b0["tokens"]):
+            fail(f"{what} serve: batch 0's tokens are not the eager steps' argmax")
+    print(f"{what} serve: batch 0's {gen_len} steps (prefill and {gen_len - 1} "
+          f"decodes, graph replays) equal the eager steps bit for bit")
+    return prefill_e, decode_e
+
+
+def median_wall_ms(torch, dev, fn, calls: int = 5) -> float:
+    """The median host wall of ``calls`` calls, the card synchronised
+    before and after each."""
+    walls = []
+    for _ in range(calls):
+        card_sync(torch, dev)
+        t0 = time.perf_counter()
+        fn()
+        card_sync(torch, dev)
+        walls.append(1e3 * (time.perf_counter() - t0))
+    return sorted(walls)[calls // 2]
+
+
 # 4h: the mixture of experts, Qwen1.5-MoE-A2.7B at its published widths
 MOE_ARCH = "qwen2-moe-a2.7b"
 MOE_SMOKE = False                    # True only in a CPU rehearsal
@@ -965,10 +1106,6 @@ def moe_on_card(torch, dev, card: str, graph_ms, time_ms, bound) -> dict:
     aux and outputs), then in bf16, timed. (d) The flash kernel at the
     MoE's attention, timed beside its plain version and SDPA. Returns the
     launch counts of (a)."""
-    from unittest import mock
-
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.configs import get_config, get_smoke
     from repro_torch.kernels import flash_attention, launch
     from repro_torch.launch import graph, serve
@@ -984,66 +1121,19 @@ def moe_on_card(torch, dev, card: str, graph_ms, time_ms, bound) -> dict:
     on_card = dev.type == "cuda"
 
     def sync():
-        if on_card:
-            torch.cuda.synchronize(dev)
-
-    def dev_ms(evt, total=False) -> float:
-        name = "device_time_total" if total else "self_device_time_total"
-        us = getattr(evt, name, None)
-        if us is None:
-            us = getattr(evt, name.replace("device", "cuda"), 0.0)
-        return us / 1e3
+        card_sync(torch, dev)
 
     def profiled(fn) -> dict:
-        """Device busy ms of one call (kernel events: a range of MOE_PARTS
-        is not a kernel) and each range's device ms."""
-        sync()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            sync()
-        out = {"busy": 0.0}
-        for evt in prof.key_averages():
-            if evt.key.startswith("moe/"):
-                if evt.device_type != torch.autograd.DeviceType.CUDA:
-                    out[evt.key] = dev_ms(evt, total=True)
-            elif evt.device_type == torch.autograd.DeviceType.CUDA:
-                out["busy"] += dev_ms(evt)
-        return out
+        return profiled_parts(torch, dev, fn, ("moe/",))
 
     def scoped():
-        """Patches that put each MoE part of `repro_torch.models.moe` in a
-        profiler range named in MOE_PARTS."""
-        patches = []
-        for fn_name, label in MOE_PARTS.items():
-            def run(*args, _fn=getattr(moe, fn_name), _label=label, **kwargs):
-                with torch.profiler.record_function(_label):
-                    return _fn(*args, **kwargs)
-            patches.append(mock.patch.object(moe, fn_name, run))
-        return patches
+        return scoped_parts(torch, moe, MOE_PARTS)
 
     def recording(where: list, shape_of=None):
-        """`moe.route` as it stands (in its profiler range, where one is
-        patched in), keeping each call's expert ids."""
-        current = moe.route
-
-        def run(*args, **kwargs):
-            out = current(*args, **kwargs)
-            where.append(out[1] if shape_of is None else out[1].view(*shape_of, -1))
-            return out
-        return mock.patch.object(moe, "route", run)
-
-    def tree_map(fn, tree, key=""):
-        if isinstance(tree, dict):
-            return {k: tree_map(fn, v, k if k == "router" else key)
-                    for k, v in tree.items()}
-        return fn(tree, key)
+        return recording_routes(moe, where, shape_of)
 
     def rel(got, want) -> float:
-        got, want = got.float(), want.float()
-        if got.shape != want.shape or not torch.isfinite(got).all():
-            fail(f"moe: shape {tuple(got.shape)} vs {tuple(want.shape)} or "
-                 f"non-finite values")
-        return ((got - want).abs().max() / want.abs().max()).item()
+        return rel_err(torch, got, want, "moe")
 
     # (a) serving, counted
     sync()
@@ -1074,29 +1164,10 @@ def moe_on_card(torch, dev, card: str, graph_ms, time_ms, bound) -> dict:
           f"active): launches {counts}; report {json.dumps(report)}; peak "
           f"memory {peak_gb:.3f} GB ({base_gb:.3f} GB before the phase) ({card})")
 
-    # every step of batch 0, served from graph replays, against the eager
-    # step bodies teacher-forced with the served tokens, bit for bit
     b0 = record["batches"][0]
     cap_len = prompt + gen_len
-    prefill_e = model_steps.make_prefill_step(cfg, cap_len)
-    decode_e = model_steps.make_decode_step(cfg)
-    with torch.inference_mode():
-        logits, caches = prefill_e(params, {"tokens": b0["prompts"]})
-        eager = [logits]
-        for i in range(gen_len - 1):
-            logits, caches = decode_e(params, caches, b0["tokens"][:, i:i + 1])
-            eager.append(logits)
-        eager = torch.stack(eager, 1)
-        differ = [i for i in range(gen_len)
-                  if not torch.equal(b0["logits"][:, i], eager[:, i])]
-        if differ:
-            fail(f"moe serve: steps {differ} of batch 0 differ from the eager "
-                 f"steps (max-abs-err/max-abs {rel(b0['logits'], eager):.3g})")
-        if not torch.equal(torch.argmax(eager, -1), b0["tokens"]):
-            fail("moe serve: batch 0's tokens are not the eager steps' argmax")
-        del caches, eager, logits
-    print(f"moe serve: batch 0's {gen_len} steps (prefill and {gen_len - 1} "
-          f"decodes, graph replays) equal the eager steps bit for bit")
+    prefill_e, decode_e = served_equal_eager(torch, cfg, params, b0, cap_len,
+                                             "moe")
 
     # a fresh compiled prefill and decode, counted one call at a time, and
     # where each step's device time goes
@@ -1126,14 +1197,7 @@ def moe_on_card(torch, dev, card: str, graph_ms, time_ms, bound) -> dict:
         for name, fn in (("prefill", lambda: prefill_c(params, {"tokens": b0["prompts"]})),
                          ("decode", lambda: decode_c(params, caches, tok))):
             rows[(name, "compiled")] = profiled(fn)
-            walls = []
-            for _ in range(5):
-                sync()
-                t0 = time.perf_counter()
-                fn()
-                sync()
-                walls.append(1e3 * (time.perf_counter() - t0))
-            rows[(name, "compiled")]["wall"] = sorted(walls)[2]
+            rows[(name, "compiled")]["wall"] = median_wall_ms(torch, dev, fn)
         # the eager steps, each MoE part in a profiler range; the experts
         # each decode layer routes to, for a grouped GEMM's bound
         routed: list = []
@@ -1365,6 +1429,418 @@ def moe_on_card(torch, dev, card: str, graph_ms, time_ms, bound) -> dict:
                   for k, v in row.items()) + f" ({card})")
         del q, k, v, q4, k4, v4, got, want
     return counts
+
+
+# 4i: multi-head latent attention, DeepSeek-V2-Lite at its published widths
+MLA_ARCH = "deepseek-v2-lite-16b"
+MLA_SMOKE = False                    # True only in a CPU rehearsal
+MLA_PLUMB = (1, 2, 128, 8)           # MoE periods, batch, tokens, decode steps
+MLA_BLOCK = (2, 1024, 8)             # batch, prefill tokens, decode steps
+MLA_BLOCK_TOL = 1e-3
+MLA_PARTS = {"_mla_expand": "mla/expand", "_mla_absorbed": "mla/absorbed"}
+
+
+def mla_on_card(torch, dev, card: str, graph_ms, time_ms, bound) -> dict:
+    """Phase 4i. (a) `launch.serve` serves DeepSeek-V2-Lite at full width
+    and depth in bf16 (27 layers: one dense, 26 MoE with capacity
+    dispatch), ``MOE_SERVE`` as in phase 4h: every step a graph replay (the
+    replays are counted), 27 `flash_attention` launches a prefill (MLA's
+    expanded form) and none in decode (the absorbed form runs
+    `chunked_attention`, the reference's plain path), every step of batch 0
+    equal to the eager steps bit for bit; then a fresh compiled prefill and
+    decode step, counted one call at a time and profiled: device busy,
+    wall, idle share, and from the eager steps the MLA's expansion, flash
+    call and absorbed attention and the MoE's parts; peak memory, the
+    decode's bytes bound with all experts and with the routed ones only,
+    and the prefill's operations bound. (b) The reference's cache-plumbing
+    check at full width on the dense layer and ``MLA_PLUMB[0]`` MoE layers,
+    fp32, ragged, eager: an expanded prefill (the flash kernel's cuda_core
+    body at built dim 256) and teacher-forced absorbed decode steps against
+    one expanded full forward. (c) One full-width MLA block, a prefill of
+    ``MLA_BLOCK[1]`` tokens and ``MLA_BLOCK[2]`` absorbed decode steps in
+    fp32, on the card against the CPU; then in bf16, timed. (d) The flash
+    kernel at MLA's prefill shapes (q/k 192, v 128 padded to 192) against
+    its plain version and SDPA. Returns the launch counts of (a) and the
+    row of (d)."""
+    from unittest import mock
+
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.kernels import flash_attention, launch, ops
+    from repro_torch.launch import graph, serve
+    from repro_torch.models import layers, moe
+    from repro_torch.models import steps as model_steps
+    from repro_torch.models.transformer import (count_params, forward,
+                                                init_caches, init_lm)
+
+    cfg = (get_smoke if MLA_SMOKE else get_config)(MLA_ARCH)
+    m, mc, n_layers = cfg.mla, cfg.moe, cfg.n_layers
+    requests, batch, prompt, gen_len = MOE_SERVE
+    n_batches = -(-requests // batch)
+    on_card = dev.type == "cuda"
+    dq = m.qk_nope + m.qk_rope
+
+    def sync():
+        card_sync(torch, dev)
+
+    def rel(got, want) -> float:
+        return rel_err(torch, got, want, "mla")
+
+    def scoped():
+        """Profiler ranges round the MLA's parts (the flash call as
+        "mla/flash": only MLA calls it in this model) and the MoE's."""
+        flash_run = ops.gqa_flash_attention
+
+        def flash(*args, **kwargs):
+            with torch.profiler.record_function("mla/flash"):
+                return flash_run(*args, **kwargs)
+        return (scoped_parts(torch, layers, MLA_PARTS)
+                + scoped_parts(torch, moe, MOE_PARTS)
+                + [mock.patch.object(ops, "gqa_flash_attention", flash)])
+
+    # (a) serving, counted, each step's graph replay counted too
+    sync()
+    base_gb = 0.0
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base_gb = torch.cuda.memory_allocated(dev) / 1e9
+    record: dict = {}
+    replays = []
+    replay = graph.CapturedStep.replay
+
+    def counted_replay(self):
+        replays.append(self)
+        return replay(self)
+
+    launch.reset_launches()
+    with mock.patch.object(graph.CapturedStep, "replay", counted_replay):
+        report = serve.main(["--arch", MLA_ARCH, *(["--smoke"] if MLA_SMOKE else []),
+                             "--requests", str(requests), "--batch", str(batch),
+                             "--prompt-len", str(prompt), "--gen-len", str(gen_len),
+                             "--device", dev.type], record=record)
+    sync()
+    counts = dict(launch.LAUNCHES)
+    expect = {"flash_attention": n_layers * n_batches}
+    if counts != expect:
+        fail(f"mla serve launched {counts}, expected {expect} ({n_layers} "
+             f"layers x {n_batches} prefills; the absorbed decode launches "
+             f"no flash kernel)")
+    if on_card and len(replays) != n_batches * gen_len:
+        fail(f"mla serve: {len(replays)} graph replays, expected "
+             f"{n_batches * gen_len} (a prefill and {gen_len - 1} decodes a batch)")
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9 if on_card else 0.0
+    params = record["params"]
+    n_params = count_params(cfg)
+    print(f"mla serve ({MLA_ARCH}, {n_layers} layers ({cfg.first_dense_layers} "
+          f"dense of ff {cfg.first_dense_ff}), d {cfg.d_model}, {cfg.n_heads} "
+          f"heads, MLA kv_lora {m.kv_lora} rope {m.qk_rope} nope {m.qk_nope} "
+          f"v {m.v_head}, {mc.n_routed} experts top-{mc.top_k} + "
+          f"{mc.n_shared} shared, {cfg.dtype}, {mc.impl}, {n_params} "
+          f"parameters, {count_params(cfg, active_only=True)} active): "
+          f"launches {counts}; {len(replays)} graph replays; report "
+          f"{json.dumps(report)}; peak memory {peak_gb:.3f} GB "
+          f"({base_gb:.3f} GB before the phase) ({card})")
+
+    b0 = record["batches"][0]
+    cap_len = prompt + gen_len
+    prefill_e, decode_e = served_equal_eager(torch, cfg, params, b0, cap_len,
+                                             "mla")
+
+    # a fresh compiled prefill and decode, counted one call at a time, and
+    # where each step's device time goes
+    prefill_c = graph.compile_prefill(model_steps.make_prefill_step(cfg, cap_len))
+    decode_c = graph.compile_decode(model_steps.make_decode_step(cfg))
+    tok = b0["tokens"][:, :1]
+    rows = {}
+    with torch.inference_mode():
+        launch.reset_launches()
+        _, caches = prefill_c(params, {"tokens": b0["prompts"]})
+        sync()
+        got = dict(launch.LAUNCHES)
+        if got != {"flash_attention": n_layers}:
+            fail(f"mla compiled prefill launched {got}, expected "
+                 f"{n_layers} flash_attention")
+        step_counts = []
+        for i in range(3):
+            launch.reset_launches()
+            _, caches = decode_c(params, caches, b0["tokens"][:, i:i + 1])
+            sync()
+            step_counts.append(dict(launch.LAUNCHES))
+        if any(step_counts):
+            fail(f"mla compiled decode steps launched {step_counts}, expected "
+                 f"none (no split_kv, no combine)")
+        for name, fn in (("prefill", lambda: prefill_c(params, {"tokens": b0["prompts"]})),
+                         ("decode", lambda: decode_c(params, caches, tok))):
+            rows[(name, "compiled")] = profiled_parts(torch, dev, fn, ("mla/",))
+            rows[(name, "compiled")]["wall"] = median_wall_ms(torch, dev, fn)
+        # the eager steps, each MLA and MoE part in a profiler range; the
+        # experts each decode layer routes to, for a grouped GEMM's bound
+        routed: list = []
+        eager_caches = {}
+        patches = scoped()
+        for patch in patches:
+            patch.start()
+        try:
+            rows[("prefill", "eager")] = profiled_parts(
+                torch, dev, lambda: eager_caches.update(
+                    c=prefill_e(params, {"tokens": b0["prompts"]})[1]),
+                ("mla/", "moe/"))
+            with recording_routes(moe, routed):
+                rows[("decode", "eager")] = profiled_parts(
+                    torch, dev, lambda: decode_e(params, eager_caches["c"], tok),
+                    ("mla/", "moe/"))
+        finally:
+            for patch in patches:
+                patch.stop()
+        touched = [int(torch.unique(idx).numel()) for idx in routed]
+        del caches, eager_caches
+    elem = params["lm_head"]["w"].element_size()
+    latent_bytes = n_layers * batch * cap_len * (m.kv_lora + m.qk_rope) * elem
+    unread = (cfg.padded_vocab - batch) * cfg.d_model * elem   # embedding rows
+    expert_bytes = 3 * cfg.d_model * mc.expert_ff * elem
+    weight_bytes = n_params * elem - unread
+    moe_layers = n_layers - cfg.first_dense_layers
+    grouped_bytes = weight_bytes - (moe_layers * mc.n_routed - sum(touched)) * expert_bytes
+    # prefill: the active parameters' products on every token, and the
+    # causal attention of the expanded form (q k^T 192 wide, p v 128)
+    attn_flops = (n_layers * 2.0 * batch * cfg.n_heads * prompt * prompt
+                  * (dq + m.v_head) / 2)
+    bounds = {
+        "decode": 1e3 * (weight_bytes + latent_bytes) / HBM_BYTES_PER_S,
+        "prefill": bound(2.0 * count_params(cfg, active_only=True) * batch * prompt
+                         + attn_flops, n_params * elem, torch.bfloat16)[0]}
+    grouped_ms = 1e3 * (grouped_bytes + latent_bytes) / HBM_BYTES_PER_S
+    print(f"mla step bounds (batch {batch}): decode {bounds['decode']:.3f} ms "
+          f"(bytes: {weight_bytes / 1e9:.3f} GB of weights, all "
+          f"{mc.n_routed} experts of {moe_layers} MoE layers, and "
+          f"{latent_bytes / 1e9:.4f} GB of latent cache, {cap_len} positions "
+          f"a layer, once); a grouped GEMM reading only the routed experts "
+          f"{grouped_ms:.3f} ms ({grouped_bytes / 1e9:.3f} GB of weights; "
+          f"experts routed a layer {touched}, mean "
+          f"{sum(touched) / max(1, len(touched)):.2f}); prefill "
+          f"{bounds['prefill']:.3f} ms (operations: active parameters and "
+          f"{attn_flops / 1e9:.1f} GFLOP of causal attention) ({card})")
+    for (name, mode), row in rows.items():
+        busy = max(row["busy"], 1e-9)
+        parts = ""
+        if mode == "eager":
+            mla = {"expansion einsum": row.get("mla/expand", 0.0),
+                   "flash call": row.get("mla/flash", 0.0),
+                   "absorbed attention": row.get("mla/absorbed", 0.0)}
+            ffn, apply = row.get("moe/ffn", 0.0), row.get("moe/apply", 0.0)
+            share = {"routing": row.get("moe/route", 0.0),
+                     "dispatch": row.get("moe/dispatch", 0.0),
+                     "expert products": row.get("moe/experts", 0.0),
+                     "combine": ffn - row.get("moe/dispatch", 0.0)
+                     - row.get("moe/experts", 0.0),
+                     "shared experts": apply - ffn - row.get("moe/route", 0.0)}
+            parts = ("; MLA " + ", ".join(f"{k} {v:.3f} ms ({v / busy:.3f})"
+                                          for k, v in mla.items())
+                     + f"; MoE {apply:.3f} ms ({apply / busy:.3f} of busy): "
+                     + ", ".join(f"{k} {v:.3f} ms ({v / busy:.3f})"
+                                 for k, v in share.items()))
+        wall = ""
+        if "wall" in row:
+            wall = (f", wall {row['wall']:.3f} ms (median of 5), idle share "
+                    f"{1 - row['busy'] / max(row['wall'], 1e-9):.3f}")
+        print(f"mla profile ({name}, {mode}, batch {batch}): device busy "
+              f"{row['busy']:.3f} ms (kernel events){wall}{parts}; bound "
+              f"{bounds[name]:.3f} ms ({card})")
+    del prefill_c, decode_c, record, b0, params
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (b) cache plumbing: the dense layer and the first MoE layers at full
+    #     width, fp32, ragged, eager; an expanded prefill and teacher-forced
+    #     absorbed decode steps against one expanded full forward
+    p_periods, p_batch, p_len, p_steps = MLA_PLUMB
+    pcfg = dataclasses.replace(cfg, n_periods=p_periods, dtype="float32",
+                               moe=dataclasses.replace(mc, impl="ragged"))
+    p_layers = pcfg.n_layers
+    n_pre = p_len - p_steps
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    toks = torch.randint(0, pcfg.vocab, (p_batch, p_len), generator=gen).to(dev)
+    pre_body = flash_attention.flash_launch_plan(
+        bh=p_batch * cfg.n_heads, sq=n_pre, skv=n_pre, d=dq,
+        dtype=torch.float32).body
+    if not MLA_SMOKE and pre_body != "cuda_core":
+        fail(f"mla plumbing: the fp32 prefill's flash plan takes {pre_body}")
+    with torch.inference_mode():
+        pparams = init_lm(pcfg, seed=3, device=dev)
+
+        def run(tokens, **kw):
+            launch.reset_launches()
+            out = forward(pparams, pcfg, tokens, **kw)
+            sync()
+            return out, dict(launch.LAUNCHES)
+
+        (full, _, _), full_counts = run(toks)
+        caches = init_caches(pcfg, p_batch, p_len, device=dev)
+        (pre, caches, _), pre_counts = run(toks[:, :n_pre], caches=caches, start=0)
+        errs = [rel(pre[:, -1], full[:, n_pre - 1])]
+        step_counts = []
+        for i in range(n_pre, p_len):
+            (lg, caches, _), c = run(toks[:, i:i + 1], caches=caches)
+            step_counts.append(c)
+            errs.append(rel(lg[:, 0], full[:, i]))
+        one_pass = {"flash_attention": p_layers,
+                    **({"flash_attention/pack": p_layers}
+                       if pre_body == "tc_3xtf32" else {})}
+        if full_counts != one_pass or pre_counts != one_pass:
+            fail(f"mla plumbing: forward launched {full_counts}, prefill "
+                 f"{pre_counts}, expected {one_pass} ({pre_body})")
+        if any(step_counts):
+            fail(f"mla plumbing: absorbed decode steps launched {step_counts}")
+        if max(errs) > MOE_PLUMB_TOL:
+            fail(f"mla plumbing: prefill + absorbed decode vs expanded full "
+                 f"forward max-abs-err/max-abs {max(errs)} (limit {MOE_PLUMB_TOL})")
+        print(f"mla plumbing ({p_layers} layers: {pcfg.first_dense_layers} dense "
+              f"+ {p_periods} MoE, full width, fp32, ragged, batch {p_batch}, "
+              f"prefill {n_pre} + {p_steps} absorbed decode steps): vs one "
+              f"expanded full forward, max-abs-err/max-abs {max(errs):.3g} "
+              f"(limit {MOE_PLUMB_TOL}), prefill {errs[0]:.3g}; flash body "
+              f"{pre_body}; launches: forward {full_counts}, prefill "
+              f"{pre_counts}, decode {step_counts[0]} a step ({card})")
+        del pparams, full, pre, caches, lg
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (c) one full-width MLA block in fp32: a prefill and absorbed decode
+    #     steps, the card against the CPU, same weights and inputs; then in
+    #     bf16, timed
+    bsz, t_pre, t_dec = MLA_BLOCK
+    t_all = t_pre + t_dec
+    bcfg = dataclasses.replace(cfg, dtype="float32")
+    cpu = torch.device("cpu")
+    block_body = flash_attention.flash_launch_plan(
+        bh=bsz * cfg.n_heads, sq=t_pre, skv=t_pre, d=dq, dtype=torch.float32).body
+
+    def block(p, x, where):
+        cache = layers.init_mla_cache(bcfg, bsz, t_all, where)
+        zero = torch.zeros((), dtype=torch.int32, device=where)
+        outs = [layers.mla_apply(p, x[:, :t_pre], bcfg,
+                                 positions=torch.arange(t_pre, device=where),
+                                 cache=cache, cache_pos=zero, start=0)[0]]
+        for i in range(t_pre, t_all):
+            pos = zero + i
+            outs.append(layers.mla_apply(
+                p, x[:, i:i + 1], bcfg, positions=pos + torch.arange(1, device=where),
+                cache=cache, cache_pos=pos)[0])
+        return torch.cat(outs, 1), cache[layers.MLA_CACHE]
+
+    with torch.inference_mode():
+        bp = layers.mla_init(torch.Generator(device=dev).manual_seed(11), bcfg, dev)
+        x = torch.randn(bsz, t_all, cfg.d_model, generator=gen).to(dev)
+        launch.reset_launches()
+        got, got_cache = block(bp, x, dev)
+        sync()
+        block_counts = dict(launch.LAUNCHES)
+        want, want_cache = block(tree_map(lambda w, _: w.to(cpu), bp), x.cpu(), cpu)
+        got, got_cache = got.cpu(), got_cache.cpu()
+        errs = {what: (a - b).abs().max().item()
+                for what, a, b in (("prefill", got[:, :t_pre], want[:, :t_pre]),
+                                   ("decode", got[:, t_pre:], want[:, t_pre:]),
+                                   ("cache", got_cache, want_cache))}
+        for a, b in ((got, want), (got_cache, want_cache)):
+            if not torch.allclose(a, b, rtol=MLA_BLOCK_TOL, atol=MLA_BLOCK_TOL):
+                fail(f"mla block: card vs CPU max abs err {errs} (limit "
+                     f"{MLA_BLOCK_TOL})")
+        if block_counts != {"flash_attention": 1, **(
+                {"flash_attention/pack": 1} if block_body == "tc_3xtf32" else {})}:
+            fail(f"mla block: launched {block_counts}, expected one flash "
+                 f"prefill ({block_body}) and no launch in decode")
+        print(f"mla block (batch {bsz}, prefill {t_pre} + {t_dec} absorbed "
+              f"decode steps, fp32, flash body {block_body}): card vs CPU max "
+              f"abs err " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+              + f" (limit {MLA_BLOCK_TOL}); launches {block_counts} ({card})")
+        del got, want, got_cache, want_cache
+
+        # the same block in bf16: a prefill into a fresh cache and an
+        # absorbed decode step at the cache's last position, timed
+        hcfg = dataclasses.replace(cfg, dtype="bfloat16")
+        hp = tree_map(lambda w, _: w.to(torch.bfloat16), bp)
+        xh = x.to(torch.bfloat16)
+        del bp, x
+        cache = layers.init_mla_cache(hcfg, bsz, t_all, dev)
+        buf = cache[layers.MLA_CACHE]
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
+        last = zero + (t_all - 1)
+        pre_pos = torch.arange(t_pre, device=dev)
+        last_pos = last + torch.arange(1, device=dev)
+        q_abs = torch.randn(bsz, cfg.n_heads, 1, m.kv_lora + m.qk_rope,
+                            generator=gen).to(dev, torch.bfloat16)
+        timed = {
+            "prefill_ms": graph_ms(lambda: layers.mla_apply(
+                hp, xh[:, :t_pre], hcfg, positions=pre_pos, cache=cache,
+                cache_pos=zero, start=0), calls=5),
+            "decode_ms": graph_ms(lambda: layers.mla_apply(
+                hp, xh[:, -1:], hcfg, positions=last_pos, cache=cache,
+                cache_pos=last)),
+            "chunked_attention_ms": graph_ms(lambda: layers.chunked_attention(
+                q_abs, buf[:, None], buf[:, None, :, :m.kv_lora], causal=True,
+                q_offset=last, kv_valid_len=last + 1, chunk=cfg.attn_chunk))}
+        print(f"mla block bf16 (batch {bsz}, cache {t_all}, graph replays): "
+              + " ".join(f"{k}={v:.4g}" for k, v in timed.items()) + f" ({card})")
+        del hp, xh, cache, buf, q_abs
+
+    # (d) the flash kernel at MLA's prefill shapes: q and k 192 wide, v 128
+    #     (padded to 192 by the wrapper), the kernel at its built dim 256
+    hq = cfg.n_heads
+    fp = flash_attention.flash_launch_plan(bh=batch * hq, sq=prompt, skv=prompt,
+                                           d=dq, dtype=torch.bfloat16)
+    if on_card and fp.body != "tc_bf16":
+        fail(f"flash at MLA's prefill: body {fp.body}")
+    q4, k4 = (torch.randn(batch, hq, prompt, dq, generator=gen)
+              .to(dev, torch.bfloat16) for _ in range(2))
+    v4 = torch.randn(batch, hq, prompt, m.v_head, generator=gen).to(dev, torch.bfloat16)
+    pad_q = fp.inputs[0].array_shape[1] - prompt
+    flat = [torch.nn.functional.pad(t.reshape(batch * hq, prompt, dq),
+                                    (0, 0, 0, pad_q)).contiguous()
+            for t in (q4, k4, torch.nn.functional.pad(v4, (0, dq - m.v_head)))]
+
+    # the kernel alone at its built dim, on operands padded beforehand: the
+    # wrapper's time less its three pad copies
+    d_run = flash_attention.built_head_dim(dq)
+    fp_run = flash_attention.flash_launch_plan(
+        bh=batch * hq, sq=prompt, skv=prompt, d=d_run, dtype=torch.bfloat16)
+    flat_run = [torch.nn.functional.pad(t, (0, d_run - dq)) for t in flat]
+    run_call = fp_run.cuda if on_card else fp_run.plain
+
+    def plain():
+        return fp.plain(*flat)[:, :prompt, :m.v_head].reshape(
+            batch, hq, prompt, m.v_head)
+
+    with torch.inference_mode():
+        launch.reset_launches()
+        got = ops.gqa_flash_attention(q4, k4, v4, causal=True)
+        sync()
+        if on_card and dict(launch.LAUNCHES) != {"flash_attention": 1}:
+            fail(f"flash at MLA's prefill launched {dict(launch.LAUNCHES)}")
+        want = plain()
+        err = (got.float() - want.float()).abs().max().item()
+        if got.shape != want.shape or not torch.allclose(
+                got.float(), want.float(), rtol=FLASH_TOL["bfloat16"],
+                atol=FLASH_TOL["bfloat16"]):
+            fail(f"flash at MLA's prefill: max abs err {err}")
+        flops = 2.0 * batch * hq * prompt * prompt * (dq + m.v_head) / 2
+        b_ms, b_by = bound(flops, 2 * (q4.numel() + k4.numel() + 2 * v4.numel()),
+                           torch.bfloat16)
+        row = {"body": fp.body, "built_head_dim": flash_attention.built_head_dim(dq),
+               "max_abs_err": err,
+               "ms": graph_ms(lambda: ops.gqa_flash_attention(q4, k4, v4, causal=True)),
+               "kernel_ms": graph_ms(lambda: run_call(*flat_run)),
+               "plain_ms": time_ms(plain),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": graph_ms(
+                   lambda: torch.nn.functional.scaled_dot_product_attention(
+                       q4, k4, v4, is_causal=True)),
+               "launches": counts["flash_attention"]}
+    print(f"mla flash prefill bf16 (B {batch}, {hq}/{hq} heads, q/k {dq}, v "
+          f"{m.v_head} padded to {dq}, Sq = Skv = {prompt}): " + " ".join(
+              f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
+              for k, v in row.items()) + f" ({card})")
+    del q4, k4, v4, flat, flat_run, got, want
+    return {"counts": counts, "flash": row}
 
 
 def kernel_name(mangled: str) -> str:
@@ -2520,6 +2996,14 @@ def main() -> None:
     moe_launches = moe_on_card(torch, dev, smi, graph_ms, time_ms, bound)
     print(f"moe phase: {time.perf_counter() - t0:.1f} s, launches {moe_launches}")
 
+    # 4i. multi-head latent attention: DeepSeek-V2-Lite served at full width
+    #     (4h's model and caches are freed with its frame), its cache
+    #     plumbing, one MLA block against the CPU, flash at MLA's prefill
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mla = mla_on_card(torch, dev, smi, graph_ms, time_ms, bound)
+    print(f"mla phase: {time.perf_counter() - t0:.1f} s, launches {mla['counts']}")
+
     # 5. result lines
     sources = {"psum_matmul/active": ("psum_matmul", "src/repro/kernels/psum_matmul.py:48"),
                "psum_matmul/passive": ("psum_matmul", "src/repro/kernels/psum_matmul.py:66"),
@@ -2569,6 +3053,10 @@ def main() -> None:
         # phase 4h's launches: Qwen1.5-MoE-A2.7B served
         "moe_launches": moe_launches["flash_attention"],
         "moe_combine_launches": moe_launches["flash_attention/combine"],
+        # phase 4i's launches: DeepSeek-V2-Lite served (MLA's prefill), and
+        # the kernel at MLA's prefill shapes
+        "mla_launches": mla["counts"]["flash_attention"],
+        "mla_prefill": mla["flash"],
         "max_abs_err": head["max_abs_err"], "ms": head["ms"],
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],

@@ -72,19 +72,29 @@ def gqa_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         q_offset: int | torch.Tensor = 0,
                         kv_valid_len: torch.Tensor | None = None,
                         bq: int = 128, bk: int = 128) -> torch.Tensor:
-    """q: (B, Hq, Sq, D); k/v: (B, Hkv, Skv, D) with Hq % Hkv == 0. Query
-    head h reads kv head h // (Hq / Hkv) inside the kernel (the reference
-    repeats the kv heads; the result is the same). ``q_offset`` and
-    ``kv_valid_len`` as in the reference's ``chunked_attention``: as 0-d
-    tensors on the device they are read there, and k and v (a head-major
-    cache, contiguous) reach the kernel as (B Hkv, Skv, D) views, with no
-    copy."""
+    """q: (B, Hq, Sq, D); k: (B, Hkv, Skv, D); v: (B, Hkv, Skv, Dv) with
+    Dv <= D and Hq % Hkv == 0. Query head h reads kv head h // (Hq / Hkv)
+    inside the kernel (the reference repeats the kv heads; the result is
+    the same). ``q_offset`` and ``kv_valid_len`` as in the reference's
+    ``chunked_attention``: as 0-d tensors on the device they are read
+    there, and k and v (a head-major cache, contiguous) reach the kernel as
+    (B Hkv, Skv, D) views, with no copy.
+
+    A v narrower than q and k (MLA's expanded form: D 192, Dv 128) is
+    zero-padded to D for the kernel, which takes v as wide as k, and the
+    output is sliced back to Dv: the zero columns of v only add zero
+    columns to the output, so the result is exact. Returns (B, Hq, Sq,
+    Dv)."""
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
-    if hq % hkv:
-        raise ValueError(f"gqa_flash_attention: {hq} q heads over {hkv} kv heads")
+    dv = v.shape[-1]
+    if hq % hkv or dv > d:
+        raise ValueError(f"gqa_flash_attention: {hq} q heads over {hkv} kv "
+                         f"heads, v {dv} wide for q and k of {d}")
+    if dv < d:
+        v = F.pad(v, (0, d - dv))
     out = _flash.flash_attention(
         q.reshape(b * hq, sq, d), k.reshape(b * hkv, skv, d),
         v.reshape(b * hkv, skv, d), causal=causal, q_offset=q_offset,
         kv_valid_len=kv_valid_len, bq=bq, bk=bk)
-    return out.reshape(b, hq, sq, d)
+    return out.reshape(b, hq, sq, d)[..., :dv]

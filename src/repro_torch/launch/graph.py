@@ -19,7 +19,9 @@ and every call copies its inputs into the static ones and replays.
 Caches. The compiled prefill owns one static cache per batch size, which
 each call zeroes and fills inside the graph and returns; a compiled decode
 captured on that cache serves every later request of the batch size, since
-the split_kv decode reads its position from device memory. A call on
+its attention reads the position from device memory (the split_kv decode,
+or MLA's absorbed `chunked_attention`). A layer's cache is a head-major
+(k, v) pair or an MLA latent buffer; `_cache_buffers` lists either. A call on
 buffers (cache or weights) other than the ones a graph was captured on
 raises: the graph would read the old ones. As with ``donate_argnums``, a
 returned cache is the caller's until the next call for the same batch size.
@@ -45,6 +47,7 @@ import torch
 
 from repro_torch.kernels import launch
 from repro_torch.models.moe import check_capturable
+from repro_torch.models.transformer import cache_capacity
 
 #: the caches' position as a host int, kept by the compiled steps
 HOST_POS = "host_pos"
@@ -87,7 +90,9 @@ class CapturedStep:
 
 
 def _cache_buffers(caches) -> list[torch.Tensor]:
-    return [caches["pos"], *(c[n] for c in caches["layers"] for n in ("k", "v"))]
+    """``pos`` and every tensor of each layer's cache, whatever its layout
+    ((k, v) or an MLA latent buffer), layer by layer in name order."""
+    return [caches["pos"], *(c[n] for c in caches["layers"] for n in sorted(c))]
 
 
 def _check_same(step: str, what: str, got: list, captured: list) -> None:
@@ -136,10 +141,8 @@ class CompiledPrefill:
         caches = self.caches[b]
 
         def run():
-            for c in caches["layers"]:
-                c["k"].zero_()
-                c["v"].zero_()
-            caches["pos"].zero_()
+            for buf in _cache_buffers(caches):
+                buf.zero_()
             logits, new = self.step(params, {"tokens": static}, caches)
             caches["pos"].copy_(new["pos"])
             return logits
@@ -162,7 +165,7 @@ class CompiledDecode:
         host = caches.get(HOST_POS)
         if host is None:            # caches no compiled step made: read once
             host = int(caches["pos"])
-        cap = caches["layers"][0]["k"].shape[2]
+        cap = cache_capacity(caches)
         if host + s > cap:
             raise ValueError(f"compiled decode: {s} token(s) at position "
                              f"{host} do not fit a cache of {cap}")

@@ -1,14 +1,16 @@
-"""Core layer library of the port, for dense attention and the MLP: dense
-projections, norms, rotary embeddings, causal GQA/MQA self-attention with a
-KV cache, and gated MLPs.
+"""Core layer library of the port: dense projections, norms, rotary
+embeddings, causal GQA/MQA self-attention with a KV cache, DeepSeek's
+multi-head latent attention (MLA) with its latent cache, and gated MLPs.
 
 Functional like the reference (``repro/models/layers.py``): ``*_init(...) ->
 params dict`` and ``*_apply(params, x, ...) -> y`` over plain dicts of
 tensors. Attention runs through `ops.gqa_flash_attention`: the flash kernel
 keeps the running (m, l, acc) partial sums on chip and never materialises
 S = QK^T, the schedule the reference's ``chunked_attention`` computes at the
-XLA level. MLA, cross-attention and ``chunked_attention`` itself wait for
-later slices (ROADMAP A7).
+XLA level. MLA's prefill (the expanded form) takes the same kernel; its
+absorbed decode, whose 576-wide keys are wider than the kernel is built
+for, runs `chunked_attention`, the plain counterpart of the reference's
+own plain-XLA path. Cross-attention waits for a later slice (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -104,6 +106,60 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     return torch.cat([rot, x[..., rd:]], -1) if rd < hd else rot
 
 
+# ----------------------------------------------------- chunked (online) attn
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool, q_offset: int | torch.Tensor = 0,
+                      kv_valid_len: int | torch.Tensor | None = None,
+                      chunk: int = 1024) -> torch.Tensor:
+    """Online-softmax attention over kv chunks, the reference's
+    ``chunked_attention`` in plain PyTorch. q: (B, Hq, Sq, D); k: (B, Hkv,
+    Skv, D); v: (B, Hkv, Skv, Dv), Hq % Hkv == 0 (GQA by logical grouping:
+    no kv head is repeated). Scores are q k^T / sqrt(D) in fp32; the
+    output is in q's dtype.
+
+    ``q_offset`` is the position of q[0] and keys at or past
+    ``kv_valid_len`` are masked (a cache's tail); either may be a 0-d
+    tensor on the device, which is compared there and never read on the
+    host, so that a CUDA graph can capture the call. The last chunk may be
+    shorter than ``chunk``: it is sliced, not padded, so a cache reaches
+    the loop with no copy. A masked key gets p = 0, and a row that has
+    seen no valid key yet keeps m = -inf without a NaN, as in the
+    reference."""
+    b, hq, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    dv = v.shape[-1]
+    g = hq // hkv
+    dev = q.device
+    qg = q.reshape(b, hkv, g, sq, d).float() / math.sqrt(d)
+    chunk = min(chunk, skv)
+    q_pos = q_offset + torch.arange(sq, device=dev)
+    acc = torch.zeros((b, hkv, g, sq, dv), dtype=torch.float32, device=dev)
+    m_run = torch.full((b, hkv, g, sq, 1), -math.inf, dtype=torch.float32,
+                       device=dev)
+    l_run = torch.zeros((b, hkv, g, sq, 1), dtype=torch.float32, device=dev)
+    for c0 in range(0, skv, chunk):
+        kb = k[:, :, c0:c0 + chunk].float()
+        vb = v[:, :, c0:c0 + chunk].float()
+        k_pos = c0 + torch.arange(kb.shape[2], device=dev)
+        mask = torch.ones((sq, kb.shape[2]), dtype=torch.bool, device=dev)
+        if causal:
+            mask = mask & (q_pos[:, None] >= k_pos[None, :])
+        if kv_valid_len is not None:
+            mask = mask & (k_pos[None, :] < kv_valid_len)
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kb)
+        s = torch.where(mask, s, -math.inf)
+        m_new = torch.maximum(m_run, s.amax(-1, keepdim=True))
+        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        p = torch.where(mask, torch.exp(s - m_safe), 0.0)
+        alpha = torch.exp(torch.clamp_max(m_run - m_safe, 0.0))
+        alpha = torch.where(torch.isfinite(m_run), alpha, 0.0)
+        l_run = l_run * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bhgqk,bhkd->bhgqd", p, vb)
+        m_run = m_new
+    out = acc / torch.clamp_min(l_run, 1e-30)
+    return out.reshape(b, hq, sq, dv).to(q.dtype)
+
+
 # ------------------------------------------------------------------ attention
 def attn_init(gen, cfg, device) -> Params:
     d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -177,6 +233,131 @@ def attn_apply(p: Params, x: torch.Tensor, cfg, *, positions: torch.Tensor,
                 q, cache["k"][:, :, :n], cache["v"][:, :, :n], causal=True,
                 q_offset=start)
     out = out.transpose(1, 2).reshape(b, s, hq * hd)
+    return dense(p["wo"], out), cache
+
+
+# ------------------------------------------------------------------------ MLA
+#: an MLA layer's cache: (B, max_len, kv_lora + qk_rope), the normalised
+#: latent in columns [:kv_lora] and the rotated shared key k_pe after them
+MLA_CACHE = "latent_pe"
+
+
+def mla_init(gen, cfg, device) -> Params:
+    """The reference's tree: ``wq`` (d, H (qk_nope + qk_rope)), ``wkv_a``
+    (d, kv_lora + qk_rope), the latent's rmsnorm ``kv_norm``, ``wkv_b``
+    (kv_lora, H (qk_nope + v_head)) and ``wo`` (H v_head, d)."""
+    m, d, h = cfg.mla, cfg.d_model, cfg.n_heads
+    dt = dtype_of(cfg)
+    return {
+        "wq": dense_init(gen, d, h * (m.qk_nope + m.qk_rope), dt, device),
+        "wkv_a": dense_init(gen, d, m.kv_lora + m.qk_rope, dt, device),
+        "kv_norm": norm_init(m.kv_lora, dt, device),
+        "wkv_b": dense_init(gen, m.kv_lora, h * (m.qk_nope + m.v_head), dt,
+                            device),
+        "wo": dense_init(gen, h * m.v_head, d, dt, device),
+    }
+
+
+def init_mla_cache(cfg, batch: int, max_len: int, device) -> Params:
+    """One zeroed buffer under `MLA_CACHE`, (B, max_len, kv_lora +
+    qk_rope): the latent in columns [:kv_lora], k_pe in the rest (the
+    reference keeps two arrays, ``latent`` and ``k_pe``). The absorbed
+    decode's keys are then the buffer itself and its values a view of it,
+    where concatenating two arrays would copy the whole cache every step."""
+    m = cfg.mla
+    return {MLA_CACHE: torch.zeros((batch, max_len, m.kv_lora + m.qk_rope),
+                                   dtype=dtype_of(cfg), device=device)}
+
+
+def _mla_expand(latent: torch.Tensor, k_pe: torch.Tensor, wkv_b: torch.Tensor,
+                m, dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """The expanded form's keys and values, head-major: k = [latent W_bk,
+    k_pe] (B, H, S, qk_nope + qk_rope), k_pe shared by the heads, and v =
+    latent W_bv (B, H, S, v_head). The product is in fp32 and cast to
+    ``dtype``, as the reference's is."""
+    kv = torch.einsum("bsl,lhe->bhse", latent.float(), wkv_b.float()).to(dtype)
+    b, h, skv, _ = kv.shape
+    k = torch.cat([kv[..., :m.qk_nope],
+                   k_pe[:, None].expand(b, h, skv, m.qk_rope)], -1)
+    return k, kv[..., m.qk_nope:]
+
+
+def _mla_absorbed(q_nope: torch.Tensor, q_pe: torch.Tensor, buf: torch.Tensor,
+                  wkv_b: torch.Tensor, m, *, q_offset, kv_valid_len, chunk: int,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """The absorbed decode: q_nope W_bk^T (fp32) and q_pe against the cache
+    as one kv head of kv_lora + qk_rope dims, the latent as its values,
+    through `chunked_attention`; the output expanded through W_bv in fp32.
+    `chunked_attention` scales by 1/sqrt(kv_lora + qk_rope); q is
+    pre-scaled to MLA's 1/sqrt(qk_nope + qk_rope). Returns (B, S, H v_head)
+    in ``dtype``."""
+    b, s, h, _ = q_nope.shape
+    w_bk, w_bv = wkv_b[..., :m.qk_nope], wkv_b[..., m.qk_nope:]
+    q_abs = torch.einsum("bshn,lhn->bshl", q_nope.float(), w_bk.float())
+    q_full = torch.cat([q_abs, q_pe.float()], -1) * (
+        math.sqrt(m.kv_lora + m.qk_rope) / math.sqrt(m.qk_nope + m.qk_rope))
+    out = chunked_attention(
+        q_full.transpose(1, 2).to(dtype), buf[:, None],
+        buf[:, None, :, :m.kv_lora], causal=True, q_offset=q_offset,
+        kv_valid_len=kv_valid_len, chunk=chunk)          # (B, H, S, kv_lora)
+    ctx = torch.einsum("bhsl,lhv->bshv", out.float(), w_bv.float())
+    return ctx.reshape(b, s, h * m.v_head).to(dtype)
+
+
+def mla_apply(p: Params, x: torch.Tensor, cfg, *, positions: torch.Tensor,
+              cache: Params | None = None,
+              cache_pos: torch.Tensor | None = None,
+              start: int | None = None) -> tuple[torch.Tensor, Params | None]:
+    """DeepSeek-V2 multi-head latent attention. x: (B, S, d); positions,
+    ``cache_pos`` and ``start`` as in `attn_apply`.
+
+    With a cache, this step's latent and k_pe are written at ``positions``
+    with one ``index_copy_`` into the layer's `MLA_CACHE` buffer. One token
+    with a cache takes the absorbed form (`_mla_absorbed`: per step
+    O(S kv_lora), no per-head key of the cache is made); anything else the
+    expanded form: keys and values of every head (`_mla_expand`) through
+    `ops.gqa_flash_attention`, q and k 192 wide and v 128 at full width, at
+    the scale 1/sqrt(qk_nope + qk_rope). With ``start`` known on the host
+    only keys [0, start + S) are expanded and attended with an integer
+    offset; else the whole cache, with the position on the device.
+    Returns (out, cache)."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    q = dense(p["wq"], x).reshape(b, s, h, m.qk_nope + m.qk_rope)
+    q_nope, q_pe = q[..., :m.qk_nope], q[..., m.qk_nope:]
+    q_pe = apply_rope(q_pe, positions, cfg.rope_theta)
+    kv_a = dense(p["wkv_a"], x)
+    latent = norm_apply(p["kv_norm"], kv_a[..., :m.kv_lora], cfg.norm_eps)
+    k_pe = apply_rope(kv_a[..., None, m.kv_lora:], positions,
+                      cfg.rope_theta)[..., 0, :]                  # (B, S, rope)
+    wkv_b = p["wkv_b"]["w"].reshape(m.kv_lora, h, m.qk_nope + m.v_head)
+    q_offset, valid = 0, None
+    if cache is None:
+        latent_all, k_pe_all = latent, k_pe
+    else:
+        buf = cache[MLA_CACHE]
+        cap = buf.shape[1]
+        if s > cap or (start is not None and not 0 <= start <= cap - s):
+            at = "" if start is None else f" at position {start}"
+            raise ValueError(f"mla_apply: {s} tokens{at} do not fit a "
+                             f"cache of {cap}")
+        buf.index_copy_(1, positions, torch.cat([latent, k_pe], -1))
+        if start is None:
+            q_offset, valid = cache_pos, cache_pos + s
+        else:
+            q_offset, buf = start, buf[:, :start + s]
+        if s == 1:
+            out = _mla_absorbed(q_nope, q_pe, buf, wkv_b, m, q_offset=q_offset,
+                                kv_valid_len=valid, chunk=cfg.attn_chunk,
+                                dtype=x.dtype)
+            return dense(p["wo"], out), cache
+        latent_all, k_pe_all = buf[..., :m.kv_lora], buf[..., m.kv_lora:]
+    k, v = _mla_expand(latent_all, k_pe_all, wkv_b, m, x.dtype)
+    out = ops.gqa_flash_attention(
+        torch.cat([q_nope, q_pe], -1).transpose(1, 2), k, v, causal=True,
+        q_offset=q_offset, kv_valid_len=valid)
+    out = out.transpose(1, 2).reshape(b, s, h * m.v_head)
     return dense(p["wo"], out), cache
 
 

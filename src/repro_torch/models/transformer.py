@@ -1,14 +1,19 @@
 """Model assembly of the port: decoder-only LMs whose period layout is made
-of ("attn", "dense") or ("attn", "moe") sublayers: the dense archs and the
-MoE decoder (qwen2-moe, `repro_torch.models.moe`).
+of ("attn", "dense") or ("attn", "moe") sublayers: the dense archs, the MoE
+decoder (qwen2-moe, `repro_torch.models.moe`) and DeepSeek-V2-Lite, whose
+attention is MLA (`layers.mla_apply`) and whose first layer is dense.
 
 The reference stacks parameters over periods and runs the stack with
-``jax.lax.scan``; the port keeps one params dict per layer and runs a Python
-loop over them. KV caches follow the same structure: one head-major (k, v)
-pair per layer plus the position ``pos``, a 0-d int32 tensor on the caches'
-device as in the reference, so that a step reads it only there. SSM,
-hybrid, vlm and audio archs, MLA and leading dense layers wait for later
-slices (ROADMAP A7).
+``jax.lax.scan``; the port keeps one params dict per layer in one flat list,
+``params["layers"]``, and runs a Python loop over it. The list holds the
+reference's ``first[i]`` (``first_dense_layers`` attention + dense-FFN
+sublayers, FFN width ``first_dense_ff``) first, then period n's
+``periods["sub{i}"]`` sliced at n, period by period. Caches follow the same
+order: one cache per layer, a head-major (k, v) pair or an MLA layer's
+latent buffer (`layers.init_mla_cache`), plus the position ``pos``, a 0-d
+int32 tensor on the caches' device as in the reference, so that a step
+reads it only there. SSM, hybrid, vlm and audio archs wait for later slices
+(ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -29,16 +34,16 @@ Params = dict[str, Any]
 
 def check_ported(cfg: ArchConfig) -> None:
     """Raise `NotImplementedError` for anything outside what the port runs:
-    decoder-only stacks of ("attn", "dense") or ("attn", "moe") sublayers."""
+    decoder-only stacks of ("attn", "dense") or ("attn", "moe") sublayers,
+    with GQA or MLA attention and leading dense layers."""
     missing = [what for what, on in (
         (f"family {cfg.family!r}", cfg.family not in ("dense", "moe")),
         ("sublayers other than ('attn', 'dense') or ('attn', 'moe')",
          any(tuple(sub) not in (("attn", "dense"), ("attn", "moe"))
              for sub in cfg.period_layout)),
-        ("MLA", cfg.mla is not None), ("SSM", cfg.ssm is not None),
+        ("SSM", cfg.ssm is not None),
         ("an encoder", cfg.encoder is not None),
-        ("vision tokens", bool(cfg.n_vision_tokens)),
-        ("leading dense layers", bool(cfg.first_dense_layers)))
+        ("vision tokens", bool(cfg.n_vision_tokens)))
         if on]
     if missing:
         raise NotImplementedError(
@@ -46,15 +51,18 @@ def check_ported(cfg: ArchConfig) -> None:
             f"dense or MoE FFNs; {', '.join(missing)} wait(s) for ROADMAP A7")
 
 
-def _layer_init(gen, cfg: ArchConfig, ffn: str, device) -> Params:
+def _layer_init(gen, cfg: ArchConfig, ffn: str, device,
+                d_ff: int | None = None) -> Params:
+    """One sublayer: MLA where the config has it, else GQA attention; the
+    dense FFN ``d_ff`` wide (the config's by default) or the MoE."""
     dt = L.dtype_of(cfg)
     p = {"norm1": L.norm_init(cfg.d_model, dt, device, cfg.norm),
-         "attn": L.attn_init(gen, cfg, device),
+         "attn": (L.mla_init if cfg.mla else L.attn_init)(gen, cfg, device),
          "norm2": L.norm_init(cfg.d_model, dt, device, cfg.norm)}
     if ffn == "moe":
         p["moe"] = M.moe_init(gen, cfg, device)
     else:
-        p["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, dt, device,
+        p["mlp"] = L.mlp_init(gen, cfg.d_model, d_ff or cfg.d_ff, dt, device,
                               gated=cfg.gated_mlp)
     return p
 
@@ -66,8 +74,9 @@ def _layer_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     """One sublayer: attention, then the dense or MoE FFN. Returns (x,
     cache, aux), aux the MoE's loss or None for a dense FFN."""
     h = L.norm_apply(p["norm1"], x, cfg.norm_eps)
-    out, cache = L.attn_apply(p["attn"], h, cfg, positions=positions,
-                              cache=cache, cache_pos=cache_pos, start=start)
+    apply = L.mla_apply if cfg.mla else L.attn_apply
+    out, cache = apply(p["attn"], h, cfg, positions=positions, cache=cache,
+                       cache_pos=cache_pos, start=start)
     x = x + out
     h = L.norm_apply(p["norm2"], x, cfg.norm_eps)
     if "moe" in p:
@@ -91,8 +100,10 @@ def init_lm(cfg: ArchConfig, *, seed: int = 0, device="cuda") -> Params:
         "embed": {"w": L.normal(gen, (cfg.padded_vocab, cfg.d_model), 0.02,
                                 dt, device)},
         "final_norm": L.norm_init(cfg.d_model, dt, device, cfg.norm),
-        "layers": [_layer_init(gen, cfg, ffn, device)
-                   for _ in range(cfg.n_periods) for _, ffn in cfg.period_layout],
+        "layers": [_layer_init(gen, cfg, "dense", device, cfg.first_dense_ff)
+                   for _ in range(cfg.first_dense_layers)]
+        + [_layer_init(gen, cfg, ffn, device)
+           for _ in range(cfg.n_periods) for _, ffn in cfg.period_layout],
     }
     if not cfg.tie_embed:
         p["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.padded_vocab, dt,
@@ -102,13 +113,24 @@ def init_lm(cfg: ArchConfig, *, seed: int = 0, device="cuda") -> Params:
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int, *,
                 device="cuda") -> Params:
-    """``pos``, a 0-d int32 zero on ``device``, and one zeroed head-major
-    (k, v) pair per layer (`layers.init_kv_cache`)."""
+    """``pos``, a 0-d int32 zero on ``device``, and one zeroed cache per
+    layer: a head-major (k, v) pair (`layers.init_kv_cache`) or, for MLA,
+    the latent buffer (`layers.init_mla_cache`)."""
     check_ported(cfg)
     device = resolve_device(device)
+    init = L.init_mla_cache if cfg.mla else L.init_kv_cache
     return {"pos": torch.zeros((), dtype=torch.int32, device=device),
-            "layers": [L.init_kv_cache(cfg, batch, max_len, device)
+            "layers": [init(cfg, batch, max_len, device)
                        for _ in range(cfg.n_layers)]}
+
+
+def cache_capacity(caches: Params) -> int:
+    """The positions a stack's caches hold, in either layout: axis 2 of a
+    head-major (B, Hkv, max_len, hd) key cache, axis 1 of an MLA latent
+    buffer (B, max_len, kv_lora + qk_rope)."""
+    layer = caches["layers"][0]
+    return (layer["k"].shape[2] if "k" in layer
+            else layer[L.MLA_CACHE].shape[1])
 
 
 @functools.cache
@@ -185,10 +207,11 @@ def count_params(cfg: ArchConfig, active_only: bool = False) -> int:
 def params_from_jax(tree: Mapping[str, Any], cfg: ArchConfig,
                     device="cuda") -> Params:
     """The reference's ``init_lm`` tree, as nested dicts of numpy arrays,
-    turned into `init_lm`'s structure: the leading ``n_periods`` axis of
-    ``periods`` is unstacked into one params dict per layer, in the config's
-    dtype on ``device``; the MoE router stays fp32, as the reference's is
-    (a router in bf16 would route differently)."""
+    turned into `init_lm`'s structure: ``first[i]`` in front, then the
+    leading ``n_periods`` axis of ``periods`` unstacked into one params dict
+    per layer, in the config's dtype on ``device`` (MLA's ``kv_norm`` scale
+    too, as the reference's is); the MoE router stays fp32, as the
+    reference's is (a router in bf16 would route differently)."""
     check_ported(cfg)
     device = resolve_device(device)
 
@@ -205,8 +228,9 @@ def params_from_jax(tree: Mapping[str, Any], cfg: ArchConfig,
     p: Params = {
         "embed": convert(tree["embed"]),
         "final_norm": convert(tree["final_norm"]),
-        "layers": [convert(tree["periods"][f"sub{i}"], n)
-                   for n in range(cfg.n_periods) for i in range(len(layout))],
+        "layers": [convert(first) for first in tree.get("first", ())]
+        + [convert(tree["periods"][f"sub{i}"], n)
+           for n in range(cfg.n_periods) for i in range(len(layout))],
     }
     if "lm_head" in tree:
         p["lm_head"] = convert(tree["lm_head"])

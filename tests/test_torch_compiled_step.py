@@ -36,6 +36,7 @@ from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import launch
 from repro_torch.kernels import ops as tops
 from repro_torch.launch import graph
+from repro_torch.models import layers as tlayers
 from repro_torch.models import steps as tsteps
 from repro_torch.models import transformer as ttf
 
@@ -135,8 +136,9 @@ def test_device_position_refusals():
 
 
 # ------------------------------------------------------- steps against JAX
-# qkv bias; tied embedding x sqrt(d); MoE with capacity dispatch
-ARCHS = ("qwen2-1.5b", "gemma-2b", "qwen2-moe-a2.7b")
+# qkv bias; tied embedding x sqrt(d); MoE with capacity dispatch; MLA, its
+# latent cache and a leading dense layer
+ARCHS = ("qwen2-1.5b", "gemma-2b", "qwen2-moe-a2.7b", "deepseek-v2-lite-16b")
 PROMPT, MAX_LEN, DECODES = 7, 12, 4
 
 
@@ -151,13 +153,24 @@ def _close(got, want, dtype, what):
 
 
 def _close_caches(tc, jc, dtype, what):
+    """The port's flat list of layer caches against the reference's
+    ``first`` list, then ``periods["sub0"]`` stacked over periods."""
     assert int(tc["pos"]) == int(jc["pos"]), what
-    for n, layer in enumerate(tc["layers"]):
-        for name in ("k", "v"):
+    jlayers = [c["self"] for c in jc.get("first", ())] + [
+        {k: v[n] for k, v in jc["periods"]["sub0"]["self"].items()}
+        for n in range(len(tc["layers"]) - len(jc.get("first", ())))]
+    for n, (layer, want) in enumerate(zip(tc["layers"], jlayers, strict=True)):
+        if tlayers.MLA_CACHE in layer:
+            # one (B, L, kv_lora + rope) buffer: the latent, then k_pe
+            buf = layer[tlayers.MLA_CACHE]
+            lora = want["latent"].shape[-1]
+            got = {"latent": buf[..., :lora], "k_pe": buf[..., lora:]}
+        else:
             # head-major (B, Hkv, L, hd) read as the reference's (B, L, Hkv, hd)
-            _close(layer[name].transpose(1, 2),
-                   jc["periods"]["sub0"]["self"][name][n], dtype,
-                   f"{what}: layer {n} {name}")
+            got = {name: layer[name].transpose(1, 2) for name in ("k", "v")}
+        assert set(got) == set(want), what
+        for name, t in got.items():
+            _close(t, want[name], dtype, f"{what}: layer {n} {name}")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -210,7 +223,8 @@ def _no_host_reads():
 
 
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "gemma-2b", "granite-8b",
-                                  "stablelm-12b", "qwen2-moe-a2.7b"])
+                                  "stablelm-12b", "qwen2-moe-a2.7b",
+                                  "deepseek-v2-lite-16b"])
 def test_decode_step_reads_nothing_on_the_host(arch):
     cfg = tconfigs.get_smoke(arch)
     params = ttf.init_lm(cfg, seed=1, device="cpu")

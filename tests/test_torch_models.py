@@ -137,7 +137,8 @@ def test_carrier_builds_init_lm_structure(pair):
     assert flat(own) == flat(pair["tparams"])
 
 
-@pytest.mark.parametrize("arch", ARCHS + ("qwen2-moe-a2.7b",))
+@pytest.mark.parametrize("arch", ARCHS + ("qwen2-moe-a2.7b",
+                                          "deepseek-v2-lite-16b"))
 def test_count_params_matches_jax_at_full_width(arch):
     assert ttf.count_params(tconfigs.get_config(arch)) \
         == jtf.count_params(jget_config(arch))
@@ -145,7 +146,8 @@ def test_count_params_matches_jax_at_full_width(arch):
         == jget_config(arch).param_count()
 
 
-@pytest.mark.parametrize("arch", ARCHS + ("qwen2-moe-a2.7b",))
+@pytest.mark.parametrize("arch", ARCHS + ("qwen2-moe-a2.7b",
+                                          "deepseek-v2-lite-16b"))
 def test_configs_are_the_reference_data(arch):
     assert dataclasses.asdict(tconfigs.get_config(arch)) \
         == dataclasses.asdict(jget_config(arch))
@@ -158,18 +160,26 @@ def test_configs_are_the_reference_data(arch):
                                   "llama-3.2-vision-90b",
                                   "seamless-m4t-large-v2"])
 def test_unported_archs_name_what_they_wait_for(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        tconfigs.get_config(arch)
+    """An arch the port has resolved to the reference's config; the others
+    raise, naming ROADMAP A7; an unknown name is a KeyError."""
+    if arch in tconfigs.ARCHS:
+        assert dataclasses.asdict(tconfigs.get_config(arch)) \
+            == dataclasses.asdict(jget_config(arch))
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+            tconfigs.get_config(arch)
     with pytest.raises(KeyError):
         tconfigs.get_config("no-such-arch")
 
 
-@pytest.mark.parametrize("change", [dict(mla=tconfigs.MlaCfg()),
-                                    dict(first_dense_layers=1),
-                                    dict(period_layout=(("mamba", "none"),))])
+@pytest.mark.parametrize("change", [
+    dict(encoder=tconfigs.EncoderCfg(n_layers=2, frontend_dim=48)),
+    dict(n_vision_tokens=16),
+    dict(period_layout=(("mamba", "none"),))])
 def test_non_dense_stacks_raise(change):
     """What the port does not run yet raises, naming its ROADMAP item; a
-    MoE stack runs (tests/test_torch_moe.py)."""
+    MoE stack (tests/test_torch_moe.py), MLA and leading dense layers
+    (tests/test_torch_mla.py) run."""
     cfg = dataclasses.replace(tconfigs.get_smoke("qwen2-1.5b"), **change)
     with pytest.raises(NotImplementedError,
                        match="decoder-only stacks of attention.*ROADMAP A7"):

@@ -1,5 +1,5 @@
 """The port's serving path on the CPU: `serve.main` at smoke size for the
-four dense archs and the MoE decoder, its served tokens against the port's greedy loop and the
+four dense archs, the MoE decoder and DeepSeek-V2-Lite (MLA), its served tokens against the port's greedy loop and the
 reference's, and entry points that refuse the card where there is none."""
 
 import dataclasses
@@ -25,7 +25,8 @@ ARGS = ["--smoke", "--device", "cpu", "--requests", "6", "--batch", "4",
 
 
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "gemma-2b", "granite-8b",
-                                  "stablelm-12b", "qwen2-moe-a2.7b"])
+                                  "stablelm-12b", "qwen2-moe-a2.7b",
+                                  "deepseek-v2-lite-16b"])
 def test_serve_reports_the_reference_keys(arch):
     report = serve.main(["--arch", arch, *ARGS])
     assert set(report) == REPORT_KEYS
