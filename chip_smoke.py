@@ -170,6 +170,28 @@
       8 absorbed decode steps, fp32) on the card against the CPU (1e-3)
       and in bf16, timed, and the flash kernel at MLA's prefill shapes
       beside its plain version and SDPA.
+   j. the Mamba-2 SSM stack: ``launch.serve`` serves Mamba2-1.3B at its
+      published widths and depth (48 mamba layers, d_model 2048, 64 heads of
+      64, d_state 128, chunk 256, no FFN, tied embedding) and Jamba-v0.1 at
+      its published widths **reduced to 2 of its 4 periods** (16 layers: 2
+      attention of 32/8 heads, 14 mamba of 128 heads, d_state 16; 8 MoE of
+      16 experts top-2 and 8 dense FFNs of 14336; 52.0 of 102.9 GB), bf16,
+      seeded weights, as (h) serves its model: each step a graph replay
+      (the replays counted), every step of batch 0 equal to the eager steps
+      bit for bit. Mamba2 launches no repo kernel (the SSD is plain
+      PyTorch, as the reference's is plain XLA); Jamba launches 2
+      ``flash_attention`` a prefill and 2 split_kv passes and 2 combines a
+      decode step. Device busy, wall and idle share of a fresh compiled
+      prefill and decode; the SSD's parts from the eager steps; peak
+      memory; the decode's bytes bound (Jamba's with every expert and with
+      the routed ones) and the prefill's operations bound. Then the cache
+      plumbing (fp32, eager: a prefill of 596 tokens over three chunks, the
+      last padded, and 4 recurrent steps against one forward, 1e-3) on
+      Mamba2's first 4 layers and Jamba's first 5 sublayers (through its
+      attention, MoE ragged), one full-width mamba block of each (prefill
+      1024 + 8 recurrent steps, fp32) on the card against the CPU (1e-4)
+      and in bf16, timed, and the flash kernel at Jamba's attention beside
+      its plain version and SDPA.
    Every output is checked against a library reference (the served logits
    against the model with `ref.attention_ref` as its attention, and against
    one full forward of prompt plus generated tokens; the fp32 forward's
@@ -1107,7 +1129,7 @@ def moe_on_card(torch, dev, card: str, graph_ms, time_ms, bound) -> dict:
     MoE's attention, timed beside its plain version and SDPA. Returns the
     launch counts of (a)."""
     from repro_torch.configs import get_config, get_smoke
-    from repro_torch.kernels import flash_attention, launch
+    from repro_torch.kernels import launch
     from repro_torch.launch import graph, serve
     from repro_torch.models import moe
     from repro_torch.models import steps as model_steps
@@ -1387,7 +1409,27 @@ def moe_on_card(torch, dev, card: str, graph_ms, time_ms, bound) -> dict:
 
     # (d) the flash kernel at the MoE's attention: prefill (tc_bf16) and the
     #     compiled decode's split_kv against a whole cache, bf16
+    flash_rows(torch, dev, card, "moe", cfg, (batch, prompt, cap_len),
+               {"prefill": n_layers * n_batches,
+                "decode": counts["flash_attention/combine"]},
+               gen, graph_ms, time_ms, bound)
+    return counts
+
+
+def flash_rows(torch, dev, card: str, what: str, cfg, shape: tuple,
+               launches: dict, gen, graph_ms, time_ms, bound) -> dict:
+    """The flash kernel at ``cfg``'s GQA attention in bf16, ``shape`` (batch,
+    prompt, cache length): the prefill (tc_bf16, Sq = Skv = prompt) and the
+    compiled decode's split_kv at a device position against the whole
+    cache, each against its plain version, timed beside SDPA (the kv heads
+    repeated to the q heads beforehand) and the card's bound. ``launches``
+    gives each case's count on the served path. Returns the two rows."""
+    from repro_torch.kernels import flash_attention
+
+    on_card = dev.type == "cuda"
+    batch, prompt, cap_len = shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    rows = {}
     for case, (sq, skv) in (("prefill", (prompt, prompt)),
                             ("decode", (1, cap_len))):
         fp = flash_attention.flash_launch_plan(
@@ -1402,33 +1444,34 @@ def moe_on_card(torch, dev, card: str, graph_ms, time_ms, bound) -> dict:
             t, (0, 0, 0, fp.inputs[1].array_shape[1] - skv)).contiguous()
             for t in (k, v))
         if on_card and fp.body != ("split_kv" if case == "decode" else "tc_bf16"):
-            fail(f"flash at the MoE's attention, {case}: body {fp.body}")
+            fail(f"flash at the {what} attention, {case}: body {fp.body}")
         call = fp.cuda if on_card else fp.plain
         got, want = call(q, k, v, **extra), fp.plain(q, k, v, **extra)
         err = (got.float() - want.float()).abs().max().item()
         if not torch.allclose(got.float(), want.float(), rtol=FLASH_TOL["bfloat16"],
                               atol=FLASH_TOL["bfloat16"]):
-            fail(f"flash at the MoE's attention, {case}: max abs err {err}")
+            fail(f"flash at the {what} attention, {case}: max abs err {err}")
         q4 = q.view(batch, hq, sq, hd)
         k4, v4 = (t[:, :skv].reshape(batch, hkv, skv, hd) for t in (k, v))
         flops = 4.0 * batch * hq * sq * skv * hd / (2 if case == "prefill" else 1)
         b_ms, b_by = bound(flops, 2 * (2 * q.numel() + k4.numel() + v4.numel()),
                            torch.bfloat16)
-        row = {"body": fp.body, "max_abs_err": err,
-               "ms": graph_ms(lambda: call(q, k, v, **extra)),
-               "plain_ms": time_ms(lambda: fp.plain(q, k, v, **extra)),
-               "bound_ms": b_ms, "bound_by": b_by,
-               "library_ms": graph_ms(
-                   lambda: torch.nn.functional.scaled_dot_product_attention(
-                       q4, k4, v4, is_causal=case == "prefill")),
-               "launches": (counts["flash_attention/combine"] if case == "decode"
-                            else n_layers * n_batches)}
-        print(f"moe flash {case} bf16 (B {batch}, {hq}/{hkv} heads, d {hd}, "
+        kr, vr = (t.repeat_interleave(hq // hkv, dim=1) for t in (k4, v4))
+        rows[case] = row = {
+            "body": fp.body, "max_abs_err": err,
+            "ms": graph_ms(lambda: call(q, k, v, **extra)),
+            "plain_ms": time_ms(lambda: fp.plain(q, k, v, **extra)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": graph_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q4, kr, vr, is_causal=case == "prefill")),
+            "launches": launches[case]}
+        print(f"{what} flash {case} bf16 (B {batch}, {hq}/{hkv} heads, d {hd}, "
               f"Sq {sq}, Skv {skv}): " + " ".join(
                   f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
                   for k, v in row.items()) + f" ({card})")
-        del q, k, v, q4, k4, v4, got, want
-    return counts
+        del q, k, v, q4, k4, v4, kr, vr, got, want
+    return rows
 
 
 # 4i: multi-head latent attention, DeepSeek-V2-Lite at its published widths
@@ -1841,6 +1884,423 @@ def mla_on_card(torch, dev, card: str, graph_ms, time_ms, bound) -> dict:
               for k, v in row.items()) + f" ({card})")
     del q4, k4, v4, flat, flat_run, got, want
     return {"counts": counts, "flash": row}
+
+
+# 4j: the Mamba-2 SSM stack: Mamba2-1.3B at its published widths and depth,
+#     Jamba-v0.1 at its published widths, reduced to 2 of its 4 periods
+SSM_ARCHS = ("mamba2-1.3b", "jamba-v0.1-52b")
+SSM_SMOKE = False                    # True only in a CPU rehearsal
+JAMBA_PERIODS = 2                    # of 4: 52.0 of 102.9 GB of bf16 weights
+SSM_PLUMB = (2, 600, 4)              # batch, tokens, decode steps
+SSM_PLUMB_CUT = {"mamba2-1.3b": 4, "jamba-v0.1-52b": 5}    # layers kept
+SSM_BLOCK = (2, 1024, 8)             # batch, prefill tokens, decode steps
+SSM_BLOCK_TOL = 1e-4
+SSM_PARTS = {"_project_in": "ssm/proj", "_project_out": "ssm/proj",
+             "_causal_conv": "ssm/conv", "_conv_step": "ssm/conv",
+             "_in_chunk": "ssm/in_chunk", "_chunk_states": "ssm/states",
+             "_chunk_scan": "ssm/chunk_loop", "_off_chunk": "ssm/y_off",
+             "_gated_norm": "ssm/gated_norm", "_recurrent_step": "ssm/recurrent",
+             "mamba_apply": "ssm/mamba"}
+
+
+def ssm_config(name: str):
+    """The config phase 4j runs: the published one (the smoke one in a CPU
+    rehearsal), Jamba cut to ``JAMBA_PERIODS`` periods."""
+    from repro_torch.configs import get_config, get_smoke
+
+    cfg = (get_smoke if SSM_SMOKE else get_config)(name)
+    if name == "jamba-v0.1-52b":
+        cfg = dataclasses.replace(cfg, n_periods=min(cfg.n_periods, JAMBA_PERIODS))
+    return cfg
+
+
+def ssd_flops(cfg, batch: int, s: int) -> tuple[float, float]:
+    """One mamba layer's chunked-SSD products on (batch, s) tokens, as the
+    reference computes them (full L x L chunks): (the C B^T scores, in the
+    config's dtype; the in-chunk output, the chunk states and y_off, in
+    fp32 by promotion)."""
+    sc = cfg.ssm
+    h = sc.expand * cfg.d_model // sc.head_dim
+    lc = min(sc.chunk, s)
+    c = -(-s // lc)
+    scores = 2.0 * batch * c * sc.n_groups * lc * lc * sc.d_state
+    fp32 = 2.0 * batch * c * h * lc * (lc * sc.head_dim
+                                       + 2 * sc.head_dim * sc.d_state)
+    return scores, fp32
+
+
+def ssm_on_card(torch, dev, card: str, graph_ms, time_ms, bound) -> dict:
+    """Phase 4j. (a) `launch.serve` serves Mamba2-1.3B at full width and
+    depth (48 mamba layers, no FFN, tied embedding) and (b) Jamba-v0.1 at
+    full width, reduced to ``JAMBA_PERIODS`` periods (16 layers: 2
+    attention, 14 mamba, 8 MoE of 16 experts top-2, 8 dense FFNs), both in
+    bf16, ``MOE_SERVE`` as in phase 4h: every step a graph replay (the
+    replays counted) and every step of batch 0 equal to the eager steps bit
+    for bit. Mamba2 launches no repo kernel; Jamba launches the flash kernel
+    in its 2 attention layers, tc_bf16 in prefill, split_kv and its combine
+    in decode. A fresh compiled prefill and decode step, counted one call at
+    a time and profiled (device busy, wall, idle share), and from the eager
+    steps the SSD's parts (projections, conv, in-chunk, states, chunk loop,
+    y_off, gated norm, the recurrent update) and Jamba's MoE; peak memory;
+    the decode's bytes bound (Jamba's with every expert read and with the
+    routed ones only) and the prefill's operations bound. (c) The
+    reference's cache-plumbing check, fp32, eager: a prefill of S - 4
+    tokens and 4 teacher-forced decode steps against one full forward, on
+    Mamba2's first 4 layers and Jamba's first 5 sublayers (through its
+    attention; MoE ragged). (d) One full-width mamba block of each arch, a
+    prefill of ``SSM_BLOCK[1]`` tokens and ``SSM_BLOCK[2]`` recurrent steps
+    in fp32, on the card against the CPU; then in bf16, timed. (e) The
+    flash kernel at Jamba's attention (32 q heads over 8 kv heads, d 128).
+    Returns each arch's launch counts and the rows of (e)."""
+    from unittest import mock
+
+    from repro_torch.launch import graph, serve
+    from repro_torch.kernels import flash_attention, launch
+    from repro_torch.models import moe, ssm
+    from repro_torch.models import steps as model_steps
+    from repro_torch.models.transformer import (count_params, forward,
+                                                init_caches, init_lm,
+                                                layer_kinds)
+
+    requests, batch, prompt, gen_len = MOE_SERVE
+    n_batches = -(-requests // batch)
+    cap_len = prompt + gen_len
+    on_card = dev.type == "cuda"
+    gen = torch.Generator(device="cpu").manual_seed(13)
+
+    def sync():
+        card_sync(torch, dev)
+
+    def rel(got, want, what) -> float:
+        return rel_err(torch, got, want, what)
+
+    def attn_launches(n_attn: int, prefills: int, decodes: int) -> dict:
+        out = {"flash_attention": n_attn * (prefills + decodes),
+               "flash_attention/combine": n_attn * decodes}
+        return {k: v for k, v in out.items() if v}
+
+    # (a), (b) serving, counted, each step's graph replay counted too
+    served = {}
+    for name in SSM_ARCHS:
+        cfg = ssm_config(name)
+        kinds = layer_kinds(cfg)
+        n_attn = sum(mixer == "attn" for mixer, _ in kinds)
+        n_mamba = len(kinds) - n_attn
+        sync()
+        base_gb = 0.0
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base_gb = torch.cuda.memory_allocated(dev) / 1e9
+        record: dict = {}
+        replays = []
+        replay = graph.CapturedStep.replay
+
+        def counted_replay(self, _replay=replay, _replays=replays):
+            _replays.append(self)
+            return _replay(self)
+
+        launch.reset_launches()
+        with mock.patch.object(graph.CapturedStep, "replay", counted_replay), \
+                mock.patch.object(serve, "get_config", ssm_config), \
+                mock.patch.object(serve, "get_smoke", ssm_config):
+            report = serve.main(["--arch", name, "--requests", str(requests),
+                                 "--batch", str(batch), "--prompt-len", str(prompt),
+                                 "--gen-len", str(gen_len), "--device", dev.type],
+                                record=record)
+        sync()
+        counts = dict(launch.LAUNCHES)
+        expect = attn_launches(n_attn, n_batches, n_batches * (gen_len - 1))
+        if counts != expect:
+            fail(f"ssm serve {name}: launched {counts}, expected {expect} "
+                 f"({n_attn} attention layers, {n_batches} prefills)")
+        if on_card and len(replays) != n_batches * gen_len:
+            fail(f"ssm serve {name}: {len(replays)} graph replays, expected "
+                 f"{n_batches * gen_len} (a prefill and {gen_len - 1} decodes a batch)")
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9 if on_card else 0.0
+        params = record["params"]
+        n_params = count_params(cfg)
+        sc, mc = cfg.ssm, cfg.moe
+        reduced = ("" if name != "jamba-v0.1-52b" else
+                   f", reduced to {cfg.n_periods} of 4 periods")
+        print(f"ssm serve ({name}, {len(kinds)} layers{reduced}: {n_mamba} "
+              f"mamba (d_state {sc.d_state}, head_dim {sc.head_dim}, expand "
+              f"{sc.expand}, chunk {sc.chunk}), {n_attn} attention"
+              + (f" ({cfg.n_heads}/{cfg.n_kv_heads} heads)" if n_attn else "")
+              + (f", {sum(f == 'moe' for _, f in kinds)} MoE of {mc.n_routed} "
+                 f"experts top-{mc.top_k} ({mc.impl})" if mc else "")
+              + f", d {cfg.d_model}, {cfg.dtype}, {n_params} parameters, "
+              f"{count_params(cfg, active_only=True)} active): launches "
+              f"{counts}" + ("" if n_attn else " (no repo kernel: the SSD is "
+                             "plain PyTorch, as the reference's is plain XLA)")
+              + f"; {len(replays)} graph replays; report {json.dumps(report)}; "
+              f"peak memory {peak_gb:.3f} GB ({base_gb:.3f} GB before) ({card})")
+
+        b0 = record["batches"][0]
+        prefill_e, decode_e = served_equal_eager(torch, cfg, params, b0, cap_len,
+                                                 name)
+
+        # a fresh compiled prefill and decode, counted one call at a time,
+        # and where each step's device time goes
+        prefill_c = graph.compile_prefill(model_steps.make_prefill_step(cfg, cap_len))
+        decode_c = graph.compile_decode(model_steps.make_decode_step(cfg))
+        tok = b0["tokens"][:, :1]
+        rows = {}
+        with torch.inference_mode():
+            launch.reset_launches()
+            _, caches = prefill_c(params, {"tokens": b0["prompts"]})
+            sync()
+            got = dict(launch.LAUNCHES)
+            if got != attn_launches(n_attn, 1, 0):
+                fail(f"ssm {name} compiled prefill launched {got}")
+            step_counts = []
+            for i in range(3):
+                launch.reset_launches()
+                _, caches = decode_c(params, caches, b0["tokens"][:, i:i + 1])
+                sync()
+                step_counts.append(dict(launch.LAUNCHES))
+            if any(c != attn_launches(n_attn, 0, 1) for c in step_counts):
+                fail(f"ssm {name} compiled decode steps launched {step_counts}")
+            for step, fn in (("prefill", lambda: prefill_c(params, {"tokens": b0["prompts"]})),
+                             ("decode", lambda: decode_c(params, caches, tok))):
+                rows[(step, "compiled")] = profiled_parts(torch, dev, fn, ("ssm/",))
+                rows[(step, "compiled")]["wall"] = median_wall_ms(torch, dev, fn)
+            routed: list = []
+            eager_caches = {}
+            patches = (scoped_parts(torch, ssm, SSM_PARTS)
+                       + scoped_parts(torch, moe, MOE_PARTS))
+            for patch in patches:
+                patch.start()
+            try:
+                rows[("prefill", "eager")] = profiled_parts(
+                    torch, dev, lambda: eager_caches.update(
+                        c=prefill_e(params, {"tokens": b0["prompts"]})[1]),
+                    ("ssm/", "moe/"))
+                with recording_routes(moe, routed):
+                    rows[("decode", "eager")] = profiled_parts(
+                        torch, dev, lambda: decode_e(params, eager_caches["c"], tok),
+                        ("ssm/", "moe/"))
+            finally:
+                for patch in patches:
+                    patch.stop()
+            touched = [int(torch.unique(idx).numel()) for idx in routed]
+            del caches, eager_caches
+
+        # the bounds: decode reads every weight once (not the embedding's
+        # unread rows where it is not tied), every mamba layer's state and
+        # conv window in and out, and every attention layer's kv cache;
+        # prefill does the active parameters' products, the SSD's and the
+        # attention's
+        elem = params["embed"]["w"].element_size()
+        table = cfg.padded_vocab * cfg.d_model
+        weight_bytes = n_params * elem - (0 if cfg.tie_embed
+                                          else (table - batch * cfg.d_model) * elem)
+        state = init_caches(cfg, batch, cap_len, device="meta")
+        state_bytes = sum(t.numel() * t.element_size() * (2 if mixer == "mamba" else 1)
+                          for (mixer, _), c in zip(kinds, state["layers"])
+                          for t in c.values())
+        scores, ssd32 = ssd_flops(cfg, batch, prompt)
+        f_bf16 = (2.0 * (count_params(cfg, active_only=True)
+                         - (0 if cfg.tie_embed else table)) * batch * prompt
+                  + n_mamba * scores
+                  + n_attn * 2.0 * batch * cfg.n_heads * prompt * prompt * cfg.hd)
+        t_ops = (bound(f_bf16, 0, torch.bfloat16)[0]
+                 + bound(n_mamba * ssd32, 0, torch.float32)[0])
+        bounds = {"decode": 1e3 * (weight_bytes + state_bytes) / HBM_BYTES_PER_S,
+                  "prefill": max(t_ops, 1e3 * n_params * elem / HBM_BYTES_PER_S)}
+        grouped = ""
+        if mc:
+            expert_bytes = 3 * cfg.d_model * mc.expert_ff * elem
+            n_moe = sum(f == "moe" for _, f in kinds)
+            grouped_bytes = weight_bytes - (n_moe * mc.n_routed - sum(touched)) * expert_bytes
+            grouped = (f"; a grouped GEMM reading only the routed experts "
+                       f"{1e3 * (grouped_bytes + state_bytes) / HBM_BYTES_PER_S:.3f} ms "
+                       f"({grouped_bytes / 1e9:.3f} GB of weights; experts routed "
+                       f"a layer {touched}, mean {sum(touched) / max(1, len(touched)):.2f})")
+        print(f"ssm step bounds ({name}, batch {batch}): decode "
+              f"{bounds['decode']:.3f} ms (bytes: {weight_bytes / 1e9:.3f} GB of "
+              f"weights" + (f", all {mc.n_routed} experts of every MoE layer" if mc else "")
+              + f", {state_bytes / 1e9:.4f} GB of state: SSM state and conv "
+              f"window in and out" + (", kv cache in" if n_attn else "")
+              + f"){grouped}; prefill {bounds['prefill']:.3f} ms (operations: "
+              f"{f_bf16 / 1e9:.1f} GFLOP bf16 (active parameters"
+              + (", causal attention" if n_attn else "")
+              + f", C B^T) and {n_mamba * ssd32 / 1e9:.1f} GFLOP of fp32 SSD "
+              f"products) ({card})")
+        for (step, mode), row in rows.items():
+            busy = max(row["busy"], 1e-9)
+            parts = ""
+            if mode == "eager":
+                names = {"projections": "ssm/proj", "conv": "ssm/conv",
+                         "in-chunk": "ssm/in_chunk", "states": "ssm/states",
+                         "chunk loop": "ssm/chunk_loop", "y_off": "ssm/y_off",
+                         "gated norm": "ssm/gated_norm",
+                         "recurrent update": "ssm/recurrent"}
+                mamba = row.get("ssm/mamba", 0.0)
+                parts = (f"; mamba blocks {mamba:.3f} ms ({mamba / busy:.3f} of "
+                         f"busy): " + ", ".join(
+                             f"{k} {row.get(v, 0.0):.3f} ms ({row.get(v, 0.0) / busy:.3f})"
+                             for k, v in names.items()))
+                if mc:
+                    apply = row.get("moe/apply", 0.0)
+                    parts += (f"; MoE {apply:.3f} ms ({apply / busy:.3f}): expert "
+                              f"products {row.get('moe/experts', 0.0):.3f}, dispatch "
+                              f"{row.get('moe/dispatch', 0.0):.3f}, routing "
+                              f"{row.get('moe/route', 0.0):.3f}")
+            wall = ""
+            if "wall" in row:
+                wall = (f", wall {row['wall']:.3f} ms (median of 5), idle share "
+                        f"{1 - row['busy'] / max(row['wall'], 1e-9):.3f}")
+            print(f"ssm profile ({name}, {step}, {mode}, batch {batch}): device "
+                  f"busy {row['busy']:.3f} ms (kernel events){wall}{parts}; "
+                  f"bound {bounds[step]:.3f} ms ({card})")
+        served[name] = counts
+        del prefill_c, decode_c, record, b0, params, prefill_e, decode_e
+        if on_card:
+            torch.cuda.empty_cache()
+
+    # (c) cache plumbing at full width, fp32, eager: Mamba2's first layers,
+    #     Jamba's first sublayers through its attention (MoE ragged); a
+    #     prefill over chunks and a padded one, then recurrent steps
+    p_batch, p_len, p_steps = SSM_PLUMB
+    n_pre = p_len - p_steps
+    for name in SSM_ARCHS:
+        cfg = ssm_config(name)
+        keep = SSM_PLUMB_CUT[name]
+        layout = cfg.period_layout
+        pcfg = dataclasses.replace(
+            cfg, dtype="float32",
+            n_periods=keep if len(layout) == 1 else 1,
+            period_layout=layout if len(layout) == 1 else layout[:keep],
+            moe=cfg.moe and dataclasses.replace(cfg.moe, impl="ragged"))
+        n_attn = sum(mixer == "attn" for mixer, _ in layer_kinds(pcfg))
+        body = flash_attention.flash_launch_plan(
+            bh=p_batch * cfg.n_heads, sq=n_pre, skv=n_pre, d=cfg.hd,
+            kv_group=cfg.n_heads // cfg.n_kv_heads, dtype=torch.float32).body
+        toks = torch.randint(0, pcfg.vocab, (p_batch, p_len), generator=gen).to(dev)
+        with torch.inference_mode():
+            pparams = init_lm(pcfg, seed=3, device=dev)
+
+            def run(tokens, **kw):
+                launch.reset_launches()
+                out = forward(pparams, pcfg, tokens, **kw)
+                sync()
+                return out, dict(launch.LAUNCHES)
+
+            (full, _, _), full_counts = run(toks)
+            caches = init_caches(pcfg, p_batch, p_len, device=dev)
+            (pre, caches, _), pre_counts = run(toks[:, :n_pre], caches=caches, start=0)
+            errs = [rel(pre[:, -1], full[:, n_pre - 1], name)]
+            step_counts = []
+            for i in range(n_pre, p_len):
+                (lg, caches, _), c = run(toks[:, i:i + 1], caches=caches)
+                step_counts.append(c)
+                errs.append(rel(lg[:, 0], full[:, i], name))
+            one_pass = attn_launches(n_attn, 1, 0)
+            if n_attn and body == "tc_3xtf32":
+                one_pass["flash_attention/pack"] = n_attn
+            if full_counts != one_pass or pre_counts != one_pass:
+                fail(f"ssm plumbing {name}: forward launched {full_counts}, "
+                     f"prefill {pre_counts}, expected {one_pass} ({body})")
+            if any(c != attn_launches(n_attn, 0, 1) for c in step_counts):
+                fail(f"ssm plumbing {name}: decode steps launched {step_counts}")
+            if max(errs) > MOE_PLUMB_TOL:
+                fail(f"ssm plumbing {name}: prefill + decode vs full forward "
+                     f"max-abs-err/max-abs {max(errs)} (limit {MOE_PLUMB_TOL})")
+            print(f"ssm plumbing ({name}, {pcfg.n_layers} layers "
+                  f"{[m + '+' + f for m, f in layer_kinds(pcfg)]}, full width, "
+                  f"fp32, batch {p_batch}, prefill {n_pre} ({-(-n_pre // cfg.ssm.chunk)} "
+                  f"chunks of {cfg.ssm.chunk}, the last padded) + {p_steps} decode "
+                  f"steps): vs one full forward, max-abs-err/max-abs "
+                  f"{max(errs):.3g} (limit {MOE_PLUMB_TOL}), prefill {errs[0]:.3g}; "
+                  f"launches: forward {full_counts}, prefill {pre_counts}, decode "
+                  f"{step_counts[0]} a step" + (f"; flash body {body}" if n_attn else "")
+                  + f" ({card})")
+            del pparams, full, pre, caches, lg
+        if on_card:
+            torch.cuda.empty_cache()
+
+    # (d) one full-width mamba block of each arch in fp32: a prefill into a
+    #     cache and recurrent steps, the card against the CPU, same weights
+    #     and inputs; then in bf16, timed
+    bsz, t_pre, t_dec = SSM_BLOCK
+    t_all = t_pre + t_dec
+    cpu = torch.device("cpu")
+    for name in SSM_ARCHS:
+        bcfg = dataclasses.replace(ssm_config(name), dtype="float32")
+
+        def block(p, x, where, bcfg=bcfg):
+            cache = ssm.init_ssm_cache(bcfg, bsz, where)
+            outs = [ssm.mamba_apply(p, x[:, :t_pre], bcfg, cache=cache)[0]]
+            for i in range(t_pre, t_all):
+                outs.append(ssm.mamba_apply(p, x[:, i:i + 1], bcfg, cache=cache)[0])
+            return torch.cat(outs, 1), cache
+
+        with torch.inference_mode():
+            bp = ssm.mamba_init(torch.Generator(device=dev).manual_seed(11), bcfg, dev)
+            x = torch.randn(bsz, t_all, bcfg.d_model, generator=gen).to(dev)
+            launch.reset_launches()
+            got, got_cache = block(bp, x, dev)
+            sync()
+            if launch.LAUNCHES:
+                fail(f"ssm block {name}: launched {dict(launch.LAUNCHES)}")
+            want, want_cache = block(tree_map(lambda w, _: w.to(cpu), bp), x.cpu(), cpu)
+            errs = {"prefill": rel(got[:, :t_pre].cpu(), want[:, :t_pre], name),
+                    "decode": rel(got[:, t_pre:].cpu(), want[:, t_pre:], name),
+                    **{f"cache {k}": rel(got_cache[k].cpu(), want_cache[k], name)
+                       for k in ssm.STATE}}
+            if max(errs.values()) > SSM_BLOCK_TOL:
+                fail(f"ssm block {name}: card vs CPU max-abs-err/max-abs {errs} "
+                     f"(limit {SSM_BLOCK_TOL})")
+            print(f"ssm block ({name} widths: d {bcfg.d_model}, "
+                  f"{ssm._dims(bcfg)[1]} heads of {bcfg.ssm.head_dim}, d_state "
+                  f"{bcfg.ssm.d_state}; batch {bsz}, prefill {t_pre} + {t_dec} "
+                  f"recurrent steps, fp32): card vs CPU max-abs-err/max-abs "
+                  + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+                  + f" (limit {SSM_BLOCK_TOL}) ({card})")
+            del got, want, got_cache, want_cache
+
+            # the same block in bf16 (A_log, D, dt_bias fp32), timed as graph
+            # replays: a prefill into a cache and one recurrent step
+            hcfg = dataclasses.replace(bcfg, dtype="bfloat16")
+            hp = {k: w if k in ("A_log", "D", "dt_bias")
+                  else tree_map(lambda t, _: t.to(torch.bfloat16), w)
+                  for k, w in bp.items()}
+            xh = x.to(torch.bfloat16)
+            del bp, x
+            cache = ssm.init_ssm_cache(hcfg, bsz, dev)
+            sizes = []
+            tree_map(lambda w, _: sizes.append(w.numel() * w.element_size()), hp)
+            w_bytes = sum(sizes)
+            s_bytes = sum(t.numel() * t.element_size() for t in cache.values())
+            scores, ssd32 = ssd_flops(hcfg, bsz, t_pre)
+            n_proj = sum(hp[k]["w"].numel() for k in ("wx", "wz", "wbc", "wdt", "wo"))
+            pre_ops = (bound(2.0 * n_proj * bsz * t_pre + scores, 0, torch.bfloat16)[0]
+                       + bound(ssd32, 0, torch.float32)[0])
+            timed = {
+                "prefill_ms": graph_ms(lambda: ssm.mamba_apply(
+                    hp, xh[:, :t_pre], hcfg, cache=cache), calls=5),
+                "prefill_bound_ms": max(pre_ops, 1e3 * (w_bytes + s_bytes)
+                                        / HBM_BYTES_PER_S),
+                "decode_ms": graph_ms(lambda: ssm.mamba_apply(
+                    hp, xh[:, -1:], hcfg, cache=cache)),
+                "decode_bound_ms": 1e3 * (w_bytes + 2 * s_bytes) / HBM_BYTES_PER_S}
+            print(f"ssm block bf16 ({name} widths, batch {bsz}, prefill {t_pre}, "
+                  f"graph replays): " + " ".join(f"{k}={v:.4g}" for k, v in timed.items())
+                  + f" (prefill bound: operations, decode bound: bytes) ({card})")
+            del hp, xh, cache
+        if on_card:
+            torch.cuda.empty_cache()
+
+    # (e) the flash kernel at Jamba's attention: 32 q heads over 8 kv heads
+    jamba = ssm_config("jamba-v0.1-52b")
+    counts = served["jamba-v0.1-52b"]
+    rows = flash_rows(torch, dev, card, "jamba", jamba, (batch, prompt, cap_len),
+                      {"prefill": counts["flash_attention"]
+                       - counts["flash_attention/combine"],
+                       "decode": counts["flash_attention/combine"]},
+                      gen, graph_ms, time_ms, bound)
+    return {"counts": served, "flash": rows}
 
 
 def kernel_name(mangled: str) -> str:
@@ -3004,6 +3464,16 @@ def main() -> None:
     mla = mla_on_card(torch, dev, smi, graph_ms, time_ms, bound)
     print(f"mla phase: {time.perf_counter() - t0:.1f} s, launches {mla['counts']}")
 
+    # 4j. the Mamba-2 SSM stack: Mamba2-1.3B and Jamba-v0.1 (2 periods)
+    #     served at full width (4i's model and caches are freed with its
+    #     frame), their cache plumbing, one mamba block against the CPU,
+    #     flash at Jamba's attention
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ssm_run = ssm_on_card(torch, dev, smi, graph_ms, time_ms, bound)
+    print(f"ssm phase: {time.perf_counter() - t0:.1f} s, launches {ssm_run['counts']}")
+    jamba_counts = ssm_run["counts"]["jamba-v0.1-52b"]
+
     # 5. result lines
     sources = {"psum_matmul/active": ("psum_matmul", "src/repro/kernels/psum_matmul.py:48"),
                "psum_matmul/passive": ("psum_matmul", "src/repro/kernels/psum_matmul.py:66"),
@@ -3057,6 +3527,13 @@ def main() -> None:
         # the kernel at MLA's prefill shapes
         "mla_launches": mla["counts"]["flash_attention"],
         "mla_prefill": mla["flash"],
+        # phase 4j's launches: Jamba-v0.1 (2 periods) served, its 2
+        # attention layers (Mamba2 launches none), and the kernel at
+        # Jamba's attention
+        "ssm_launches": jamba_counts["flash_attention"],
+        "ssm_combine_launches": jamba_counts["flash_attention/combine"],
+        "ssm_prefill": ssm_run["flash"]["prefill"],
+        "ssm_decode": ssm_run["flash"]["decode"],
         "max_abs_err": head["max_abs_err"], "ms": head["ms"],
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],

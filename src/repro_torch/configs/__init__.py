@@ -1,6 +1,6 @@
 """Architecture registry of the port: the dense decoder-only archs, the MoE
-decoder and DeepSeek-V2-Lite, whose modules the port has, full and
-smoke-reduced, plus the shape definitions.
+decoder, DeepSeek-V2-Lite, Mamba2 and Jamba, whose modules the port has,
+full and smoke-reduced, plus the shape definitions.
 ``get_config(name)`` / ``get_smoke(name)``."""
 
 from repro_torch.configs.base import (SHAPES, ArchConfig, EncoderCfg, MlaCfg,

@@ -1,9 +1,10 @@
 """Architecture registry of the port + smoke reduction.
 
 ``ARCHS`` lists the archs whose modules the port has: the dense
-decoder-only ones, the MoE decoder (qwen2-moe) and DeepSeek-V2-Lite (MLA,
-a leading dense layer, MoE). The reference's other archs are known by name
-and wait for the modules that ROADMAP A7 lists.
+decoder-only ones, the MoE decoder (qwen2-moe), DeepSeek-V2-Lite (MLA, a
+leading dense layer, MoE), Mamba2 (attention-free) and Jamba (mamba and
+attention sublayers, dense and MoE FFNs). The reference's other archs are
+known by name and wait for the modules that ROADMAP A7 lists.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ ARCHS: tuple[str, ...] = (
     "gemma-2b",
     "qwen2-moe-a2.7b",
     "deepseek-v2-lite-16b",
+    "mamba2-1.3b",
+    "jamba-v0.1-52b",
 )
 
 _MODULES = {
@@ -27,14 +30,14 @@ _MODULES = {
     "gemma-2b": "gemma_2b",
     "qwen2-moe-a2.7b": "qwen2_moe_a2p7b",
     "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+    "mamba2-1.3b": "mamba2_1p3b",
+    "jamba-v0.1-52b": "jamba_v01_52b",
 }
 
 #: the reference's other archs, with what each waits for (ROADMAP A7)
 _WAITING = {
-    "mamba2-1.3b": "the SSM stack (ROADMAP A7: models/ssm.py)",
     "llama-3.2-vision-90b": "cross-attention and the vlm inputs (ROADMAP A7)",
     "seamless-m4t-large-v2": "the encoder and cross-attention (ROADMAP A7)",
-    "jamba-v0.1-52b": "the SSM stack (ROADMAP A7: models/ssm.py)",
 }
 
 

@@ -21,13 +21,20 @@ each call zeroes and fills inside the graph and returns; a compiled decode
 captured on that cache serves every later request of the batch size, since
 its attention reads the position from device memory (the split_kv decode,
 or MLA's absorbed `chunked_attention`). A layer's cache is a head-major
-(k, v) pair or an MLA latent buffer; `_cache_buffers` lists either. A call on
+(k, v) pair, an MLA latent buffer or a mamba layer's conv window and SSM
+state, each written in place; `_cache_buffers` lists any of them. A call on
 buffers (cache or weights) other than the ones a graph was captured on
 raises: the graph would read the old ones. As with ``donate_argnums``, a
 returned cache is the caller's until the next call for the same batch size.
 The position is mirrored on the host under ``caches[HOST_POS]``, so that a
-decode past the capacity raises `ValueError` before the replay: on the
-card it would write past the cache.
+decode past the capacity of the first attention layer's cache raises
+`ValueError` before the replay: on the card it would write past the cache.
+A stack with no attention layer (Mamba2) has no capacity to check.
+
+The decode's warm-up runs the step for real. It writes the same keys and
+values a replay writes again, but it advances a mamba layer's state and
+shifts its conv window: the capture puts back the position and every
+mamba buffer, or the first replay would apply its token twice.
 
 Logits are returned as fresh tensors (clones of the graph's output), so a
 caller that keeps them does not hold a buffer the next replay overwrites.
@@ -47,6 +54,7 @@ import torch
 
 from repro_torch.kernels import launch
 from repro_torch.models.moe import check_capturable
+from repro_torch.models.ssm import STATE
 from repro_torch.models.transformer import cache_capacity
 
 #: the caches' position as a host int, kept by the compiled steps
@@ -91,8 +99,16 @@ class CapturedStep:
 
 def _cache_buffers(caches) -> list[torch.Tensor]:
     """``pos`` and every tensor of each layer's cache, whatever its layout
-    ((k, v) or an MLA latent buffer), layer by layer in name order."""
+    ((k, v), an MLA latent buffer or a mamba layer's conv and SSM state),
+    layer by layer in name order."""
     return [caches["pos"], *(c[n] for c in caches["layers"] for n in sorted(c))]
+
+
+def _advanced_buffers(caches) -> list[torch.Tensor]:
+    """The buffers a decode step advances rather than writes at ``pos``:
+    ``pos`` itself and each mamba layer's conv window and SSM state."""
+    return [caches["pos"], *(c[n] for c in caches["layers"]
+                             if set(c) == set(STATE) for n in STATE)]
 
 
 def _check_same(step: str, what: str, got: list, captured: list) -> None:
@@ -166,7 +182,7 @@ class CompiledDecode:
         if host is None:            # caches no compiled step made: read once
             host = int(caches["pos"])
         cap = cache_capacity(caches)
-        if host + s > cap:
+        if cap is not None and host + s > cap:
             raise ValueError(f"compiled decode: {s} token(s) at position "
                              f"{host} do not fit a cache of {cap}")
         if not _captures(token.device):
@@ -197,10 +213,12 @@ class CompiledDecode:
 
         # the warm-up runs the step for real: it writes this step's keys and
         # values at pos (the replay writes the same ones again) and advances
-        # pos, which is put back
-        saved = pos.clone()
+        # pos and every mamba layer's state, which are put back
+        advanced = _advanced_buffers(caches)
+        saved = [buf.clone() for buf in advanced]
         graph = CapturedStep(run, token.device)
-        pos.copy_(saved)
+        for buf, old in zip(advanced, saved):
+            buf.copy_(old)
         return {"graph": graph, "token": static, "params": params,
                 "buffers": _cache_buffers(caches)}
 

@@ -1,19 +1,26 @@
 """Model assembly of the port: decoder-only LMs whose period layout is made
-of ("attn", "dense") or ("attn", "moe") sublayers: the dense archs, the MoE
-decoder (qwen2-moe, `repro_torch.models.moe`) and DeepSeek-V2-Lite, whose
-attention is MLA (`layers.mla_apply`) and whose first layer is dense.
+of attention or Mamba-2 mixers, each with a dense FFN, the MoE or no FFN:
+the dense archs, the MoE decoder (qwen2-moe, `repro_torch.models.moe`),
+DeepSeek-V2-Lite, whose attention is MLA (`layers.mla_apply`) and whose
+first layer is dense, Mamba2 (`repro_torch.models.ssm`, attention-free)
+and Jamba (mamba and attention sublayers, dense and MoE FFNs in one
+period).
 
 The reference stacks parameters over periods and runs the stack with
 ``jax.lax.scan``; the port keeps one params dict per layer in one flat list,
 ``params["layers"]``, and runs a Python loop over it. The list holds the
 reference's ``first[i]`` (``first_dense_layers`` attention + dense-FFN
 sublayers, FFN width ``first_dense_ff``) first, then period n's
-``periods["sub{i}"]`` sliced at n, period by period. Caches follow the same
-order: one cache per layer, a head-major (k, v) pair or an MLA layer's
-latent buffer (`layers.init_mla_cache`), plus the position ``pos``, a 0-d
-int32 tensor on the caches' device as in the reference, so that a step
-reads it only there. SSM, hybrid, vlm and audio archs wait for later slices
-(ROADMAP A7).
+``periods["sub{i}"]`` sliced at n, period by period (`layer_kinds`). A
+layer's params say what it runs: ``attn`` or ``mamba``, then ``mlp`` or
+``moe`` after ``norm2``, or neither (``ffn == "none"``: no ``norm2``, as in
+the reference). Caches follow the same order: one cache per layer, a
+head-major (k, v) pair, an MLA layer's latent buffer
+(`layers.init_mla_cache`) or a mamba layer's conv and SSM state
+(`ssm.init_ssm_cache`), plus the position ``pos``, a 0-d int32 tensor on
+the caches' device as in the reference, so that a step reads it only there.
+Cross-attention, encoders and vision tokens (vlm and audio archs) wait for
+later slices (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -28,40 +35,60 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.launch import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import ssm as S
 
 Params = dict[str, Any]
 
 
+MIXERS, FFNS = ("attn", "mamba"), ("dense", "moe", "none")
+
+
 def check_ported(cfg: ArchConfig) -> None:
     """Raise `NotImplementedError` for anything outside what the port runs:
-    decoder-only stacks of ("attn", "dense") or ("attn", "moe") sublayers,
-    with GQA or MLA attention and leading dense layers."""
+    decoder-only stacks of attention (GQA or MLA) or Mamba-2 mixers, each
+    with a dense FFN, the MoE or none, and leading dense layers."""
     missing = [what for what, on in (
-        (f"family {cfg.family!r}", cfg.family not in ("dense", "moe")),
-        ("sublayers other than ('attn', 'dense') or ('attn', 'moe')",
-         any(tuple(sub) not in (("attn", "dense"), ("attn", "moe"))
-             for sub in cfg.period_layout)),
-        ("SSM", cfg.ssm is not None),
+        (f"family {cfg.family!r}",
+         cfg.family not in ("dense", "moe", "ssm", "hybrid")),
+        (f"mixers other than {' or '.join(MIXERS)}",
+         any(mixer not in MIXERS for mixer, _ in cfg.period_layout)),
+        (f"FFNs other than {', '.join(FFNS)}",
+         any(ffn not in FFNS for _, ffn in cfg.period_layout)),
+        ("mamba sublayers without an SSM config",
+         cfg.ssm is None and any(m == "mamba" for m, _ in cfg.period_layout)),
         ("an encoder", cfg.encoder is not None),
         ("vision tokens", bool(cfg.n_vision_tokens)))
         if on]
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs decoder-only stacks of attention with "
-            f"dense or MoE FFNs; {', '.join(missing)} wait(s) for ROADMAP A7")
+            f"{cfg.name}: the port runs decoder-only stacks of attention or "
+            f"Mamba-2 mixers with dense, MoE or no FFNs; {', '.join(missing)} "
+            f"wait(s) for ROADMAP A7")
 
 
-def _layer_init(gen, cfg: ArchConfig, ffn: str, device,
+def layer_kinds(cfg: ArchConfig) -> list[tuple[str, str]]:
+    """Each layer's (mixer, ffn) in the flat list's order: the leading dense
+    layers, then the period layout ``n_periods`` times."""
+    return ([("attn", "dense")] * cfg.first_dense_layers
+            + list(cfg.period_layout) * cfg.n_periods)
+
+
+def _layer_init(gen, cfg: ArchConfig, mixer: str, ffn: str, device,
                 d_ff: int | None = None) -> Params:
-    """One sublayer: MLA where the config has it, else GQA attention; the
-    dense FFN ``d_ff`` wide (the config's by default) or the MoE."""
+    """One sublayer: a mamba mixer, or MLA where the config has it, else GQA
+    attention; then the dense FFN ``d_ff`` wide (the config's by default),
+    the MoE, or nothing (``"none"``: no ``norm2``)."""
     dt = L.dtype_of(cfg)
-    p = {"norm1": L.norm_init(cfg.d_model, dt, device, cfg.norm),
-         "attn": (L.mla_init if cfg.mla else L.attn_init)(gen, cfg, device),
-         "norm2": L.norm_init(cfg.d_model, dt, device, cfg.norm)}
+    p = {"norm1": L.norm_init(cfg.d_model, dt, device, cfg.norm)}
+    if mixer == "mamba":
+        p["mamba"] = S.mamba_init(gen, cfg, device)
+    else:
+        p["attn"] = (L.mla_init if cfg.mla else L.attn_init)(gen, cfg, device)
+    if ffn != "none":
+        p["norm2"] = L.norm_init(cfg.d_model, dt, device, cfg.norm)
     if ffn == "moe":
         p["moe"] = M.moe_init(gen, cfg, device)
-    else:
+    elif ffn == "dense":
         p["mlp"] = L.mlp_init(gen, cfg.d_model, d_ff or cfg.d_ff, dt, device,
                               gated=cfg.gated_mlp)
     return p
@@ -71,19 +98,24 @@ def _layer_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
                  positions: torch.Tensor, cache: Params | None,
                  cache_pos: torch.Tensor | None, start: int | None
                  ) -> tuple[torch.Tensor, Params | None, torch.Tensor | None]:
-    """One sublayer: attention, then the dense or MoE FFN. Returns (x,
-    cache, aux), aux the MoE's loss or None for a dense FFN."""
+    """One sublayer: the mamba mixer or attention, then the dense or MoE
+    FFN where the layer has one. Returns (x, cache, aux), aux the MoE's
+    loss or None."""
     h = L.norm_apply(p["norm1"], x, cfg.norm_eps)
-    apply = L.mla_apply if cfg.mla else L.attn_apply
-    out, cache = apply(p["attn"], h, cfg, positions=positions, cache=cache,
-                       cache_pos=cache_pos, start=start)
+    if "mamba" in p:
+        out, cache = S.mamba_apply(p["mamba"], h, cfg, cache=cache)
+    else:
+        apply = L.mla_apply if cfg.mla else L.attn_apply
+        out, cache = apply(p["attn"], h, cfg, positions=positions, cache=cache,
+                           cache_pos=cache_pos, start=start)
     x = x + out
+    if "norm2" not in p:
+        return x, cache, None
     h = L.norm_apply(p["norm2"], x, cfg.norm_eps)
     if "moe" in p:
         out, aux = M.moe_apply(p["moe"], h, cfg)
         return x + out, cache, aux
     return x + L.mlp_apply(p["mlp"], h, cfg.act), cache, None
-
 
 
 # ----------------------------------------------------------------- full model
@@ -100,10 +132,10 @@ def init_lm(cfg: ArchConfig, *, seed: int = 0, device="cuda") -> Params:
         "embed": {"w": L.normal(gen, (cfg.padded_vocab, cfg.d_model), 0.02,
                                 dt, device)},
         "final_norm": L.norm_init(cfg.d_model, dt, device, cfg.norm),
-        "layers": [_layer_init(gen, cfg, "dense", device, cfg.first_dense_ff)
-                   for _ in range(cfg.first_dense_layers)]
-        + [_layer_init(gen, cfg, ffn, device)
-           for _ in range(cfg.n_periods) for _, ffn in cfg.period_layout],
+        "layers": [_layer_init(gen, cfg, mixer, ffn, device,
+                               cfg.first_dense_ff if i < cfg.first_dense_layers
+                               else None)
+                   for i, (mixer, ffn) in enumerate(layer_kinds(cfg))],
     }
     if not cfg.tie_embed:
         p["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.padded_vocab, dt,
@@ -114,23 +146,31 @@ def init_lm(cfg: ArchConfig, *, seed: int = 0, device="cuda") -> Params:
 def init_caches(cfg: ArchConfig, batch: int, max_len: int, *,
                 device="cuda") -> Params:
     """``pos``, a 0-d int32 zero on ``device``, and one zeroed cache per
-    layer: a head-major (k, v) pair (`layers.init_kv_cache`) or, for MLA,
-    the latent buffer (`layers.init_mla_cache`)."""
+    layer: a head-major (k, v) pair (`layers.init_kv_cache`), for MLA the
+    latent buffer (`layers.init_mla_cache`), for a mamba layer its conv
+    window and SSM state (`ssm.init_ssm_cache`; ``max_len`` does not bound
+    it)."""
     check_ported(cfg)
     device = resolve_device(device)
     init = L.init_mla_cache if cfg.mla else L.init_kv_cache
     return {"pos": torch.zeros((), dtype=torch.int32, device=device),
-            "layers": [init(cfg, batch, max_len, device)
-                       for _ in range(cfg.n_layers)]}
+            "layers": [S.init_ssm_cache(cfg, batch, device) if mixer == "mamba"
+                       else init(cfg, batch, max_len, device)
+                       for mixer, _ in layer_kinds(cfg)]}
 
 
-def cache_capacity(caches: Params) -> int:
-    """The positions a stack's caches hold, in either layout: axis 2 of a
-    head-major (B, Hkv, max_len, hd) key cache, axis 1 of an MLA latent
-    buffer (B, max_len, kv_lora + qk_rope)."""
-    layer = caches["layers"][0]
-    return (layer["k"].shape[2] if "k" in layer
-            else layer[L.MLA_CACHE].shape[1])
+def cache_capacity(caches: Params) -> int | None:
+    """The positions a stack's caches hold, read from its first attention
+    layer in either layout: axis 2 of a head-major (B, Hkv, max_len, hd) key
+    cache, axis 1 of an MLA latent buffer (B, max_len, kv_lora + qk_rope).
+    None for a stack with no attention layer (Mamba2): its state has no
+    length to outgrow."""
+    for layer in caches["layers"]:
+        if "k" in layer:
+            return layer["k"].shape[2]
+        if L.MLA_CACHE in layer:
+            return layer[L.MLA_CACHE].shape[1]
+    return None
 
 
 @functools.cache
@@ -204,20 +244,25 @@ def count_params(cfg: ArchConfig, active_only: bool = False) -> int:
 
 
 # ------------------------------------------------------------ weight carrier
+#: the reference's leaves kept in fp32 whatever the config's dtype
+FP32_KEYS = frozenset({"router", "A_log", "D", "dt_bias"})
+
+
 def params_from_jax(tree: Mapping[str, Any], cfg: ArchConfig,
                     device="cuda") -> Params:
     """The reference's ``init_lm`` tree, as nested dicts of numpy arrays,
     turned into `init_lm`'s structure: ``first[i]`` in front, then the
     leading ``n_periods`` axis of ``periods`` unstacked into one params dict
     per layer, in the config's dtype on ``device`` (MLA's ``kv_norm`` scale
-    too, as the reference's is); the MoE router stays fp32, as the
-    reference's is (a router in bf16 would route differently)."""
+    too, as the reference's is); the MoE router and a mamba layer's
+    ``A_log``, ``D`` and ``dt_bias`` stay fp32, as the reference's are (a
+    router in bf16 would route differently)."""
     check_ported(cfg)
     device = resolve_device(device)
 
     def convert(node, index=None, dt=L.dtype_of(cfg)):
         if isinstance(node, Mapping):
-            return {k: convert(v, index, torch.float32 if k == "router" else dt)
+            return {k: convert(v, index, torch.float32 if k in FP32_KEYS else dt)
                     for k, v in node.items()}
         a = np.array(node, dtype=np.float32)
         if index is not None:

@@ -287,7 +287,16 @@ def test_plan_matmul_blocks_matches():
 # ------------------------------------------------------------------- graphs
 @pytest.mark.parametrize("arch", ARCHS)
 def test_from_transformer_matches(arch):
+    """The port's graph equals the reference's; where the reference cannot
+    build one (mamba2-1.3b: no FFN, so no ``ffn_up`` GEMM), the port raises
+    the same exception."""
     tcfg, jcfg = tget_config(arch), jget_config(arch)
+    if tcfg.d_ff == 0 and tcfg.moe is None:
+        for build, cfg in ((JGraph.from_transformer, jcfg),
+                           (tplan.NetworkGraph.from_transformer, tcfg)):
+            with pytest.raises(KeyError, match="ffn_up"):
+                build(cfg)
+        return
     for kw in ({}, {"seq_len": 1024, "batch": 2, "include_lm_head": False}):
         tg = tplan.NetworkGraph.from_transformer(tcfg, **kw)
         jg = JGraph.from_transformer(jcfg, **kw)

@@ -138,7 +138,8 @@ def test_carrier_builds_init_lm_structure(pair):
 
 
 @pytest.mark.parametrize("arch", ARCHS + ("qwen2-moe-a2.7b",
-                                          "deepseek-v2-lite-16b"))
+                                          "deepseek-v2-lite-16b",
+                                          "mamba2-1.3b", "jamba-v0.1-52b"))
 def test_count_params_matches_jax_at_full_width(arch):
     assert ttf.count_params(tconfigs.get_config(arch)) \
         == jtf.count_params(jget_config(arch))
@@ -147,7 +148,8 @@ def test_count_params_matches_jax_at_full_width(arch):
 
 
 @pytest.mark.parametrize("arch", ARCHS + ("qwen2-moe-a2.7b",
-                                          "deepseek-v2-lite-16b"))
+                                          "deepseek-v2-lite-16b",
+                                          "mamba2-1.3b", "jamba-v0.1-52b"))
 def test_configs_are_the_reference_data(arch):
     assert dataclasses.asdict(tconfigs.get_config(arch)) \
         == dataclasses.asdict(jget_config(arch))
@@ -175,11 +177,13 @@ def test_unported_archs_name_what_they_wait_for(arch):
 @pytest.mark.parametrize("change", [
     dict(encoder=tconfigs.EncoderCfg(n_layers=2, frontend_dim=48)),
     dict(n_vision_tokens=16),
-    dict(period_layout=(("mamba", "none"),))])
+    dict(period_layout=(("cross", "dense"),))])
 def test_non_dense_stacks_raise(change):
-    """What the port does not run yet raises, naming its ROADMAP item; a
+    """What the port does not run yet raises, naming its ROADMAP item: an
+    encoder, vision tokens and the cross-attention mixer (ROADMAP A7(d)); a
     MoE stack (tests/test_torch_moe.py), MLA and leading dense layers
-    (tests/test_torch_mla.py) run."""
+    (tests/test_torch_mla.py) and mamba sublayers (tests/test_torch_ssm.py)
+    run."""
     cfg = dataclasses.replace(tconfigs.get_smoke("qwen2-1.5b"), **change)
     with pytest.raises(NotImplementedError,
                        match="decoder-only stacks of attention.*ROADMAP A7"):

@@ -26,7 +26,8 @@ ARGS = ["--smoke", "--device", "cpu", "--requests", "6", "--batch", "4",
 
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "gemma-2b", "granite-8b",
                                   "stablelm-12b", "qwen2-moe-a2.7b",
-                                  "deepseek-v2-lite-16b"])
+                                  "deepseek-v2-lite-16b", "mamba2-1.3b",
+                                  "jamba-v0.1-52b"])
 def test_serve_reports_the_reference_keys(arch):
     report = serve.main(["--arch", arch, *ARGS])
     assert set(report) == REPORT_KEYS
