@@ -192,6 +192,33 @@
       1024 + 8 recurrent steps, fp32) on the card against the CPU (1e-4)
       and in bf16, timed, and the flash kernel at Jamba's attention beside
       its plain version and SDPA.
+   k. cross-attention, the encoder and the modality inputs: ``launch.serve``
+      serves SeamlessM4T at its published widths and depth (24 encoder
+      layers over 1024 stubbed frames of 1024, 24 "attn+cross" decoder
+      layers, d_model 1024, 16/16 heads of 64, layernorm, ReLU FFN 8192,
+      vocab 256206) and Llama-3.2-Vision at its published widths **reduced
+      to 5 of its 20 periods** (25 layers: 20 self-attention, 5
+      cross-attention over 1664 stubbed vision tokens of 8192; 64/8 heads of
+      128, FFN 28672; 47.0 of 175.3 GB), bf16, seeded weights with every
+      cross-attention gate set nonzero (the reference's init, 0, would hide
+      cross-attention), as (h) serves its model: each step a graph replay
+      (counted), every step of batch 0 equal to the eager steps bit for
+      bit; a prefill launches the flash kernel once an encoder, self- and
+      cross-attention layer (72 and 25), a decode step split_kv and its
+      combine once a self- and cross-attention layer (48 and 25). A fresh
+      compiled prefill serves batch 0's prompts with other frames or vision
+      tokens: its logits differ from the served ones and equal the eager
+      step's, as do decode steps on the new cross caches. Device busy, wall,
+      idle share and top kernels of the compiled steps; the encoder's,
+      cross-attention's and flash's device ms from the eager steps; peak
+      memory; the decode's bytes bound and the prefill's operations bound.
+      Then the first layers in fp32 at full width (seamless: one encoder
+      layer over 1000 frames, a ragged length, and one decoder layer;
+      Llama: its first period), a prefill of 128 tokens and 2 decode steps
+      through the caches, on the card against the CPU (1e-3), and the flash
+      kernel at the encoder's prefill, cross-attention's prefill and decode
+      (split_kv, as served, and the one-pass body) and a ragged non-causal
+      1000 x 1000 beside its plain version and SDPA.
    Every output is checked against a library reference (the served logits
    against the model with `ref.attention_ref` as its attention, and against
    one full forward of prompt plus generated tokens; the fp32 forward's
@@ -990,10 +1017,11 @@ def device_ms(evt, total: bool = False) -> float:
     return us / 1e3
 
 
-def profiled_parts(torch, dev, fn, prefixes: tuple) -> dict:
+def profiled_parts(torch, dev, fn, prefixes: tuple, top: int = 0) -> dict:
     """Device busy ms of one call of ``fn`` (kernel events: a profiler
     range is not a kernel) and the device ms of each range whose name
-    starts with one of ``prefixes``."""
+    starts with one of ``prefixes``; with ``top``, also the ``top``
+    kernels by device ms as (ms, calls, name) under "top"."""
     from torch.profiler import ProfilerActivity, profile
 
     card_sync(torch, dev)
@@ -1001,12 +1029,16 @@ def profiled_parts(torch, dev, fn, prefixes: tuple) -> dict:
         fn()
         card_sync(torch, dev)
     out = {"busy": 0.0}
+    kernels = []
     for evt in prof.key_averages():
         if evt.key.startswith(prefixes):
             if evt.device_type != torch.autograd.DeviceType.CUDA:
                 out[evt.key] = device_ms(evt, total=True)
         elif evt.device_type == torch.autograd.DeviceType.CUDA:
             out["busy"] += device_ms(evt)
+            kernels.append((device_ms(evt), evt.count, kernel_name(evt.key)))
+    if top:
+        out["top"] = sorted(kernels, reverse=True)[:top]
     return out
 
 
@@ -1039,10 +1071,13 @@ def recording_routes(moe, where: list, shape_of=None):
 
 
 def tree_map(fn, tree, key=""):
-    """``fn(leaf, key)`` over nested dicts, key "router" under a router."""
+    """``fn(leaf, key)`` over nested dicts and lists, key "router" under a
+    router."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, k if k == "router" else key)
                 for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v, key) for v in tree]
     return fn(tree, key)
 
 
@@ -1056,17 +1091,21 @@ def rel_err(torch, got, want, what: str) -> float:
     return ((got - want).abs().max() / want.abs().max()).item()
 
 
-def served_equal_eager(torch, cfg, params, b0: dict, cap_len: int, what: str):
+def served_equal_eager(torch, cfg, params, b0: dict, cap_len: int, what: str,
+                       extras: dict | None = None):
     """Every step of batch 0 as `launch.serve` recorded it (graph replays)
-    against the eager step bodies teacher-forced with the served tokens,
-    bit for bit; fails otherwise. Returns the eager (prefill, decode)."""
+    against the eager step bodies teacher-forced with the served tokens
+    (and the batch's ``extras``, a vlm's vision tokens or an enc-dec arch's
+    frames), bit for bit; fails otherwise. Returns the eager (prefill,
+    decode)."""
     from repro_torch.models import steps as model_steps
 
     gen_len = b0["tokens"].shape[1]
     prefill_e = model_steps.make_prefill_step(cfg, cap_len)
     decode_e = model_steps.make_decode_step(cfg)
     with torch.inference_mode():
-        logits, caches = prefill_e(params, {"tokens": b0["prompts"]})
+        logits, caches = prefill_e(params, {"tokens": b0["prompts"],
+                                            **(extras or {})})
         eager = [logits]
         for i in range(gen_len - 1):
             logits, caches = decode_e(params, caches, b0["tokens"][:, i:i + 1])
@@ -2303,6 +2342,517 @@ def ssm_on_card(torch, dev, card: str, graph_ms, time_ms, bound) -> dict:
     return {"counts": served, "flash": rows}
 
 
+# 4k: cross-attention, the encoder and the modality inputs: SeamlessM4T at
+#     its published widths and depth, Llama-3.2-Vision at its published
+#     widths reduced to LLAMA_PERIODS periods
+CROSS_ARCHS = ("seamless-m4t-large-v2", "llama-3.2-vision-90b")
+CROSS_SMOKE = False                  # True only in a CPU rehearsal
+LLAMA_PERIODS = 5                    # of 20: 47.0 of 175.3 GB of bf16 weights
+CROSS_BLOCK = (2, 128, 2)            # batch, prefill tokens, decode steps
+CROSS_FRAMES = 1000                  # the block's encoder frames: ragged
+CROSS_BLOCK_TOL = 1e-3
+CROSS_GATE_SEED = 29
+#: phase 4k's flash rows, bf16, against the plain version and against SDPA
+#: in fp32 on the same inputs: elementwise, and the relative L2 error
+#: ||got - want|| / ||want||. Set from the error that bf16 rounding gives
+#: at these shapes (about 2.4e-3 relative, 2e-3 absolute), so that a kernel
+#: that left the ragged case's 24 padded keys unmasked (1.4e-2 relative,
+#: under the elementwise limit) or dropped a block of 128 keys (above 0.25)
+#: fails (tests/test_torch_cross.py holds the check to that on the CPU)
+CROSS_FLASH_TOL = {"rtol": 1e-2, "atol": 4e-3}
+CROSS_FLASH_REL = 5e-3
+CROSS_PARTS = {"layers": {"cross_apply": "cross/attn"},
+               "steps": {"encode": "cross/encoder"},
+               "ops": {"gqa_flash_attention": "cross/flash"}}
+
+
+def flash_disagreement(torch, got, want) -> str | None:
+    """Why ``got`` is not ``want`` at phase 4k's flash limits
+    (`CROSS_FLASH_TOL`, `CROSS_FLASH_REL`), or None where it is."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    rel = ((got - want).norm() / want.norm()).item()
+    if not torch.allclose(got, want, **CROSS_FLASH_TOL):
+        return f"max abs err {err:.4g} over rtol/atol {CROSS_FLASH_TOL}"
+    if not rel <= CROSS_FLASH_REL:
+        return f"relative L2 err {rel:.4g} over {CROSS_FLASH_REL}"
+    return None
+
+
+def cross_config(name: str):
+    """The config phase 4k runs: the published one (the smoke one in a CPU
+    rehearsal), Llama-3.2-Vision cut to ``LLAMA_PERIODS`` periods."""
+    from repro_torch.configs import get_config, get_smoke
+
+    cfg = (get_smoke if CROSS_SMOKE else get_config)(name)
+    if name == "llama-3.2-vision-90b":
+        cfg = dataclasses.replace(cfg, n_periods=min(cfg.n_periods, LLAMA_PERIODS))
+    return cfg
+
+
+def set_gates(torch, layers: list, seed: int) -> list[float]:
+    """Every cross layer's tanh gate set in place to a seeded value in [0.3,
+    1.0): the reference's init (0) would hide cross-attention from every
+    check. Returns the values."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    values = []
+    for layer in layers:
+        if "cross" in layer:
+            values.append(0.3 + 0.7 * torch.rand((), generator=gen).item())
+            layer["cross"]["gate"].fill_(values[-1])
+    return values
+
+
+def cross_layers(cfg) -> tuple[int, int, int]:
+    """(encoder layers, self-attention layers, cross-attention layers)."""
+    from repro_torch.models.transformer import layer_kinds
+
+    mixers = [mixer for mixer, _ in layer_kinds(cfg)]
+    return (cfg.encoder.n_layers if cfg.encoder else 0,
+            sum(m in ("attn", "attn+cross") for m in mixers),
+            sum(m in ("cross", "attn+cross") for m in mixers))
+
+
+def cross_on_card(torch, dev, card: str, graph_ms, time_ms, bound) -> dict:
+    """Phase 4k. (a) `launch.serve` serves SeamlessM4T at full width and
+    depth (24 encoder layers, 24 "attn+cross" decoder layers) and
+    Llama-3.2-Vision at full width reduced to ``LLAMA_PERIODS`` periods
+    (4 self-attention layers and a "cross" layer a period), bf16, seeded
+    weights with every gate set nonzero (`set_gates`), ``MOE_SERVE`` as in
+    phase 4h, the batch's frames or vision tokens from
+    `data.make_extra_inputs`: every step a graph replay (counted), every
+    step of batch 0 equal to the eager steps bit for bit; a prefill
+    launches the flash kernel once an encoder, self- and cross-attention
+    layer, a decode step split_kv and its combine once a self- and
+    cross-attention layer. (b) A fresh compiled prefill serves batch 0's
+    prompts with the served extras (logits equal to the served ones) and
+    then with others (logits that differ, equal to the eager step's), and
+    decode steps on the new cross caches equal the eager ones, each call
+    counted; device busy, wall and idle share and the top kernels of a
+    compiled prefill and decode step, the encoder's, cross-attention's and
+    the flash calls' device ms from the eager steps; peak memory; the
+    decode's bytes bound and the prefill's operations bound. (c) The first
+    layers (seamless: one encoder layer over ``CROSS_FRAMES`` frames and
+    one decoder layer; Llama: its first period, 4 self-attention layers and
+    the cross layer) in fp32 at full width: a prefill of ``CROSS_BLOCK[1]``
+    tokens and ``CROSS_BLOCK[2]`` decode steps through the caches, on the
+    card against the CPU. (d) The flash kernel at the slice's new shapes
+    (`cross_flash_rows`). Returns each arch's launch counts and the rows of
+    (d)."""
+    from unittest import mock
+
+    from repro_torch.data import make_extra_inputs
+    from repro_torch.kernels import launch, ops
+    from repro_torch.launch import graph, serve
+    from repro_torch.models import layers, transformer
+    from repro_torch.models import steps as model_steps
+
+    requests, batch, prompt, gen_len = MOE_SERVE
+    n_batches = -(-requests // batch)
+    cap_len = prompt + gen_len
+    on_card = dev.type == "cuda"
+    gen = torch.Generator(device="cpu").manual_seed(17)
+    modules = {"layers": layers, "steps": model_steps, "ops": ops}
+
+    def sync():
+        card_sync(torch, dev)
+
+    def rel(got, want, what) -> float:
+        return rel_err(torch, got, want, what)
+
+    def flash_counts(n_enc: int, n_self: int, n_cross: int, prefills: int,
+                     decodes: int) -> dict:
+        out = {"flash_attention": (n_enc + n_self + n_cross) * prefills
+               + (n_self + n_cross) * decodes,
+               "flash_attention/combine": (n_self + n_cross) * decodes}
+        return {k: v for k, v in out.items() if v}
+
+    def gated_init(cfg, *, seed: int = 0, device="cuda"):
+        params = transformer.init_lm(cfg, seed=seed, device=device)
+        set_gates(torch, params["layers"], CROSS_GATE_SEED)
+        return params
+
+    served = {}
+    for name in CROSS_ARCHS:
+        cfg = cross_config(name)
+        n_enc, n_self, n_cross = cross_layers(cfg)
+        sync()
+        base_gb = 0.0
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base_gb = torch.cuda.memory_allocated(dev) / 1e9
+        record: dict = {}
+        replays = []
+        replay = graph.CapturedStep.replay
+
+        def counted_replay(self, _replay=replay, _replays=replays):
+            _replays.append(self)
+            return _replay(self)
+
+        launch.reset_launches()
+        with mock.patch.object(graph.CapturedStep, "replay", counted_replay), \
+                mock.patch.object(serve, "get_config", cross_config), \
+                mock.patch.object(serve, "get_smoke", cross_config), \
+                mock.patch.object(serve, "init_lm", gated_init):
+            report = serve.main(["--arch", name, "--requests", str(requests),
+                                 "--batch", str(batch), "--prompt-len", str(prompt),
+                                 "--gen-len", str(gen_len), "--device", dev.type],
+                                record=record)
+        sync()
+        counts = dict(launch.LAUNCHES)
+        expect = flash_counts(n_enc, n_self, n_cross, n_batches,
+                              n_batches * (gen_len - 1))
+        if counts != expect:
+            fail(f"cross serve {name}: launched {counts}, expected {expect} "
+                 f"({n_enc} encoder, {n_self} self- and {n_cross} "
+                 f"cross-attention layers, {n_batches} prefills)")
+        if on_card and len(replays) != n_batches * gen_len:
+            fail(f"cross serve {name}: {len(replays)} graph replays, expected "
+                 f"{n_batches * gen_len} (a prefill and {gen_len - 1} decodes a batch)")
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9 if on_card else 0.0
+        params, extras = record["params"], record["extras"]
+        gates = [float(l["cross"]["gate"]) for l in params["layers"] if "cross" in l]
+        if not gates or min(abs(g) for g in gates) == 0:
+            fail(f"cross serve {name}: gates {gates}")
+        n_params = transformer.count_params(cfg)
+        mem_len = next(iter(extras.values())).shape[1]
+        reduced = ("" if name != "llama-3.2-vision-90b" else
+                   f", reduced to {cfg.n_periods} of 20 periods")
+        print(f"cross serve ({name}, {cfg.n_layers} decoder layers{reduced}: "
+              f"{n_enc} encoder, {n_self} self-attention, {n_cross} "
+              f"cross-attention ({cfg.n_heads}/{cfg.n_kv_heads} heads of "
+              f"{cfg.hd}), d {cfg.d_model}, ff {cfg.d_ff}, {cfg.norm}, "
+              f"{cfg.act}, {cfg.dtype}, {n_params} parameters; memory "
+              f"{', '.join(f'{k} {tuple(v.shape)}' for k, v in extras.items())}; "
+              f"gates {min(gates):.3f}-{max(gates):.3f}): launches {counts}; "
+              f"{len(replays)} graph replays; report {json.dumps(report)}; peak "
+              f"memory {peak_gb:.3f} GB ({base_gb:.3f} GB before) ({card})")
+
+        b0 = record["batches"][0]
+        prefill_e, decode_e = served_equal_eager(torch, cfg, params, b0, cap_len,
+                                                 name, extras)
+
+        # (b) a fresh compiled prefill on the served extras and on others,
+        #     decode steps on the new cross caches, each call counted
+        prefill_c = graph.compile_prefill(model_steps.make_prefill_step(cfg, cap_len))
+        decode_c = graph.compile_decode(model_steps.make_decode_step(cfg))
+        other = {k: torch.randn(v.shape, generator=gen).to(dev, v.dtype)
+                 for k, v in extras.items()}
+        tok = b0["tokens"][:, :1]
+        rows = {}
+        with torch.inference_mode():
+            launch.reset_launches()
+            first, _ = prefill_c(params, {"tokens": b0["prompts"], **extras})
+            sync()
+            pre_counts = dict(launch.LAUNCHES)
+            if pre_counts != flash_counts(n_enc, n_self, n_cross, 1, 0):
+                fail(f"cross {name} compiled prefill launched {pre_counts}")
+            if not torch.equal(first, b0["logits"][:, 0]):
+                fail(f"cross {name}: the compiled prefill's logits differ from "
+                     f"the served ones on the same request")
+            swapped, caches = prefill_c(params, {"tokens": b0["prompts"], **other})
+            want, want_caches = prefill_e(params, {"tokens": b0["prompts"], **other})
+            if torch.equal(swapped, first) or not torch.equal(swapped, want):
+                fail(f"cross {name}: the prefill on other extras is "
+                     f"{'the first one' if torch.equal(swapped, first) else 'not the eager step'}"
+                     f" (max-abs-err/max-abs {rel(swapped, want, name):.3g})")
+            step_counts = []
+            for i in range(3):
+                launch.reset_launches()
+                got, caches = decode_c(params, caches, b0["tokens"][:, i:i + 1])
+                sync()
+                step_counts.append(dict(launch.LAUNCHES))
+                want, want_caches = decode_e(params, want_caches,
+                                             b0["tokens"][:, i:i + 1])
+                if not torch.equal(got, want):
+                    fail(f"cross {name}: decode step {i} on the other extras' "
+                         f"caches differs from the eager step")
+            if any(c != flash_counts(0, n_self, n_cross, 0, 1) for c in step_counts):
+                fail(f"cross {name} compiled decode steps launched {step_counts}")
+            print(f"cross extras swap ({name}): batch 0's prompts with the served "
+                  f"{'/'.join(extras)} give the served prefill logits, with others "
+                  f"logits that differ (max-abs-diff/max-abs "
+                  f"{rel(first, swapped, name):.3g}) and equal the eager step's bit "
+                  f"for bit, as do 3 decode steps on the new cross caches; launches "
+                  f"a prefill {pre_counts}, a decode step {step_counts[0]} ({card})")
+            del want_caches
+
+            batch0 = {"tokens": b0["prompts"], **extras}
+            for step, fn in (("prefill", lambda: prefill_c(params, batch0)),
+                             ("decode", lambda: decode_c(params, caches, tok))):
+                rows[(step, "compiled")] = profiled_parts(torch, dev, fn, (), top=6)
+                rows[(step, "compiled")]["wall"] = median_wall_ms(torch, dev, fn)
+            eager_caches = {}
+            patches = [p for mod, parts in CROSS_PARTS.items()
+                       for p in scoped_parts(torch, modules[mod], parts)]
+            for patch in patches:
+                patch.start()
+            try:
+                rows[("prefill", "eager")] = profiled_parts(
+                    torch, dev, lambda: eager_caches.update(
+                        c=prefill_e(params, batch0)[1]), ("cross/",))
+                rows[("decode", "eager")] = profiled_parts(
+                    torch, dev, lambda: decode_e(params, eager_caches["c"], tok),
+                    ("cross/",))
+            finally:
+                for patch in patches:
+                    patch.stop()
+            del caches, eager_caches
+
+        # the bounds: decode reads every weight it uses once (not the
+        # encoder's, not the cross layers' wk and wv, whose keys and values
+        # are cached, not the embedding's unread rows), the self-attention
+        # caches up to the first decode's position and the cross caches;
+        # prefill does every weight's products on its tokens (the cross
+        # layers' wk and wv on the memory, the encoder's on the frames), the
+        # attention's on every prompt position, and the head's on the last
+        # position only: the step returns the last position's logits (the
+        # port, as the reference, runs the head on every position)
+        elem = params["embed"]["w"].element_size()
+        d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+
+        def numel(tree) -> int:
+            sizes = []
+            tree_map(lambda w, _: sizes.append(w.numel()), tree)
+            return sum(sizes)
+
+        enc_n = sum(numel(params[k]) for k in ("enc_proj", "enc_layers", "enc_norm")
+                    if k in params)
+        cross_kv_n = sum(numel(l["cross"][w]) for l in params["layers"]
+                         if "cross" in l for w in ("wk", "wv"))
+        table = cfg.padded_vocab * d
+        unread = 0 if cfg.tie_embed else table - batch * d
+        weight_bytes = (n_params - enc_n - cross_kv_n) * elem - unread * elem
+        self_kv = n_self * 2 * batch * hkv * (prompt + 1) * hd * elem
+        cross_kv = n_cross * 2 * batch * hkv * mem_len * hd * elem
+        dec_n = n_params - enc_n - cross_kv_n - (0 if cfg.tie_embed else table)
+        f_pre = (2.0 * (dec_n - table) * batch * prompt + 2.0 * table * batch
+                 + 2.0 * cross_kv_n * batch * mem_len
+                 + 2.0 * enc_n * batch * mem_len
+                 + n_self * 2.0 * batch * hq * prompt * prompt * hd
+                 + n_enc * 4.0 * batch * hq * mem_len * mem_len * hd
+                 + n_cross * 4.0 * batch * hq * prompt * mem_len * hd)
+        bounds = {"decode": 1e3 * (weight_bytes + self_kv + cross_kv) / HBM_BYTES_PER_S,
+                  "prefill": max(bound(f_pre, 0, torch.bfloat16)[0],
+                                 1e3 * n_params * elem / HBM_BYTES_PER_S)}
+        print(f"cross step bounds ({name}, batch {batch}): decode "
+              f"{bounds['decode']:.3f} ms (bytes: {weight_bytes / 1e9:.3f} GB of "
+              f"weights, not the encoder's {enc_n * elem / 1e9:.3f} GB nor the "
+              f"cross wk/wv's {cross_kv_n * elem / 1e9:.3f} GB; self-attention "
+              f"caches at {prompt + 1} keys {self_kv / 1e9:.4f} GB; cross caches of "
+              f"{mem_len} keys {cross_kv / 1e9:.4f} GB); prefill "
+              f"{bounds['prefill']:.3f} ms (operations: {f_pre / 1e12:.2f} TFLOP "
+              f"bf16: the weights' products, causal self-, non-causal encoder and "
+              f"cross-attention, the head on the last position only) ({card})")
+        for (step, mode), row in rows.items():
+            busy = max(row["busy"], 1e-9)
+            parts = ""
+            if mode == "eager":
+                parts = "; " + ", ".join(
+                    f"{label} {row.get(label, 0.0):.3f} ms "
+                    f"({row.get(label, 0.0) / busy:.3f} of busy)"
+                    for parts in CROSS_PARTS.values() for label in parts.values())
+            wall = ""
+            if "wall" in row:
+                wall = (f", wall {row['wall']:.3f} ms (median of 5), idle share "
+                        f"{1 - row['busy'] / max(row['wall'], 1e-9):.3f}")
+            print(f"cross profile ({name}, {step}, {mode}, batch {batch}): device "
+                  f"busy {row['busy']:.3f} ms (kernel events){wall}{parts}; "
+                  f"bound {bounds[step]:.3f} ms ({card})")
+            for ms, calls, kname in row.get("top", ()):
+                print(f"  cross {name} {step} {mode} device time {ms:.3f} ms in "
+                      f"{calls} calls: {kname}")
+        served[name] = {"counts": counts, "report": report, "peak_gb": peak_gb,
+                        "bounds": bounds}
+        del prefill_c, decode_c, record, b0, params, extras, other
+        del prefill_e, decode_e, batch0, first, swapped, got, want
+        if on_card:
+            torch.cuda.empty_cache()
+
+    # (c) the first layers in fp32 at full width, card against CPU: a
+    #     prefill through the caches (the encoder's frames ragged), then
+    #     decode steps that read them
+    bsz, t_pre, t_dec = CROSS_BLOCK
+    t_all = t_pre + t_dec
+    cpu = torch.device("cpu")
+    for name in CROSS_ARCHS:
+        cfg = cross_config(name)
+        bcfg = dataclasses.replace(
+            cfg, dtype="float32", n_periods=1,
+            encoder=cfg.encoder and dataclasses.replace(cfg.encoder, n_layers=1))
+        n_enc, n_self, n_cross = cross_layers(bcfg)
+        kinds = transformer.layer_kinds(bcfg)
+        mem_len = CROSS_FRAMES if bcfg.encoder else bcfg.n_vision_tokens
+
+        def block(p, x, extra, where, bcfg=bcfg, kinds=kinds):
+            memory = (transformer.encode(p, bcfg, extra) if bcfg.encoder else extra)
+            caches = transformer.init_caches(bcfg, bsz, t_all, mem_len=mem_len,
+                                             device=where)["layers"]
+            h = x[:, :t_pre]
+            positions = torch.arange(t_pre, device=where)
+            for lp, c in zip(p["layers"], caches):
+                h, _, _ = transformer._layer_apply(
+                    lp, h, bcfg, positions=positions, cache=c, cache_pos=None,
+                    start=0, memory=memory)
+            outs = [h]
+            for i in range(t_pre, t_all):
+                pos = torch.full((), i, dtype=torch.int32, device=where)
+                h = x[:, i:i + 1]
+                for lp, c in zip(p["layers"], caches):
+                    h, _, _ = transformer._layer_apply(
+                        lp, h, bcfg, positions=pos + torch.arange(1, device=where),
+                        cache=c, cache_pos=pos, start=None)
+                outs.append(h)
+            return memory, torch.cat(outs, 1), caches
+
+        with torch.inference_mode():
+            bgen = torch.Generator(device=dev).manual_seed(23)
+            bp = {"layers": [transformer._layer_init(bgen, bcfg, mixer, ffn, dev)
+                             for mixer, ffn in kinds]}
+            if bcfg.encoder:
+                bp["enc_proj"] = layers.dense_init(bgen, bcfg.encoder.frontend_dim,
+                                                   bcfg.d_model, torch.float32, dev)
+                bp["enc_layers"] = [transformer._layer_init(bgen, bcfg, "attn",
+                                                            "dense", dev)]
+                bp["enc_norm"] = layers.norm_init(bcfg.d_model, torch.float32, dev,
+                                                  bcfg.norm)
+            set_gates(torch, bp["layers"], CROSS_GATE_SEED + 1)
+            x = torch.randn(bsz, t_all, bcfg.d_model, generator=gen).to(dev)
+            extra = torch.randn(bsz, mem_len, bcfg.encoder.frontend_dim
+                                if bcfg.encoder else bcfg.d_model, generator=gen).to(dev)
+            launch.reset_launches()
+            got_mem, got, got_caches = block(bp, x, extra, dev)
+            sync()
+            counts = dict(launch.LAUNCHES)
+            want_mem, want, want_caches = block(
+                tree_map(lambda w, _: w.to(cpu), bp), x.cpu(), extra.cpu(), cpu)
+            errs = {"memory": rel(got_mem.cpu(), want_mem, name),
+                    "prefill": rel(got[:, :t_pre].cpu(), want[:, :t_pre], name),
+                    "decode": rel(got[:, t_pre:].cpu(), want[:, t_pre:], name),
+                    "cross caches": max(rel(g[n].cpu(), w[n], name)
+                                        for g, w in zip(got_caches, want_caches)
+                                        for n in (layers.CROSS_K, layers.CROSS_V)
+                                        if n in g)}
+            calls = n_enc + n_self + n_cross
+            expect = {"flash_attention": calls + t_dec * (n_self + n_cross),
+                      "flash_attention/pack": calls,
+                      "flash_attention/combine": t_dec * (n_self + n_cross)}
+            if on_card and counts != expect:
+                fail(f"cross block {name}: launched {counts}, expected {expect} "
+                     f"(tc_3xtf32 and its pack a prefill call, split_kv and its "
+                     f"combine a decode call)")
+            if max(errs.values()) > CROSS_BLOCK_TOL:
+                fail(f"cross block {name}: card vs CPU max-abs-err/max-abs {errs} "
+                     f"(limit {CROSS_BLOCK_TOL})")
+            print(f"cross block ({name}, the first layers {[m + '+' + f for m, f in kinds]}"
+                  + (f" after {n_enc} encoder layer over {mem_len} frames (ragged)"
+                     if n_enc else f" over {mem_len} vision tokens")
+                  + f", full width, fp32, batch {bsz}, prefill {t_pre} + {t_dec} "
+                  f"decode steps): card vs CPU max-abs-err/max-abs "
+                  + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+                  + f" (limit {CROSS_BLOCK_TOL}); launches {counts} ({card})")
+            del bp, x, extra, got, want, got_mem, want_mem, got_caches, want_caches
+        if on_card:
+            torch.cuda.empty_cache()
+
+    # (d) the flash kernel at the slice's new shapes
+    rows = cross_flash_rows(torch, dev, card, gen, graph_ms, time_ms, bound)
+    return {"counts": {k: v["counts"] for k, v in served.items()}, "flash": rows}
+
+
+def cross_flash_rows(torch, dev, card: str, gen, graph_ms, time_ms,
+                     bound) -> dict:
+    """The flash kernel at phase 4k's shapes, bf16, each against its plain
+    version, timed beside SDPA (the kv heads repeated to the q heads
+    beforehand) and the card's bound: SeamlessM4T's encoder (B 4, 16/16
+    heads, d 64, 1024 frames, not causal; tc_bf16); Llama-3.2-Vision's
+    cross-attention prefill (B 4, 64/8 heads, d 128, 1024 queries over the
+    1664 vision keys, not causal; tc_bf16) and decode (one query over the
+    1664 keys: split_kv with the valid length on the device, as the served
+    decode runs it, and the one-pass body an integer call takes); and one
+    ragged non-causal shape, 1000 queries over 1000 keys at the encoder's
+    heads, run as ``ops.gqa_flash_attention`` runs it: causal at q_offset
+    1000, the 24 padded keys masked. ``launches`` are each case's counts on
+    the served path."""
+    from repro_torch.kernels import flash_attention
+
+    on_card = dev.type == "cuda"
+    requests, batch, prompt, gen_len = MOE_SERVE
+    n_batches = -(-requests // batch)
+    seam, llama = (cross_config(n) for n in CROSS_ARCHS)
+    n_enc, _, seam_cross = cross_layers(seam)
+    _, _, llama_cross = cross_layers(llama)
+    sm = llama.n_vision_tokens
+    cases = {
+        "encoder prefill": (seam, prompt, prompt, dict(causal=False), "tc_bf16",
+                            n_enc * n_batches),
+        "cross prefill": (llama, prompt, sm, dict(causal=False), "tc_bf16",
+                          llama_cross * n_batches),
+        "cross decode, split_kv": (llama, 1, sm, dict(causal=False, device_pos=True),
+                                   "split_kv", llama_cross * n_batches * (gen_len - 1)),
+        "cross decode, one pass": (llama, 1, sm, dict(causal=False), "tc_bf16", 0),
+        "ragged non-causal": (seam, CROSS_FRAMES, CROSS_FRAMES,
+                              dict(causal=True, q_offset=CROSS_FRAMES), "tc_bf16", 0)}
+    rows = {}
+    for case, (cfg, sq, skv, kw, body, n_launch) in cases.items():
+        hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        fp = flash_attention.flash_launch_plan(
+            bh=batch * hq, sq=sq, skv=skv, d=hd, kv_group=hq // hkv,
+            dtype=torch.bfloat16, **kw)
+        if on_card and fp.body != body:
+            fail(f"flash at {case}: body {fp.body}, expected {body}")
+        q = torch.randn(batch * hq, sq, hd, generator=gen).to(dev, torch.bfloat16)
+        k, v = (torch.randn(batch * hkv, skv, hd, generator=gen)
+                .to(dev, torch.bfloat16) for _ in range(2))
+        extra = ({"pos": torch.tensor([0, skv], dtype=torch.int32, device=dev)}
+                 if kw.get("device_pos") else {})
+        pq = fp.inputs[0].array_shape[1] - sq
+        qp = torch.nn.functional.pad(q, (0, 0, 0, pq)).contiguous()
+        kp, vp = (torch.nn.functional.pad(
+            t, (0, 0, 0, fp.inputs[1].array_shape[1] - skv)).contiguous()
+            for t in (k, v))
+        call = fp.cuda if on_card else fp.plain
+        got, want = call(qp, kp, vp, **extra), fp.plain(qp, kp, vp, **extra)
+        got, want = got[:, :sq], want[:, :sq]
+        err = (got.float() - want.float()).abs().max().item()
+        rel = ((got.float() - want.float()).norm() / want.float().norm()).item()
+        why = flash_disagreement(torch, got, want)
+        if why:
+            fail(f"flash at {case}, against the plain version: {why}")
+        q4 = q.view(batch, hq, sq, hd)
+        k4, v4 = (t.view(batch, hkv, skv, hd) for t in (k, v))
+        kr, vr = (t.repeat_interleave(hq // hkv, dim=1) for t in (k4, v4))
+        exact = torch.nn.functional.scaled_dot_product_attention(
+            q4.float(), kr.float(), vr.float())
+        why = flash_disagreement(torch, got.reshape(batch, hq, sq, hd), exact)
+        if why:
+            fail(f"flash at {case}: the kernel is not non-causal attention over "
+                 f"the {skv} real keys (fp32 SDPA on the same inputs): {why}")
+        rel_sdpa = ((got.float().reshape(batch, hq, sq, hd) - exact).norm()
+                    / exact.norm()).item()
+        del exact
+        flops = 4.0 * batch * hq * sq * skv * hd
+        b_ms, b_by = bound(flops, 2 * (2 * q.numel() + k.numel() + v.numel()),
+                           torch.bfloat16)
+        rows[case] = row = {
+            "body": fp.body, "max_abs_err": err, "rel_err": rel,
+            "rel_err_fp32_sdpa": rel_sdpa,
+            "ms": graph_ms(lambda: call(qp, kp, vp, **extra)),
+            "plain_ms": time_ms(lambda: fp.plain(qp, kp, vp, **extra)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": graph_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(q4, kr, vr)),
+            "launches": n_launch}
+        print(f"cross flash {case} bf16 (B {batch}, {hq}/{hkv} heads, d {hd}, "
+              f"Sq {sq}, Skv {skv}" + (", device position" if extra else "")
+              + f"): " + " ".join(
+                  f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
+                  for k, v in row.items()) + f" ({card})")
+        del q, k, v, qp, kp, vp, q4, k4, v4, kr, vr, got, want
+    return rows
+
+
 def kernel_name(mangled: str) -> str:
     """A kernel's mangled name without its anonymous namespace's token."""
     m = re.match(r"_ZN(\d+)_GLOBAL__N_", mangled)
@@ -3474,6 +4024,15 @@ def main() -> None:
     print(f"ssm phase: {time.perf_counter() - t0:.1f} s, launches {ssm_run['counts']}")
     jamba_counts = ssm_run["counts"]["jamba-v0.1-52b"]
 
+    # 4k. cross-attention, the encoder and the modality inputs: SeamlessM4T
+    #     and Llama-3.2-Vision (5 periods) served at full width (4j's models
+    #     are freed with its frame), their first layers in fp32 against the
+    #     CPU, flash at the slice's new shapes
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cross = cross_on_card(torch, dev, smi, graph_ms, time_ms, bound)
+    print(f"cross phase: {time.perf_counter() - t0:.1f} s, launches {cross['counts']}")
+
     # 5. result lines
     sources = {"psum_matmul/active": ("psum_matmul", "src/repro/kernels/psum_matmul.py:48"),
                "psum_matmul/passive": ("psum_matmul", "src/repro/kernels/psum_matmul.py:66"),
@@ -3534,6 +4093,15 @@ def main() -> None:
         "ssm_combine_launches": jamba_counts["flash_attention/combine"],
         "ssm_prefill": ssm_run["flash"]["prefill"],
         "ssm_decode": ssm_run["flash"]["decode"],
+        # phase 4k's launches: SeamlessM4T (encoder, self- and
+        # cross-attention) and Llama-3.2-Vision (5 periods) served, and the
+        # kernel at the encoder's, cross-attention's and a ragged
+        # non-causal shape
+        "cross_launches": {name: c["flash_attention"]
+                           for name, c in cross["counts"].items()},
+        "cross_combine_launches": {name: c["flash_attention/combine"]
+                                   for name, c in cross["counts"].items()},
+        "cross_rows": cross["flash"],
         "max_abs_err": head["max_abs_err"], "ms": head["ms"],
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],

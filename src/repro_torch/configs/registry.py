@@ -1,10 +1,12 @@
 """Architecture registry of the port + smoke reduction.
 
-``ARCHS`` lists the archs whose modules the port has: the dense
+``ARCHS`` lists every arch the reference registers: the dense
 decoder-only ones, the MoE decoder (qwen2-moe), DeepSeek-V2-Lite (MLA, a
-leading dense layer, MoE), Mamba2 (attention-free) and Jamba (mamba and
-attention sublayers, dense and MoE FFNs). The reference's other archs are
-known by name and wait for the modules that ROADMAP A7 lists.
+leading dense layer, MoE), Mamba2 (attention-free), Jamba (mamba and
+attention sublayers, dense and MoE FFNs), Llama-3.2-Vision (self-attention
+periods with a cross-attention layer over stubbed vision tokens) and
+SeamlessM4T (an encoder over stubbed audio frames, decoder layers with
+self- and cross-attention).
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ ARCHS: tuple[str, ...] = (
     "deepseek-v2-lite-16b",
     "mamba2-1.3b",
     "jamba-v0.1-52b",
+    "llama-3.2-vision-90b",
+    "seamless-m4t-large-v2",
 )
 
 _MODULES = {
@@ -32,12 +36,8 @@ _MODULES = {
     "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
     "mamba2-1.3b": "mamba2_1p3b",
     "jamba-v0.1-52b": "jamba_v01_52b",
-}
-
-#: the reference's other archs, with what each waits for (ROADMAP A7)
-_WAITING = {
-    "llama-3.2-vision-90b": "cross-attention and the vlm inputs (ROADMAP A7)",
-    "seamless-m4t-large-v2": "the encoder and cross-attention (ROADMAP A7)",
+    "llama-3.2-vision-90b": "llama32_vision_90b",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
 }
 
 
@@ -46,9 +46,6 @@ def list_archs() -> tuple[str, ...]:
 
 
 def get_config(name: str):
-    if name in _WAITING:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet: it waits for {_WAITING[name]}")
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; known: {list(ARCHS)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")

@@ -83,14 +83,23 @@ def gqa_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     A v narrower than q and k (MLA's expanded form: D 192, Dv 128) is
     zero-padded to D for the kernel, which takes v as wide as k, and the
     output is sliced back to Dv: the zero columns of v only add zero
-    columns to the output, so the result is exact. Returns (B, Hq, Sq,
-    Dv)."""
+    columns to the output, so the result is exact.
+
+    A non-causal call whose Skv the kernel would pad (longer than a kv
+    block and not a multiple of it: an encoder's or a cross-attention's
+    ragged length) runs as a causal one with ``q_offset = Skv``: every
+    query then sees every real key, and the causal launch's mask hides the
+    padded ones (``k_ids < skv``), which a non-causal launch refuses to
+    pad (RPC031). Returns (B, Hq, Sq, Dv)."""
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
     dv = v.shape[-1]
     if hq % hkv or dv > d:
         raise ValueError(f"gqa_flash_attention: {hq} q heads over {hkv} kv "
                          f"heads, v {dv} wide for q and k of {d}")
+    device_pos = isinstance(q_offset, torch.Tensor) or kv_valid_len is not None
+    if not causal and not device_pos and skv % min(bk, skv):
+        causal, q_offset = True, skv
     if dv < d:
         v = F.pad(v, (0, d - dv))
     out = _flash.flash_attention(

@@ -16,16 +16,24 @@ At the first call for an input shape the wrapper
 
 and every call copies its inputs into the static ones and replays.
 
-Caches. The compiled prefill owns one static cache per batch size, which
-each call zeroes and fills inside the graph and returns; a compiled decode
-captured on that cache serves every later request of the batch size, since
-its attention reads the position from device memory (the split_kv decode,
-or MLA's absorbed `chunked_attention`). A layer's cache is a head-major
-(k, v) pair, an MLA latent buffer or a mamba layer's conv window and SSM
-state, each written in place; `_cache_buffers` lists any of them. A call on
+Inputs. The prefill's static inputs are the tokens and, for a vlm or
+enc-dec arch, the batch's ``vision_ctx`` or ``frames`` (`EXTRAS`): each
+call copies all of them in, so a request with other frames or vision
+tokens is served with its own, not the captured ones.
+
+Caches. The compiled prefill owns one static cache per batch size and
+memory length, which each call zeroes and fills inside the graph and
+returns; a compiled decode keeps a graph per token shape and memory length,
+each captured on that cache, which serves every later request of the batch
+size and memory length, since its attention reads the position from device
+memory (the split_kv decode, or MLA's absorbed `chunked_attention`).
+A layer's cache is a head-major (k, v) pair, an MLA latent buffer, a mamba
+layer's conv window and SSM state or a cross layer's memory keys and
+values, each written in place; `_cache_buffers` lists any of them. A call on
 buffers (cache or weights) other than the ones a graph was captured on
 raises: the graph would read the old ones. As with ``donate_argnums``, a
-returned cache is the caller's until the next call for the same batch size.
+returned cache is the caller's until the next call for the same batch size
+and memory length.
 The position is mirrored on the host under ``caches[HOST_POS]``, so that a
 decode past the capacity of the first attention layer's cache raises
 `ValueError` before the replay: on the card it would write past the cache.
@@ -53,12 +61,16 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.kernels import launch
+from repro_torch.models.layers import CROSS_K
 from repro_torch.models.moe import check_capturable
 from repro_torch.models.ssm import STATE
 from repro_torch.models.transformer import cache_capacity
 
 #: the caches' position as a host int, kept by the compiled steps
 HOST_POS = "host_pos"
+#: the batch entries besides the tokens that a prefill takes: a vlm's
+#: stubbed vision embeddings, an enc-dec arch's stubbed frames
+EXTRAS = ("vision_ctx", "frames")
 
 
 def _captures(device: torch.device) -> bool:
@@ -99,9 +111,16 @@ class CapturedStep:
 
 def _cache_buffers(caches) -> list[torch.Tensor]:
     """``pos`` and every tensor of each layer's cache, whatever its layout
-    ((k, v), an MLA latent buffer or a mamba layer's conv and SSM state),
-    layer by layer in name order."""
+    ((k, v), an MLA latent buffer, a mamba layer's conv and SSM state, a
+    cross layer's memory keys and values), layer by layer in name order."""
     return [caches["pos"], *(c[n] for c in caches["layers"] for n in sorted(c))]
+
+
+def _memory_key(caches) -> tuple[int, ...]:
+    """The length of the cross caches' memory, as a 1-tuple, for a cache
+    that has cross layers; () for one that has none."""
+    return next(((c[CROSS_K].shape[2],) for c in caches["layers"] if CROSS_K in c),
+                ())
 
 
 def _advanced_buffers(caches) -> list[torch.Tensor]:
@@ -124,8 +143,8 @@ class CompiledPrefill:
     def __init__(self, step):
         check_capturable(step.cfg)
         self.step = step
-        self.caches: dict[int, dict] = {}       # batch size -> static cache
-        self.graphs: dict[tuple, dict] = {}     # tokens' shape -> graph
+        self.caches: dict[tuple, dict] = {}     # (batch, memory) -> static cache
+        self.graphs: dict[tuple, dict] = {}     # inputs' shapes -> graph
 
     def __call__(self, params, batch) -> tuple[torch.Tensor, dict]:
         tokens = batch["tokens"]
@@ -134,37 +153,42 @@ class CompiledPrefill:
             logits, caches = self.step(params, batch)
             caches[HOST_POS] = s
             return logits, caches
-        key = (b, s, tokens.dtype)
+        inputs = {"tokens": tokens, **{n: batch[n] for n in EXTRAS if n in batch}}
+        key = tuple((n, tuple(t.shape), t.dtype) for n, t in inputs.items())
         entry = self.graphs.get(key)
         if entry is None:
-            entry = self.graphs[key] = self._capture(params, tokens)
+            entry = self.graphs[key] = self._capture(params, inputs)
         else:
             _check_same("prefill", "weights", [params], [entry["params"]])
-        entry["tokens"].copy_(tokens)
+        for name, t in inputs.items():
+            entry["inputs"][name].copy_(t)
         entry["graph"].replay()
-        caches = self.caches[b]
+        caches = self.caches[entry["cache_key"]]
         caches[HOST_POS] = s
         return entry["graph"].out.clone(), caches
 
-    def _capture(self, params, tokens: torch.Tensor) -> dict:
-        b = tokens.shape[0]
-        static = tokens.clone()
-        if b not in self.caches:
-            # the step's own fresh caches become the batch size's static
-            # cache: made outside any graph, so no graph's pool holds them
+    def _capture(self, params, inputs: dict) -> dict:
+        static = {name: t.clone() for name, t in inputs.items()}
+        # the memory's length is the extras' axis 1 (frames or vision tokens)
+        cache_key = (inputs["tokens"].shape[0],
+                     *(t.shape[1] for n, t in inputs.items() if n != "tokens"))
+        if cache_key not in self.caches:
+            # the step's own fresh caches become the static cache of the
+            # batch size and memory length: made outside any graph, so no
+            # graph's pool holds them
             with launch.recording():
-                _, self.caches[b] = self.step(params, {"tokens": static})
-        caches = self.caches[b]
+                _, self.caches[cache_key] = self.step(params, static)
+        caches = self.caches[cache_key]
 
         def run():
             for buf in _cache_buffers(caches):
                 buf.zero_()
-            logits, new = self.step(params, {"tokens": static}, caches)
+            logits, new = self.step(params, static, caches)
             caches["pos"].copy_(new["pos"])
             return logits
 
-        return {"graph": CapturedStep(run, tokens.device), "tokens": static,
-                "params": params}
+        return {"graph": CapturedStep(run, inputs["tokens"].device),
+                "inputs": static, "params": params, "cache_key": cache_key}
 
 
 class CompiledDecode:
@@ -174,7 +198,8 @@ class CompiledDecode:
     def __init__(self, step):
         check_capturable(step.cfg)
         self.step = step
-        self.graphs: dict[tuple, dict] = {}     # token's shape -> graph
+        # (token's shape, dtype, memory length where there is one) -> graph
+        self.graphs: dict[tuple, dict] = {}
 
     def __call__(self, params, caches, token) -> tuple[torch.Tensor, dict]:
         s = token.shape[1]
@@ -189,7 +214,7 @@ class CompiledDecode:
             logits, caches = self.step(params, caches, token)
             caches[HOST_POS] = host + s
             return logits, caches
-        key = (tuple(token.shape), token.dtype)
+        key = (tuple(token.shape), token.dtype, *_memory_key(caches))
         entry = self.graphs.get(key)
         if entry is None:
             entry = self.graphs[key] = self._capture(params, caches, token)

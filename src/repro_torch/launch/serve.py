@@ -10,8 +10,14 @@ compiled as the reference's ``serve.py`` jits them (`graph.compile_prefill`,
 replayed per call, and a request's first batch pays for the capture. Every
 attention layer of prefill and decode goes through the flash kernel
 (`ops.gqa_flash_attention`). An MoE arch (``--arch qwen2-moe-a2.7b``) serves
-through its capacity dispatch, the config's default. The card is synchronised before each clock
-read; each interval is a `repro_torch.obs.Stopwatch`.
+through its capacity dispatch, the config's default. A vlm or enc-dec arch
+(``--arch llama-3.2-vision-90b``, ``--arch seamless-m4t-large-v2``) takes
+its stubbed vision tokens or audio frames from
+`repro_torch.data.make_extra_inputs`, drawn once before the first prompt
+and passed with every batch, as the reference's ``serve.py`` does; its
+prefill runs the encoder (seamless) and fills the cross caches, and its
+decode steps read them. The card is synchronised before each clock read;
+each interval is a `repro_torch.obs.Stopwatch`.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_smoke
+from repro_torch.data import make_extra_inputs
 from repro_torch.kernels.launch import resolve_device
 from repro_torch.launch import graph
 from repro_torch.models import steps as ST
@@ -36,7 +43,8 @@ def _sync(device: torch.device) -> None:
 
 def main(argv=None, *, record: dict | None = None) -> dict:
     """Serve ``--requests`` prompts in batches and return the report. Given a
-    dict as ``record``, it also receives the config, the weights and, per
+    dict as ``record``, it also receives the config, the weights, the
+    extras (vision tokens or frames; empty for the other archs) and, per
     batch, the prompts, the generated tokens and the logits of every step
     (prefill first), so a caller can check what was served."""
     ap = argparse.ArgumentParser()
@@ -60,6 +68,8 @@ def main(argv=None, *, record: dict | None = None) -> dict:
         max_len = args.prompt_len + args.gen_len
         prefill = graph.compile_prefill(ST.make_prefill_step(cfg, max_len))
         decode = graph.compile_decode(ST.make_decode_step(cfg))
+        extras = make_extra_inputs(cfg, args.batch, args.prompt_len, rng,
+                                   device=device)
         _sync(device)
         with Stopwatch() as run:
             for bi in range(n_batches):
@@ -68,7 +78,8 @@ def main(argv=None, *, record: dict | None = None) -> dict:
                 _sync(device)
                 with Stopwatch() as total:
                     with Stopwatch() as first:
-                        logits, caches = prefill(params, {"tokens": prompts})
+                        logits, caches = prefill(params, {"tokens": prompts,
+                                                          **extras})
                         tok = torch.argmax(logits, -1)[:, None]
                         _sync(device)
                     step_logits, out = [logits], [tok]
@@ -91,7 +102,7 @@ def main(argv=None, *, record: dict | None = None) -> dict:
                 del caches
         wall = run.s
     if record is not None:
-        record.update(cfg=cfg, params=params)
+        record.update(cfg=cfg, params=params, extras=extras)
     report = {
         "requests": n_batches * args.batch,
         "tokens": toks,

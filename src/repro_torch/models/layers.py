@@ -1,6 +1,8 @@
 """Core layer library of the port: dense projections, norms, rotary
-embeddings, causal GQA/MQA self-attention with a KV cache, DeepSeek's
-multi-head latent attention (MLA) with its latent cache, and gated MLPs.
+embeddings, GQA/MQA self-attention with a KV cache (causal, or not for an
+encoder), cross-attention over an encoder's or a vision stub's memory with
+its cross cache, DeepSeek's multi-head latent attention (MLA) with its
+latent cache, and gated MLPs.
 
 Functional like the reference (``repro/models/layers.py``): ``*_init(...) ->
 params dict`` and ``*_apply(params, x, ...) -> y`` over plain dicts of
@@ -10,7 +12,7 @@ S = QK^T, the schedule the reference's ``chunked_attention`` computes at the
 XLA level. MLA's prefill (the expanded form) takes the same kernel; its
 absorbed decode, whose 576-wide keys are wider than the kernel is built
 for, runs `chunked_attention`, the plain counterpart of the reference's
-own plain-XLA path. Cross-attention waits for a later slice (ROADMAP A7).
+own plain-XLA path.
 """
 
 from __future__ import annotations
@@ -161,7 +163,11 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 # ------------------------------------------------------------------ attention
-def attn_init(gen, cfg, device) -> Params:
+def attn_init(gen, cfg, device, cross: bool = False) -> Params:
+    """``wq``, ``wk``, ``wv``, ``wo`` (and the qk norms where the config has
+    them); a cross-attention layer (``cross``) also has the scalar tanh
+    ``gate`` of Llama-3.2-Vision, zero as in the reference, so that at init
+    cross-attention adds nothing to the residual."""
     d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     dt = dtype_of(cfg)
     p = {
@@ -173,6 +179,8 @@ def attn_init(gen, cfg, device) -> Params:
     if cfg.qk_norm:
         p["q_norm"] = norm_init(hd, dt, device)
         p["k_norm"] = norm_init(hd, dt, device)
+    if cross:
+        p["gate"] = torch.zeros((), dtype=dt, device=device)
     return p
 
 
@@ -185,12 +193,71 @@ def init_kv_cache(cfg, batch: int, max_len: int, device) -> Params:
             "v": torch.zeros(shape, dtype=dtype_of(cfg), device=device)}
 
 
+#: a cross-attention layer's cache: the keys and values of the memory,
+#: head-major (B, Hkv, Sm, hd), under names of their own, so that a layer
+#: with self- and cross-attention keeps one flat dict of tensors and
+#: `transformer.cache_capacity` reads "k" of self-attention only
+CROSS_K, CROSS_V = "cross_k", "cross_v"
+
+
+def init_cross_cache(cfg, batch: int, mem_len: int, device) -> Params:
+    """Zeroed cross keys and values, head-major (B, Hkv, mem_len, hd) (the
+    reference keeps (B, mem_len, Hkv, hd)): computed once from the memory at
+    prefill, read by every decode step."""
+    shape = (batch, cfg.n_kv_heads, mem_len, cfg.hd)
+    return {CROSS_K: torch.zeros(shape, dtype=dtype_of(cfg), device=device),
+            CROSS_V: torch.zeros(shape, dtype=dtype_of(cfg), device=device)}
+
+
+def cross_apply(p: Params, x: torch.Tensor, cfg, *,
+                cache: Params | None = None,
+                memory: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, Params | None]:
+    """Cross-attention: queries from x, keys and values from ``memory`` (B,
+    Sm, d) where given, written in place into the cache's `CROSS_K` and
+    `CROSS_V` (a prefill), else read from them (a decode step). No rope, no
+    qk-norm, not causal: every query sees all Sm keys. One query against
+    the cache passes the valid length Sm as a 0-d tensor on the device, so
+    the flash kernel takes split_kv, whose blocks serve all q heads of a kv
+    head at once; the one-pass bodies give a block to each q head. Then
+    ``wo``, and the output times tanh(gate) (rounded to the output's dtype,
+    as in the reference)."""
+    b, s, _ = x.shape
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = dense(p["wq"], x).reshape(b, s, hq, hd).transpose(1, 2)
+    valid = None
+    if memory is not None:
+        sm = memory.shape[1]
+        k = dense(p["wk"], memory).reshape(b, sm, hkv, hd).transpose(1, 2)
+        v = dense(p["wv"], memory).reshape(b, sm, hkv, hd).transpose(1, 2)
+        if cache is not None:
+            if tuple(cache[CROSS_K].shape) != tuple(k.shape):
+                raise ValueError(f"cross_apply: memory of {sm} keys for a "
+                                 f"cross cache of {tuple(cache[CROSS_K].shape)}")
+            cache[CROSS_K].copy_(k)
+            cache[CROSS_V].copy_(v)
+            k, v = cache[CROSS_K], cache[CROSS_V]
+    else:
+        if cache is None:
+            raise ValueError("cross_apply: cross-attention without memory "
+                             "needs the cross cache a prefill filled")
+        k, v = cache[CROSS_K], cache[CROSS_V]
+        if s == 1:
+            valid = torch.full((), k.shape[2], dtype=torch.int32,
+                               device=x.device)
+    out = ops.gqa_flash_attention(q, k, v, causal=False, kv_valid_len=valid)
+    out = dense(p["wo"], out.transpose(1, 2).reshape(b, s, hq * hd))
+    return torch.tanh(p["gate"].float()).to(out.dtype) * out, cache
+
+
 def attn_apply(p: Params, x: torch.Tensor, cfg, *, positions: torch.Tensor,
                cache: Params | None = None,
                cache_pos: torch.Tensor | None = None,
-               start: int | None = None) -> tuple[torch.Tensor, Params | None]:
-    """Causal self-attention with an optional KV cache. x: (B, S, d);
-    positions: (S,) on x's device.
+               start: int | None = None, causal: bool = True
+               ) -> tuple[torch.Tensor, Params | None]:
+    """Self-attention with an optional KV cache, causal unless ``causal`` is
+    False (an encoder's, with no cache); cross-attention is `cross_apply`.
+    x: (B, S, d); positions: (S,) on x's device.
 
     With a cache, this step's keys and values are written at ``positions``
     with ``index_copy_`` on that device index (in place: the reference's
@@ -214,7 +281,7 @@ def attn_apply(p: Params, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     k = apply_rope(k, positions, cfg.rope_theta).transpose(1, 2)
     v = v.transpose(1, 2)
     if cache is None:
-        out = ops.gqa_flash_attention(q, k, v, causal=True)
+        out = ops.gqa_flash_attention(q, k, v, causal=causal)
     else:
         cap = cache["k"].shape[2]
         if s > cap or (start is not None and not 0 <= start <= cap - s):

@@ -1,10 +1,13 @@
-"""Model assembly of the port: decoder-only LMs whose period layout is made
-of attention or Mamba-2 mixers, each with a dense FFN, the MoE or no FFN:
-the dense archs, the MoE decoder (qwen2-moe, `repro_torch.models.moe`),
-DeepSeek-V2-Lite, whose attention is MLA (`layers.mla_apply`) and whose
-first layer is dense, Mamba2 (`repro_torch.models.ssm`, attention-free)
-and Jamba (mamba and attention sublayers, dense and MoE FFNs in one
-period).
+"""Model assembly of the port: LMs whose period layout is made of
+attention, cross-attention or Mamba-2 mixers, each with a dense FFN, the
+MoE or no FFN: the dense archs, the MoE decoder (qwen2-moe,
+`repro_torch.models.moe`), DeepSeek-V2-Lite, whose attention is MLA
+(`layers.mla_apply`) and whose first layer is dense, Mamba2
+(`repro_torch.models.ssm`, attention-free), Jamba (mamba and attention
+sublayers, dense and MoE FFNs in one period), Llama-3.2-Vision (four
+self-attention layers and one ``"cross"`` layer a period, over stubbed
+vision tokens) and SeamlessM4T (an encoder, `encode`, and ``"attn+cross"``
+decoder layers over its output).
 
 The reference stacks parameters over periods and runs the stack with
 ``jax.lax.scan``; the port keeps one params dict per layer in one flat list,
@@ -14,13 +17,17 @@ sublayers, FFN width ``first_dense_ff``) first, then period n's
 ``periods["sub{i}"]`` sliced at n, period by period (`layer_kinds`). A
 layer's params say what it runs: ``attn`` or ``mamba``, then ``mlp`` or
 ``moe`` after ``norm2``, or neither (``ffn == "none"``: no ``norm2``, as in
-the reference). Caches follow the same order: one cache per layer, a
+the reference); a ``"cross"`` layer has ``cross`` in place of ``attn``, an
+``"attn+cross"`` layer ``attn``, ``norm_cross`` and ``cross``. An encoder's
+layers are one params dict each in ``params["enc_layers"]`` (the
+reference's ``enc_periods``), after ``enc_proj`` and before ``enc_norm``.
+Caches follow the same order: one flat dict of tensors per layer, a
 head-major (k, v) pair, an MLA layer's latent buffer
-(`layers.init_mla_cache`) or a mamba layer's conv and SSM state
-(`ssm.init_ssm_cache`), plus the position ``pos``, a 0-d int32 tensor on
-the caches' device as in the reference, so that a step reads it only there.
-Cross-attention, encoders and vision tokens (vlm and audio archs) wait for
-later slices (ROADMAP A7).
+(`layers.init_mla_cache`), a mamba layer's conv and SSM state
+(`ssm.init_ssm_cache`) or a cross layer's memory keys and values
+(`layers.init_cross_cache`; beside the (k, v) pair in an ``"attn+cross"``
+layer), plus the position ``pos``, a 0-d int32 tensor on the caches'
+device as in the reference, so that a step reads it only there.
 """
 
 from __future__ import annotations
@@ -40,30 +47,31 @@ from repro_torch.models import ssm as S
 Params = dict[str, Any]
 
 
-MIXERS, FFNS = ("attn", "mamba"), ("dense", "moe", "none")
+MIXERS = ("attn", "mamba", "cross", "attn+cross")
+FFNS = ("dense", "moe", "none")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 def check_ported(cfg: ArchConfig) -> None:
-    """Raise `NotImplementedError` for anything outside what the port runs:
-    decoder-only stacks of attention (GQA or MLA) or Mamba-2 mixers, each
-    with a dense FFN, the MoE or none, and leading dense layers."""
+    """Raise `NotImplementedError` for a layout the reference does not
+    define: stacks of attention (GQA or MLA), cross-attention or Mamba-2
+    mixers (`MIXERS`), each with a dense FFN, the MoE or none (`FFNS`),
+    leading dense layers, an encoder and vision tokens; a mamba sublayer
+    needs an SSM config."""
     missing = [what for what, on in (
-        (f"family {cfg.family!r}",
-         cfg.family not in ("dense", "moe", "ssm", "hybrid")),
-        (f"mixers other than {' or '.join(MIXERS)}",
+        (f"family {cfg.family!r}", cfg.family not in FAMILIES),
+        (f"mixers other than {', '.join(MIXERS)}",
          any(mixer not in MIXERS for mixer, _ in cfg.period_layout)),
         (f"FFNs other than {', '.join(FFNS)}",
          any(ffn not in FFNS for _, ffn in cfg.period_layout)),
         ("mamba sublayers without an SSM config",
-         cfg.ssm is None and any(m == "mamba" for m, _ in cfg.period_layout)),
-        ("an encoder", cfg.encoder is not None),
-        ("vision tokens", bool(cfg.n_vision_tokens)))
+         cfg.ssm is None and any(m == "mamba" for m, _ in cfg.period_layout)))
         if on]
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs decoder-only stacks of attention or "
-            f"Mamba-2 mixers with dense, MoE or no FFNs; {', '.join(missing)} "
-            f"wait(s) for ROADMAP A7")
+            f"{cfg.name}: the port runs the reference's stacks of "
+            f"{', '.join(MIXERS)} mixers with {', '.join(FFNS)} FFNs; "
+            f"{', '.join(missing)} are not among them")
 
 
 def layer_kinds(cfg: ArchConfig) -> list[tuple[str, str]]:
@@ -75,15 +83,22 @@ def layer_kinds(cfg: ArchConfig) -> list[tuple[str, str]]:
 
 def _layer_init(gen, cfg: ArchConfig, mixer: str, ffn: str, device,
                 d_ff: int | None = None) -> Params:
-    """One sublayer: a mamba mixer, or MLA where the config has it, else GQA
-    attention; then the dense FFN ``d_ff`` wide (the config's by default),
-    the MoE, or nothing (``"none"``: no ``norm2``)."""
+    """One sublayer: a mamba mixer, cross-attention (``"cross"``), or MLA
+    where the config has it, else GQA attention, followed by ``norm_cross``
+    and cross-attention in an ``"attn+cross"`` layer; then the dense FFN
+    ``d_ff`` wide (the config's by default), the MoE, or nothing
+    (``"none"``: no ``norm2``)."""
     dt = L.dtype_of(cfg)
     p = {"norm1": L.norm_init(cfg.d_model, dt, device, cfg.norm)}
     if mixer == "mamba":
         p["mamba"] = S.mamba_init(gen, cfg, device)
+    elif mixer == "cross":
+        p["cross"] = L.attn_init(gen, cfg, device, cross=True)
     else:
         p["attn"] = (L.mla_init if cfg.mla else L.attn_init)(gen, cfg, device)
+        if mixer == "attn+cross":
+            p["norm_cross"] = L.norm_init(cfg.d_model, dt, device, cfg.norm)
+            p["cross"] = L.attn_init(gen, cfg, device, cross=True)
     if ffn != "none":
         p["norm2"] = L.norm_init(cfg.d_model, dt, device, cfg.norm)
     if ffn == "moe":
@@ -96,18 +111,30 @@ def _layer_init(gen, cfg: ArchConfig, mixer: str, ffn: str, device,
 
 def _layer_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
                  positions: torch.Tensor, cache: Params | None,
-                 cache_pos: torch.Tensor | None, start: int | None
+                 cache_pos: torch.Tensor | None, start: int | None,
+                 memory: torch.Tensor | None = None, causal: bool = True
                  ) -> tuple[torch.Tensor, Params | None, torch.Tensor | None]:
-    """One sublayer: the mamba mixer or attention, then the dense or MoE
-    FFN where the layer has one. Returns (x, cache, aux), aux the MoE's
-    loss or None."""
+    """One sublayer: the mamba mixer, cross-attention over ``memory`` (or
+    the cross cache), or self-attention (``causal`` unless an encoder's),
+    followed in an ``"attn+cross"`` layer by ``norm_cross`` and
+    cross-attention, each added to the residual; then the dense or MoE FFN
+    where the layer has one. Returns (x, cache, aux), aux the MoE's loss or
+    None."""
     h = L.norm_apply(p["norm1"], x, cfg.norm_eps)
     if "mamba" in p:
         out, cache = S.mamba_apply(p["mamba"], h, cfg, cache=cache)
+    elif "attn" not in p:
+        out, cache = L.cross_apply(p["cross"], h, cfg, cache=cache, memory=memory)
     else:
         apply = L.mla_apply if cfg.mla else L.attn_apply
         out, cache = apply(p["attn"], h, cfg, positions=positions, cache=cache,
-                           cache_pos=cache_pos, start=start)
+                           cache_pos=cache_pos, start=start,
+                           **({} if cfg.mla else {"causal": causal}))
+        if "cross" in p:
+            x = x + out
+            h = L.norm_apply(p["norm_cross"], x, cfg.norm_eps)
+            out, cache = L.cross_apply(p["cross"], h, cfg, cache=cache,
+                                       memory=memory)
     x = x + out
     if "norm2" not in p:
         return x, cache, None
@@ -140,31 +167,49 @@ def init_lm(cfg: ArchConfig, *, seed: int = 0, device="cuda") -> Params:
     if not cfg.tie_embed:
         p["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.padded_vocab, dt,
                                     device)
+    if cfg.encoder:
+        p["enc_proj"] = L.dense_init(gen, cfg.encoder.frontend_dim,
+                                     cfg.d_model, dt, device)
+        p["enc_layers"] = [_layer_init(gen, cfg, "attn", "dense", device)
+                           for _ in range(cfg.encoder.n_layers)]
+        p["enc_norm"] = L.norm_init(cfg.d_model, dt, device, cfg.norm)
     return p
 
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int, *,
-                device="cuda") -> Params:
+                mem_len: int = 0, device="cuda") -> Params:
     """``pos``, a 0-d int32 zero on ``device``, and one zeroed cache per
     layer: a head-major (k, v) pair (`layers.init_kv_cache`), for MLA the
     latent buffer (`layers.init_mla_cache`), for a mamba layer its conv
     window and SSM state (`ssm.init_ssm_cache`; ``max_len`` does not bound
-    it)."""
+    it), for a cross layer the memory's keys and values over ``mem_len``
+    positions (`layers.init_cross_cache`), an ``"attn+cross"`` layer's
+    both in one dict."""
     check_ported(cfg)
     device = resolve_device(device)
     init = L.init_mla_cache if cfg.mla else L.init_kv_cache
+
+    def layer_cache(mixer: str) -> Params:
+        if mixer == "mamba":
+            return S.init_ssm_cache(cfg, batch, device)
+        if mixer == "cross":
+            return L.init_cross_cache(cfg, batch, mem_len, device)
+        c = init(cfg, batch, max_len, device)
+        if mixer == "attn+cross":
+            c.update(L.init_cross_cache(cfg, batch, mem_len, device))
+        return c
+
     return {"pos": torch.zeros((), dtype=torch.int32, device=device),
-            "layers": [S.init_ssm_cache(cfg, batch, device) if mixer == "mamba"
-                       else init(cfg, batch, max_len, device)
-                       for mixer, _ in layer_kinds(cfg)]}
+            "layers": [layer_cache(mixer) for mixer, _ in layer_kinds(cfg)]}
 
 
 def cache_capacity(caches: Params) -> int | None:
     """The positions a stack's caches hold, read from its first attention
     layer in either layout: axis 2 of a head-major (B, Hkv, max_len, hd) key
     cache, axis 1 of an MLA latent buffer (B, max_len, kv_lora + qk_rope).
-    None for a stack with no attention layer (Mamba2): its state has no
-    length to outgrow."""
+    A cross layer's memory keys (`layers.CROSS_K`) are not read: the memory
+    does not grow. None for a stack with no self-attention layer (Mamba2):
+    its state has no length to outgrow."""
     for layer in caches["layers"]:
         if "k" in layer:
             return layer["k"].shape[2]
@@ -181,8 +226,25 @@ def embed_scale(d_model: int, dtype: torch.dtype) -> float:
     return float(torch.tensor(d_model ** 0.5, dtype=dtype))
 
 
+def encode(params: Params, cfg: ArchConfig, frames: torch.Tensor
+           ) -> torch.Tensor:
+    """The encoder of an enc-dec arch. ``frames``: the stubbed modality
+    frontend's output (B, S_enc, frontend_dim), precomputed frame
+    embeddings. ``enc_proj``, then the encoder's layers, each non-causal
+    self-attention (rope at positions 0 .. S_enc - 1) and a dense FFN, with
+    no cache, then ``enc_norm``: the memory (B, S_enc, d_model) of the
+    decoder's cross-attention."""
+    x = L.dense(params["enc_proj"], frames)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for lp in params["enc_layers"]:
+        x, _, _ = _layer_apply(lp, x, cfg, positions=positions, cache=None,
+                               cache_pos=None, start=None, causal=False)
+    return L.norm_apply(params["enc_norm"], x, cfg.norm_eps)
+
+
 def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
-            caches: Params | None = None, start: int | None = None
+            caches: Params | None = None, start: int | None = None,
+            memory: torch.Tensor | None = None
             ) -> tuple[torch.Tensor, Params | None, torch.Tensor]:
     """tokens: (B, S) int -> (logits (B, S, padded_vocab), new_caches,
     aux_loss). The caches are updated in place and returned with ``pos``
@@ -190,7 +252,11 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     device and nothing is read on the host. ``start`` is the position where
     the caller knows it on the host (a prefill into fresh caches: 0); the
     attention then takes it as an integer (`layers.attn_apply`). aux_loss
-    is the MoE layers' losses summed in fp32 (0 for the dense stack)."""
+    is the MoE layers' losses summed in fp32 (0 for the dense stack).
+    ``memory`` (B, Sm, d_model), the encoder's output (`encode`) or the
+    stubbed vision embeddings, is what the cross layers attend to; with
+    caches it is written into their cross caches, and a step without it
+    (decode) reads them."""
     check_ported(cfg)
     x = params["embed"]["w"][tokens]
     if cfg.embed_scale:
@@ -205,7 +271,7 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     for i, lp in enumerate(params["layers"]):
         c = caches["layers"][i] if caches is not None else None
         x, c, aux = _layer_apply(lp, x, cfg, positions=positions, cache=c,
-                                 cache_pos=pos, start=start)
+                                 cache_pos=pos, start=start, memory=memory)
         layer_caches.append(c)
         if aux is not None:
             aux_total = aux_total + aux
@@ -256,7 +322,10 @@ def params_from_jax(tree: Mapping[str, Any], cfg: ArchConfig,
     per layer, in the config's dtype on ``device`` (MLA's ``kv_norm`` scale
     too, as the reference's is); the MoE router and a mamba layer's
     ``A_log``, ``D`` and ``dt_bias`` stay fp32, as the reference's are (a
-    router in bf16 would route differently)."""
+    router in bf16 would route differently). A cross layer's scalar
+    ``gate`` stays 0-d. An encoder's ``enc_periods`` (one layer a period)
+    are unstacked over its ``n_layers`` into ``enc_layers``, between
+    ``enc_proj`` and ``enc_norm``."""
     check_ported(cfg)
     device = resolve_device(device)
 
@@ -266,8 +335,8 @@ def params_from_jax(tree: Mapping[str, Any], cfg: ArchConfig,
                     for k, v in node.items()}
         a = np.array(node, dtype=np.float32)
         if index is not None:
-            a = a[index]
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device, dt)
+            a = np.array(a[index], order="C")        # a 0-d slice stays 0-d
+        return torch.from_numpy(a).to(device, dt)
 
     layout = cfg.period_layout
     p: Params = {
@@ -279,4 +348,9 @@ def params_from_jax(tree: Mapping[str, Any], cfg: ArchConfig,
     }
     if "lm_head" in tree:
         p["lm_head"] = convert(tree["lm_head"])
+    if cfg.encoder:
+        p["enc_proj"] = convert(tree["enc_proj"])
+        p["enc_layers"] = [convert(tree["enc_periods"]["sub0"], n)
+                           for n in range(cfg.encoder.n_layers)]
+        p["enc_norm"] = convert(tree["enc_norm"])
     return p

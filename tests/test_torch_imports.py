@@ -47,7 +47,8 @@ def test_port_imports_without_jax_or_repro():
             "repro_torch.core.planner", "repro_torch.obs",
             "repro_torch.obs.trace", "repro_torch.obs.metrics",
             "repro_torch.obs.export", "repro_torch.obs.__main__",
-            "repro_torch.launch.planserve"} <= names
+            "repro_torch.launch.planserve", "repro_torch.data",
+            "repro_torch.data.pipeline"} <= names
 
 
 def test_chip_smoke_imports_nothing_of_jax_or_repro():

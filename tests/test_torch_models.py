@@ -139,7 +139,9 @@ def test_carrier_builds_init_lm_structure(pair):
 
 @pytest.mark.parametrize("arch", ARCHS + ("qwen2-moe-a2.7b",
                                           "deepseek-v2-lite-16b",
-                                          "mamba2-1.3b", "jamba-v0.1-52b"))
+                                          "mamba2-1.3b", "jamba-v0.1-52b",
+                                          "llama-3.2-vision-90b",
+                                          "seamless-m4t-large-v2"))
 def test_count_params_matches_jax_at_full_width(arch):
     assert ttf.count_params(tconfigs.get_config(arch)) \
         == jtf.count_params(jget_config(arch))
@@ -149,7 +151,9 @@ def test_count_params_matches_jax_at_full_width(arch):
 
 @pytest.mark.parametrize("arch", ARCHS + ("qwen2-moe-a2.7b",
                                           "deepseek-v2-lite-16b",
-                                          "mamba2-1.3b", "jamba-v0.1-52b"))
+                                          "mamba2-1.3b", "jamba-v0.1-52b",
+                                          "llama-3.2-vision-90b",
+                                          "seamless-m4t-large-v2"))
 def test_configs_are_the_reference_data(arch):
     assert dataclasses.asdict(tconfigs.get_config(arch)) \
         == dataclasses.asdict(jget_config(arch))
@@ -162,31 +166,32 @@ def test_configs_are_the_reference_data(arch):
                                   "llama-3.2-vision-90b",
                                   "seamless-m4t-large-v2"])
 def test_unported_archs_name_what_they_wait_for(arch):
-    """An arch the port has resolved to the reference's config; the others
-    raise, naming ROADMAP A7; an unknown name is a KeyError."""
-    if arch in tconfigs.ARCHS:
-        assert dataclasses.asdict(tconfigs.get_config(arch)) \
-            == dataclasses.asdict(jget_config(arch))
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            tconfigs.get_config(arch)
+    """Every arch the reference registers is one of the port's, and resolves
+    to the reference's config (none waits any more); an unknown name is a
+    KeyError."""
+    assert arch in tconfigs.ARCHS
+    assert dataclasses.asdict(tconfigs.get_config(arch)) \
+        == dataclasses.asdict(jget_config(arch))
     with pytest.raises(KeyError):
         tconfigs.get_config("no-such-arch")
 
 
 @pytest.mark.parametrize("change", [
-    dict(encoder=tconfigs.EncoderCfg(n_layers=2, frontend_dim=48)),
-    dict(n_vision_tokens=16),
-    dict(period_layout=(("cross", "dense"),))])
+    dict(period_layout=(("conv", "dense"),)),
+    dict(period_layout=(("attn", "glu"),)),
+    dict(period_layout=(("mamba", "none"),))])
 def test_non_dense_stacks_raise(change):
-    """What the port does not run yet raises, naming its ROADMAP item: an
-    encoder, vision tokens and the cross-attention mixer (ROADMAP A7(d)); a
-    MoE stack (tests/test_torch_moe.py), MLA and leading dense layers
-    (tests/test_torch_mla.py) and mamba sublayers (tests/test_torch_ssm.py)
-    run."""
+    """A layout the reference does not define raises, naming what is
+    outside it: an unknown mixer, an unknown FFN, and mamba sublayers
+    without an SSM config. Every layout of the reference runs: MoE
+    (tests/test_torch_moe.py), MLA and leading dense layers
+    (tests/test_torch_mla.py), mamba sublayers (tests/test_torch_ssm.py),
+    and the encoder, vision tokens and cross-attention mixers
+    (tests/test_torch_cross.py)."""
     cfg = dataclasses.replace(tconfigs.get_smoke("qwen2-1.5b"), **change)
     with pytest.raises(NotImplementedError,
-                       match="decoder-only stacks of attention.*ROADMAP A7"):
+                       match="the port runs the reference's stacks of.*"
+                             "not among them"):
         ttf.init_lm(cfg, device="cpu")
 
 

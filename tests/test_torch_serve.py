@@ -1,5 +1,7 @@
-"""The port's serving path on the CPU: `serve.main` at smoke size for the
-four dense archs, the MoE decoder and DeepSeek-V2-Lite (MLA), its served tokens against the port's greedy loop and the
+"""The port's serving path on the CPU: `serve.main` at smoke size for every
+arch (the dense ones, the MoE decoder, DeepSeek-V2-Lite, Mamba2, Jamba, and
+Llama-3.2-Vision and SeamlessM4T with their stubbed vision tokens and
+frames), its served tokens against the port's greedy loop and the
 reference's, and entry points that refuse the card where there is none."""
 
 import dataclasses
@@ -27,7 +29,8 @@ ARGS = ["--smoke", "--device", "cpu", "--requests", "6", "--batch", "4",
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "gemma-2b", "granite-8b",
                                   "stablelm-12b", "qwen2-moe-a2.7b",
                                   "deepseek-v2-lite-16b", "mamba2-1.3b",
-                                  "jamba-v0.1-52b"])
+                                  "jamba-v0.1-52b", "llama-3.2-vision-90b",
+                                  "seamless-m4t-large-v2"])
 def test_serve_reports_the_reference_keys(arch):
     report = serve.main(["--arch", arch, *ARGS])
     assert set(report) == REPORT_KEYS
