@@ -219,6 +219,28 @@
       kernel at the encoder's prefill, cross-attention's prefill and decode
       (split_kv, as served, and the one-pass body) and a ragged non-causal
       1000 x 1000 beside its plain version and SDPA.
+   l. training on one card: (a) the attention Function
+      (`layers.FlashAttention`: the flash kernel forward, `chunked_attention`
+      recomputed as the backward) at Qwen2-1.5B's attention (B 2, 12/2
+      heads of 128, 1024 tokens, causal), a ragged non-causal 1000 x 1000
+      and MLA's q/k 192, v 128, bf16: one ``flash_attention`` launch
+      forward and none backward, the forward within phase 4k's flash limits
+      of `chunked_attention`'s, dq, dk, dv equal to autograd through
+      `chunked_attention` bit for bit, both timed. (b)
+      ``repro_torch.launch.train`` trains Qwen2-1.5B at its published
+      widths and depth (28 layers, bf16, tied embedding, 1,543,910,912
+      parameters) for 4 steps of 8 x 1024 tokens, 4 microbatches of 2 x
+      1024 whose gradients are summed in fp32, AdamW with fp32 master
+      weights in place: 112 ``flash_attention`` launches a step, losses
+      finite, near ln(vocab) at first and falling; the final blocking
+      checkpoint (21.6 GB) into a temporary directory under ``build/``,
+      deleted afterwards; peak memory, tokens/s, one step profiled (device
+      busy, top kernels, the attention backward, AdamW) and the step's
+      bound. (c) One layer at full width in fp32: loss and every gradient
+      leaf, the card against the CPU (1e-3). (d) qwen2-1.5b, qwen2-moe,
+      deepseek-v2-lite, mamba2 and seamless-m4t at smoke size trained 8
+      steps each on the card (losses falling, flash launches counted), the
+      first resumed from its checkpoint.
    Every output is checked against a library reference (the served logits
    against the model with `ref.attention_ref` as its attention, and against
    one full forward of prompt plus generated tokens; the fp32 forward's
@@ -237,6 +259,7 @@ import dataclasses
 import functools
 import json
 import math
+import os
 import pathlib
 import re
 import subprocess
@@ -2853,6 +2876,420 @@ def cross_flash_rows(torch, dev, card: str, gen, graph_ms, time_ms,
     return rows
 
 
+# 4l: training on one card, Qwen2-1.5B at its published widths and depth
+TRAIN_ARCH = "qwen2-1.5b"
+TRAIN_SMOKE = False                  # True only in a CPU rehearsal
+TRAIN_ATTN = (2, 1024, 1000)         # batch, tokens, the ragged case's tokens
+TRAIN_RUN = (4, 8, 1024)             # steps, batch, tokens
+TRAIN_LR = 1e-3
+TRAIN_LAYER = (2, 256)               # the fp32 layer's batch and tokens
+TRAIN_LAYER_TOL = 1e-3
+TRAIN_SMOKE_ARCHS = ("qwen2-1.5b", "qwen2-moe-a2.7b", "deepseek-v2-lite-16b",
+                     "mamba2-1.3b", "seamless-m4t-large-v2")
+TRAIN_SMOKE_RUN = (8, 4, 64, 5e-3)   # steps, batch, tokens, lr
+TRAIN_RESUME_STEPS = 4               # steps past the checkpoint
+TRAIN_PARTS = {"update": "train/adamw"}
+
+
+def train_attention_rows(torch, dev, card: str, time_ms) -> dict:
+    """Phase 4l (a): `layers.attention` with a gradient (the
+    `FlashAttention` Function), bf16, at Qwen2-1.5B's attention (B 2, 12/2
+    heads of 128, causal), a ragged non-causal call (1000 x 1000, which the
+    flash wrapper runs as causal at q_offset 1000) and MLA's q/k 192, v 128
+    (16/16 heads). Each: one `flash_attention` launch in the forward and
+    none in the backward; the forward held against `chunked_attention`'s
+    output by `flash_disagreement`; given the same upstream gradient, dq,
+    dk and dv equal those of autograd through `chunked_attention` on the
+    card bit for bit; the forward, the backward and autograd through
+    `chunked_attention` timed."""
+    from repro_torch.kernels import launch
+    from repro_torch.models import layers
+
+    batch, tokens, ragged = TRAIN_ATTN
+    gen = torch.Generator(device="cpu").manual_seed(41)
+    cases = {
+        "causal": (12, 2, tokens, tokens, 128, 128, True),
+        "ragged non-causal": (12, 2, ragged, ragged, 128, 128, False),
+        "mla 192/128": (16, 16, tokens, tokens, 192, 128, True)}
+    rows = {}
+    for case, (hq, hkv, sq, skv, d, dv, causal) in cases.items():
+        def draw(*shape):
+            return torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+
+        q0, k0, v0 = draw(batch, hq, sq, d), draw(batch, hkv, skv, d), \
+            draw(batch, hkv, skv, dv)
+        g = draw(batch, hq, sq, dv)
+
+        def run(fn):
+            q, k, v = (t.clone().requires_grad_() for t in (q0, k0, v0))
+            out = fn(q, k, v, causal=causal, chunk=1024)
+            out.backward(g)
+            return out.detach(), [t.grad for t in (q, k, v)]
+
+        card_sync(torch, dev)
+        launch.reset_launches()
+        q, k, v = (t.clone().requires_grad_() for t in (q0, k0, v0))
+        out = layers.attention(q, k, v, causal=causal, chunk=1024)
+        card_sync(torch, dev)
+        fwd_counts = dict(launch.LAUNCHES)
+        out.backward(g)
+        card_sync(torch, dev)
+        bwd_counts = {n: c - fwd_counts.get(n, 0)
+                      for n, c in launch.LAUNCHES.items()
+                      if c != fwd_counts.get(n, 0)}
+        if fwd_counts != {"flash_attention": 1} or bwd_counts:
+            fail(f"train attention {case}: forward launched {fwd_counts}, "
+                 f"backward {bwd_counts}; expected one flash_attention and none")
+        grads = [t.grad for t in (q, k, v)]
+        want_out, want_grads = run(layers.chunked_attention)
+        why = flash_disagreement(torch, out.detach(), want_out)
+        if why:
+            fail(f"train attention {case}: the forward against "
+                 f"chunked_attention's: {why}")
+        for name, got, want in zip("qkv", grads, want_grads):
+            if not torch.isfinite(got).all():
+                fail(f"train attention {case}: d{name} not finite")
+            if not torch.equal(got, want):
+                fail(f"train attention {case}: d{name} differs from autograd "
+                     f"through chunked_attention (max abs err "
+                     f"{(got.float() - want.float()).abs().max().item():.3g})")
+        q, k, v = (t.clone().requires_grad_() for t in (q0, k0, v0))
+
+        def forward():
+            with torch.no_grad():
+                layers.attention(q, k, v, causal=causal)
+
+        def backward():
+            layers.FlashAttention.apply(q, k, v, causal, 0, None, 1024).backward(g)
+
+        with launch.recording():
+            rows[case] = row = {
+                "forward_ms": time_ms(forward) if dev.type == "cuda" else 0.0,
+                "function_ms": time_ms(backward) if dev.type == "cuda" else 0.0,
+                "chunked_ms": (time_ms(lambda: run(layers.chunked_attention))
+                               if dev.type == "cuda" else 0.0),
+                "max_abs_err_fwd": (out.float() - want_out.float()).abs().max().item(),
+                "grads_bit_for_bit": True}
+        print(f"train attention {case} bf16 (B {batch}, {hq}/{hkv} heads, "
+              f"q/k {d}, v {dv}, Sq {sq}, Skv {skv}, causal {causal}): 1 flash "
+              f"launch forward, 0 backward; dq, dk, dv equal autograd through "
+              f"chunked_attention bit for bit; " + " ".join(
+                  f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
+                  for k, v in row.items()) + f" ({card})")
+        del q0, k0, v0, g, q, k, v, out, grads, want_out, want_grads
+    return rows
+
+
+def train_config():
+    """The config phase 4l trains: the published one (the smoke one in a
+    CPU rehearsal)."""
+    from repro_torch.configs import get_config, get_smoke
+
+    return (get_smoke if TRAIN_SMOKE else get_config)(TRAIN_ARCH)
+
+
+def train_on_card(torch, dev, card: str, time_ms, bound) -> dict:
+    """Phase 4l. (a) `train_attention_rows`. (b) `launch.train` trains
+    Qwen2-1.5B at full width and depth (28 layers, bf16, tied embedding)
+    for ``TRAIN_RUN`` (4 steps of 8 x 1024 tokens, the config's 4
+    microbatches of 2 x 1024 summed into fp32 gradient buffers), AdamW with
+    fp32 master weights, in place: each step's loss, grad norm and wall,
+    tokens/s, 112 `flash_attention` launches a step (28 layers x 4
+    microbatches, none in the backward), losses finite, near ln(vocab) at
+    first and falling; the final blocking checkpoint (about 21.6 GB) into a
+    temporary directory under ``build/`` (its free space checked first),
+    its bytes and write time, deleted afterwards; peak memory; one step
+    profiled (device busy, the top kernels, the backward's attention and
+    AdamW); the step's bound and the wall's share of it. (c) One layer of
+    Qwen2-1.5B at full width in fp32: loss and every gradient leaf, the
+    card against the CPU, within ``TRAIN_LAYER_TOL`` max-abs-err / max-abs.
+    (d) One arch of each mixer kind at smoke size (`TRAIN_SMOKE_ARCHS`)
+    trained on the card: losses falling, grad norms finite, the flash
+    calls counted and the launches equal to what their plans launch (one
+    more a call for split_kv's combine or tc_3xtf32's pack); the first
+    resumed from its checkpoint. The launcher runs with its trainer set to
+    log every step, so its history holds each step. Returns the
+    launch counts and the rows of (a)."""
+    import shutil
+    import tempfile
+    from unittest import mock
+
+    from repro_torch import tree
+    from repro_torch.configs import get_smoke
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import launch
+    from repro_torch.launch import train
+    from repro_torch.models import layers
+    from repro_torch.models import steps as model_steps
+    from repro_torch.models.transformer import count_params, init_lm
+    from repro_torch.optim import adamw
+
+    on_card = dev.type == "cuda"
+
+    def every_step_logged():
+        # the trainer's history keeps every step's loss, grad norm and wall
+        return mock.patch.object(train, "TrainLoopConfig", functools.partial(
+            train.TrainLoopConfig, log_every=1))
+
+    def flash_bodies(bodies: list):
+        # the body of each flash call's plan, in call order
+        real = launch.run
+
+        def spy(plan, *operands, **extra):
+            if plan.name == "flash_attention":
+                bodies.append(plan.body)
+            return real(plan, *operands, **extra)
+        return mock.patch.object(launch, "run", spy)
+
+    out: dict = {"attention": train_attention_rows(torch, dev, card, time_ms)}
+
+    # (b) Qwen2-1.5B, full width and depth, through the launcher
+    cfg = train_config()
+    steps, batch, seq = TRAIN_RUN
+    n_params = count_params(cfg)
+    mb = cfg.train_microbatches if batch % cfg.train_microbatches == 0 else 1
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    ckpt_gb = (n_params * (2 + 3 * 4) + 4) / 1e9
+    free_gb = shutil.disk_usage(build).free / 1e9
+    print(f"train checkpoint: {ckpt_gb:.3f} GB to write under {build}, "
+          f"{free_gb:.1f} GB free there")
+    if free_gb < 1.2 * ckpt_gb:
+        fail(f"train checkpoint: {ckpt_gb:.3f} GB does not fit the "
+             f"{free_gb:.1f} GB free under {build}")
+    workdir = tempfile.mkdtemp(prefix="train_ckpt_", dir=build)
+    try:
+        card_sync(torch, dev)
+        base_gb = 0.0
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base_gb = torch.cuda.memory_allocated(dev) / 1e9
+        launch.reset_launches()
+        record: dict = {}
+        t0 = time.perf_counter()
+        with every_step_logged():
+            result = train.main([
+                "--arch", TRAIN_ARCH, *(["--smoke"] if TRAIN_SMOKE else []),
+                "--steps", str(steps), "--batch", str(batch), "--seq", str(seq),
+                "--lr", str(TRAIN_LR), "--ckpt-dir",
+                os.path.join(workdir, "main"), "--ckpt-every", str(10 * steps),
+                "--device", dev.type], record=record)
+        card_sync(torch, dev)
+        run_s = time.perf_counter() - t0
+        counts = dict(launch.LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9 if on_card else 0.0
+        n_flash = (cfg.n_layers * mb) * steps
+        if counts != {"flash_attention": n_flash}:
+            fail(f"train: launched {counts}, expected {n_flash} flash_attention "
+                 f"({cfg.n_layers} layers x {mb} microbatches x {steps} steps, "
+                 f"none in the backward)")
+        hist = result["history"]
+        losses = [h["loss"] for h in hist]
+        if (result["final_step"] != steps or len(hist) != steps
+                or not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                           for h in hist)):
+            fail(f"train: {result['final_step']} steps, history {hist}")
+        ln_v = math.log(cfg.padded_vocab)
+        if abs(losses[0] - ln_v) > 1.0 or not losses[-1] < losses[0]:
+            fail(f"train: losses {losses} do not start near ln(vocab) "
+                 f"{ln_v:.3f} and fall")
+        for h in hist:
+            print(f"train step {h['step']}: loss {h['loss']:.6f} grad_norm "
+                  f"{h['grad_norm']:.6f} wall {1e3 * h['dt_s']:.3f} ms")
+        walls = sorted(h["dt_s"] for h in hist[1:]) or [hist[0]["dt_s"]]
+        step_s = walls[len(walls) // 2]
+        tok_s = batch * seq / step_s
+        nbytes, write_s = record["trainer"].ckpt.last_write
+        print(f"train (b) {cfg.name} full width and depth ({cfg.n_layers} layers, "
+              f"{n_params:,} parameters, {cfg.dtype}): {steps} steps of {batch} x "
+              f"{seq} tokens, {mb} microbatches of {batch // mb}; flash launches "
+              f"{counts['flash_attention']} ({counts['flash_attention'] // steps} "
+              f"a step); median step wall (steps 2-{steps}) {1e3 * step_s:.3f} ms, "
+              f"{tok_s:.1f} tokens/s; first step {1e3 * hist[0]['dt_s']:.3f} ms; "
+              f"launcher {run_s:.1f} s; peak memory {peak_gb:.3f} GB "
+              f"({base_gb:.3f} GB before) ({card})")
+        snap_s = record["trainer"].ckpt.last_snapshot_s
+        print(f"train checkpoint (final, blocking): {nbytes:,} bytes "
+              f"({nbytes / 1e9:.3f} GB): the host copy {snap_s:.2f} s, then "
+              f"written in {write_s:.2f} s ({nbytes / 1e9 / max(write_s, 1e-9):.3f} "
+              f"GB/s, the crc32s included; warm page cache, not synced)")
+        out.update(counts=counts, losses=losses, step_ms=1e3 * step_s,
+                   tokens_per_s=tok_s, peak_gb=peak_gb, ckpt_bytes=nbytes,
+                   ckpt_s=write_s, ckpt_snapshot_s=snap_s)
+
+        # one more step, profiled: device busy, the top kernels, the
+        # backward's attention (recompute and grad) and AdamW
+        trainer, step_fn = record["trainer"], record["step_fn"]
+        b0 = record["batch_fn"](0)
+        parts = scoped_parts(torch, adamw, TRAIN_PARTS)
+        real_bwd = layers.FlashAttention.backward
+
+        def bwd(ctx, grad_out):
+            with torch.profiler.record_function("train/attn_backward"):
+                return real_bwd(ctx, grad_out)
+
+        parts.append(mock.patch.object(layers.FlashAttention, "backward",
+                                       staticmethod(bwd)))
+        for p in parts:
+            p.start()
+        try:
+            def one_step():
+                trainer.params, trainer.opt_state, _ = step_fn(
+                    trainer.params, trainer.opt_state, b0)
+
+            with launch.recording():
+                prof = profiled_parts(torch, dev, one_step, ("train/",),
+                                      top=100000)
+            with launch.recording():
+                wall_ms = median_wall_ms(torch, dev, one_step, calls=3)
+        finally:
+            for p in parts:
+                p.stop()
+        busy = prof["busy"]
+        kinds = {"flash": 0.0, "gemm": 0.0, "other": 0.0}
+        for ms, _, name in prof["top"]:
+            kind = ("flash" if "flash" in name else "gemm" if any(
+                w in name for w in ("gemm", "nvjet", "xmma", "cutlass"))
+                else "other")
+            kinds[kind] += ms
+        n_kernels = sum(calls for _, calls, _ in prof["top"])
+        print(f"train profile (one step, {batch} x {seq} tokens, {n_kernels} "
+              f"kernel calls): device busy "
+              f"{busy:.3f} ms (GEMMs {kinds['gemm']:.3f}, flash "
+              f"{kinds['flash']:.3f}, other kernels {kinds['other']:.3f}), "
+              f"unprofiled wall {wall_ms:.3f} ms (median of 3), idle share "
+              f"{1 - busy / wall_ms if wall_ms else 0.0:.3f}; attention "
+              f"backward {prof.get('train/attn_backward', 0.0):.3f} ms, AdamW "
+              f"{prof.get('train/adamw', 0.0):.3f} ms ({card})")
+        for ms, calls, name in prof["top"][:10]:
+            print(f"train top kernel: {ms:.3f} ms in {calls} calls: {name}")
+        # the bound: the dense work 6 N T, attention's forward and backward
+        # (3 causal forwards, half the squares), then AdamW's bytes
+        t_all = batch * seq
+        attn_flops = 3 * 4.0 * batch * cfg.n_heads * seq * seq * cfg.hd / 2 \
+            * cfg.n_layers
+        dense_ms, _ = bound(6.0 * n_params * t_all + attn_flops, 0.0,
+                            torch.bfloat16)
+        adam_bytes = n_params * (4 + 3 * 8 + 2)
+        adam_ms, _ = bound(0.0, adam_bytes, torch.bfloat16)
+        step_bound = dense_ms + adam_ms
+        print(f"train step bound: {dense_ms:.3f} ms of operations "
+              f"({6.0 * n_params * t_all / 1e12:.2f} TFLOP dense + "
+              f"{attn_flops / 1e12:.2f} TFLOP attention at the bf16 peak) + "
+              f"{adam_ms:.3f} ms of AdamW bytes ({adam_bytes / 1e9:.2f} GB) = "
+              f"{step_bound:.3f} ms; median wall {1e3 * step_s:.3f} ms, the "
+              f"bound's share of it {step_bound / (1e3 * step_s):.3f}")
+        out.update(busy_ms=busy, wall_ms=wall_ms, bound_ms=step_bound,
+                   kinds=kinds, n_kernels=n_kernels,
+                   attn_backward_ms=prof.get("train/attn_backward", 0.0),
+                   adamw_ms=prof.get("train/adamw", 0.0))
+        del record, trainer, step_fn, b0, result
+        if on_card:
+            torch.cuda.empty_cache()
+
+        # (c) one layer at full width in fp32: the card against the CPU
+        lcfg = dataclasses.replace(cfg, n_periods=1, dtype="float32")
+        lb, ls = TRAIN_LAYER
+        cpu = torch.device("cpu")
+        p_cpu = init_lm(lcfg, seed=3, device=cpu)
+        data = SyntheticLM(DataConfig(vocab=lcfg.vocab, seq_len=ls,
+                                      global_batch=lb, seed=3))
+        b_cpu = data.torch_batch(0, cpu)
+        with launch.recording():
+            loss_c, parts_c, g_c = model_steps.loss_and_grads(p_cpu, lcfg, b_cpu)
+            loss_d, parts_d, g_d = model_steps.loss_and_grads(
+                tree.tree_map(lambda t: t.to(dev), p_cpu), lcfg,
+                data.torch_batch(0, dev))
+        errs = {"loss": rel_err(torch, loss_d.cpu(), loss_c, "train layer loss")}
+        for key, want in tree.flatten_with_keys(g_c).items():
+            errs[key] = rel_err(torch, tree.flatten_with_keys(g_d)[key].cpu(),
+                                want, f"train layer grad {key}")
+        worst = max(errs, key=errs.get)
+        if errs[worst] > TRAIN_LAYER_TOL:
+            fail(f"train layer fp32: {worst} max-abs-err/max-abs "
+                 f"{errs[worst]:.3g} over {TRAIN_LAYER_TOL}")
+        print(f"train layer fp32 (1 of {cfg.n_layers} layers at full width, "
+              f"{lb} x {ls} tokens): loss {loss_d.item():.6f} card, "
+              f"{loss_c.item():.6f} CPU; {len(errs) - 1} gradient leaves, "
+              f"the worst {worst} at max-abs-err/max-abs {errs[worst]:.3g} "
+              f"(limit {TRAIN_LAYER_TOL})")
+        out["layer_worst"] = errs[worst]
+        del p_cpu, g_c, g_d
+
+        # (d) one arch of each mixer kind at smoke size, and a resume
+        from repro_torch.models.transformer import layer_kinds
+
+        sm_steps, sm_batch, sm_seq, sm_lr = TRAIN_SMOKE_RUN
+        smoke = {}
+        for name in TRAIN_SMOKE_ARCHS:
+            scfg = get_smoke(name)
+            smb = (scfg.train_microbatches
+                   if scfg.train_microbatches > 1
+                   and sm_batch % scfg.train_microbatches == 0 else 1)
+            mixers = [m for m, _ in layer_kinds(scfg)]
+            per_fwd = (sum(m in ("attn", "attn+cross") for m in mixers)
+                       + sum(m in ("cross", "attn+cross") for m in mixers)
+                       + (scfg.encoder.n_layers if scfg.encoder else 0))
+            args = ["--arch", name, "--smoke", "--steps", str(sm_steps),
+                    "--batch", str(sm_batch), "--seq", str(sm_seq), "--lr",
+                    str(sm_lr), "--ckpt-dir", os.path.join(workdir, name),
+                    "--ckpt-every", str(sm_steps // 2), "--device", dev.type]
+            launch.reset_launches()
+            bodies: list = []
+            with every_step_logged(), flash_bodies(bodies):
+                res = train.main(args)
+            card_sync(torch, dev)
+            got = dict(launch.LAUNCHES)
+            n_flash = per_fwd * smb * sm_steps
+            losses = [h["loss"] for h in res["history"]]
+            gn = [h["grad_norm"] for h in res["history"]]
+            # each flash call is one launch, and one more where its plan
+            # took split_kv (a grid too small to fill the card: the
+            # combine) or tc_3xtf32 (the pack)
+            want = {"flash_attention": len(bodies),
+                    "flash_attention/combine": bodies.count("split_kv"),
+                    "flash_attention/pack": bodies.count("tc_3xtf32")}
+            want = {k: v for k, v in want.items() if v}
+            if len(bodies) != n_flash or got != want:
+                fail(f"train smoke {name}: launched {got}, expected {want} "
+                     f"from the {len(bodies)} flash calls' plans; {n_flash} "
+                     f"calls expected ({per_fwd} a forward x {smb} "
+                     f"microbatches x {sm_steps} steps)")
+            if not all(map(math.isfinite, losses + gn)) or not (
+                    sum(losses[-2:]) < sum(losses[:2])):
+                fail(f"train smoke {name}: losses {losses}, grad norms {gn}")
+            smoke[name] = {"losses": losses, "launches": got}
+            print(f"train smoke {name} ({scfg.n_layers} layers, {smb} "
+                  f"microbatches, {sm_steps} steps of {sm_batch} x {sm_seq}): "
+                  f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, grad norms "
+                  f"finite ({min(gn):.3f}-{max(gn):.3f}), launches {got} ({card})")
+        name = TRAIN_SMOKE_ARCHS[0]
+        launch.reset_launches()
+        record = {}
+        with every_step_logged():
+            res = train.main([
+                "--arch", name, "--smoke", "--steps",
+                str(sm_steps + TRAIN_RESUME_STEPS), "--batch", str(sm_batch),
+                "--seq", str(sm_seq), "--lr", str(sm_lr), "--ckpt-dir",
+                os.path.join(workdir, name), "--ckpt-every", str(sm_steps // 2),
+                "--resume", "--device", dev.type], record=record)
+        if (record["trainer"].start_step != sm_steps
+                or res["final_step"] != sm_steps + TRAIN_RESUME_STEPS
+                or len(res["history"]) != TRAIN_RESUME_STEPS):
+            fail(f"train resume {name}: from {record['trainer'].start_step}, "
+                 f"final step {res['final_step']}")
+        smoke["resume"] = {"from": sm_steps, "final_step": res["final_step"],
+                           "launches": dict(launch.LAUNCHES)}
+        print(f"train resume {name}: from step {sm_steps} to "
+              f"{res['final_step']}, losses "
+              f"{[round(h['loss'], 4) for h in res['history']]}")
+        out["smoke"] = smoke
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return out
+
+
 def kernel_name(mangled: str) -> str:
     """A kernel's mangled name without its anonymous namespace's token."""
     m = re.match(r"_ZN(\d+)_GLOBAL__N_", mangled)
@@ -4033,6 +4470,16 @@ def main() -> None:
     cross = cross_on_card(torch, dev, smi, graph_ms, time_ms, bound)
     print(f"cross phase: {time.perf_counter() - t0:.1f} s, launches {cross['counts']}")
 
+    # 4l. training on one card: the attention Function alone, Qwen2-1.5B
+    #     trained at full width and depth through the launcher (4k's models
+    #     are freed with its frame), one fp32 layer against the CPU, five
+    #     smoke archs trained and one resumed
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    training = train_on_card(torch, dev, smi, time_ms, bound)
+    print(f"train phase: {time.perf_counter() - t0:.1f} s, launches "
+          f"{training['counts']}")
+
     # 5. result lines
     sources = {"psum_matmul/active": ("psum_matmul", "src/repro/kernels/psum_matmul.py:48"),
                "psum_matmul/passive": ("psum_matmul", "src/repro/kernels/psum_matmul.py:66"),
@@ -4102,6 +4549,14 @@ def main() -> None:
         "cross_combine_launches": {name: c["flash_attention/combine"]
                                    for name, c in cross["counts"].items()},
         "cross_rows": cross["flash"],
+        # phase 4l's launches: Qwen2-1.5B trained (one a layer and
+        # microbatch, the forward only), the smoke archs trained, and the
+        # attention Function alone at the training shapes
+        "train_launches": training["counts"]["flash_attention"],
+        "train_smoke_launches": {
+            name: run["launches"].get("flash_attention", 0)
+            for name, run in training["smoke"].items()},
+        "train_attention": training["attention"],
         "max_abs_err": head["max_abs_err"], "ms": head["ms"],
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],

@@ -1,7 +1,6 @@
-"""Data of the port: the modality-frontend stubs (`make_extra_inputs`).
-The synthetic LM stream (``SyntheticLM``) waits for the training slice
-(ROADMAP A8)."""
+"""Data of the port: the synthetic LM stream (`DataConfig`, `SyntheticLM`)
+and the modality-frontend stubs (`make_extra_inputs`)."""
 
-from repro_torch.data.pipeline import make_extra_inputs
+from repro_torch.data.pipeline import DataConfig, SyntheticLM, make_extra_inputs
 
-__all__ = ["make_extra_inputs"]
+__all__ = ["DataConfig", "SyntheticLM", "make_extra_inputs"]

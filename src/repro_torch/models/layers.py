@@ -13,6 +13,14 @@ XLA level. MLA's prefill (the expanded form) takes the same kernel; its
 absorbed decode, whose 576-wide keys are wider than the kernel is built
 for, runs `chunked_attention`, the plain counterpart of the reference's
 own plain-XLA path.
+
+Training differentiates attention through `FlashAttention`: the flash
+kernel is its forward, and its backward recomputes `chunked_attention`
+on the saved inputs and differentiates that, which is the function the
+reference's ``jax.value_and_grad`` differentiates. Every call site goes
+through `attention`, which takes the Function only where a gradient is
+wanted, so serving (inference mode, CUDA-graph capture) runs the kernel
+as before.
 """
 
 from __future__ import annotations
@@ -162,6 +170,65 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(b, hq, sq, dv).to(q.dtype)
 
 
+class FlashAttention(torch.autograd.Function):
+    """Attention whose forward is the flash kernel
+    (`ops.gqa_flash_attention`; its plain version on the CPU) and whose
+    backward is autograd through `chunked_attention`, recomputed on the
+    saved q, k and v under the call's own (logical) arguments: ``causal``,
+    an integer ``q_offset`` and ``kv_valid_len`` as the caller gave them,
+    not as the flash wrapper rewrites them (a ragged non-causal call run
+    as a causal one, a narrower v padded). The backward launches no flash
+    kernel; it costs one more ``chunked_attention`` forward a call."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset, kv_valid_len, chunk):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (causal, q_offset, kv_valid_len, chunk)
+        return ops.gqa_flash_attention(q, k, v, causal=causal,
+                                       q_offset=q_offset,
+                                       kv_valid_len=kv_valid_len)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        causal, q_offset, kv_valid_len, chunk = ctx.args
+        saved = ctx.saved_tensors
+        wanted = [i for i in range(3) if ctx.needs_input_grad[i]]
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_(i in wanted)
+                   for i, t in enumerate(saved)]
+            out = chunked_attention(*qkv, causal=causal, q_offset=q_offset,
+                                    kv_valid_len=kv_valid_len, chunk=chunk)
+            grads = torch.autograd.grad(out, [qkv[i] for i in wanted],
+                                        grad_out)
+        full = [None] * 3
+        for i, g in zip(wanted, grads):
+            full[i] = g
+        return (*full, None, None, None, None)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, q_offset: int | torch.Tensor = 0,
+              kv_valid_len: int | torch.Tensor | None = None,
+              chunk: int = 1024) -> torch.Tensor:
+    """Attention as every layer calls it; shapes and arguments as in
+    `ops.gqa_flash_attention`. Where grad is enabled and q, k or v
+    requires it, `FlashAttention` (the kernel forward, ``chunked_attention``
+    over ``chunk`` keys a step as its backward); otherwise the flash
+    wrapper itself, so that inference and a captured step run as they
+    did. A position on the device (a cache) is refused where a gradient
+    is wanted: training has no cache."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if (isinstance(q_offset, torch.Tensor)
+                or isinstance(kv_valid_len, torch.Tensor)):
+            raise ValueError("attention: a gradient through a call whose "
+                             "position is a device tensor (a cache) is not "
+                             "supported; training runs without caches")
+        return FlashAttention.apply(q, k, v, causal, q_offset, kv_valid_len,
+                                    chunk)
+    return ops.gqa_flash_attention(q, k, v, causal=causal, q_offset=q_offset,
+                                   kv_valid_len=kv_valid_len)
+
+
 # ------------------------------------------------------------------ attention
 def attn_init(gen, cfg, device, cross: bool = False) -> Params:
     """``wq``, ``wk``, ``wv``, ``wo`` (and the qk norms where the config has
@@ -245,7 +312,8 @@ def cross_apply(p: Params, x: torch.Tensor, cfg, *,
         if s == 1:
             valid = torch.full((), k.shape[2], dtype=torch.int32,
                                device=x.device)
-    out = ops.gqa_flash_attention(q, k, v, causal=False, kv_valid_len=valid)
+    out = attention(q, k, v, causal=False, kv_valid_len=valid,
+                    chunk=cfg.attn_chunk)
     out = dense(p["wo"], out.transpose(1, 2).reshape(b, s, hq * hd))
     return torch.tanh(p["gate"].float()).to(out.dtype) * out, cache
 
@@ -281,7 +349,7 @@ def attn_apply(p: Params, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     k = apply_rope(k, positions, cfg.rope_theta).transpose(1, 2)
     v = v.transpose(1, 2)
     if cache is None:
-        out = ops.gqa_flash_attention(q, k, v, causal=causal)
+        out = attention(q, k, v, causal=causal, chunk=cfg.attn_chunk)
     else:
         cap = cache["k"].shape[2]
         if s > cap or (start is not None and not 0 <= start <= cap - s):
@@ -291,14 +359,14 @@ def attn_apply(p: Params, x: torch.Tensor, cfg, *, positions: torch.Tensor,
         cache["k"].index_copy_(2, positions, k)
         cache["v"].index_copy_(2, positions, v)
         if start is None:
-            out = ops.gqa_flash_attention(
+            out = attention(
                 q, cache["k"], cache["v"], causal=True, q_offset=cache_pos,
-                kv_valid_len=cache_pos + s)
+                kv_valid_len=cache_pos + s, chunk=cfg.attn_chunk)
         else:
             n = start + s
-            out = ops.gqa_flash_attention(
+            out = attention(
                 q, cache["k"][:, :, :n], cache["v"][:, :, :n], causal=True,
-                q_offset=start)
+                q_offset=start, chunk=cfg.attn_chunk)
     out = out.transpose(1, 2).reshape(b, s, hq * hd)
     return dense(p["wo"], out), cache
 
@@ -421,9 +489,9 @@ def mla_apply(p: Params, x: torch.Tensor, cfg, *, positions: torch.Tensor,
             return dense(p["wo"], out), cache
         latent_all, k_pe_all = buf[..., :m.kv_lora], buf[..., m.kv_lora:]
     k, v = _mla_expand(latent_all, k_pe_all, wkv_b, m, x.dtype)
-    out = ops.gqa_flash_attention(
+    out = attention(
         torch.cat([q_nope, q_pe], -1).transpose(1, 2), k, v, causal=True,
-        q_offset=q_offset, kv_valid_len=valid)
+        q_offset=q_offset, kv_valid_len=valid, chunk=cfg.attn_chunk)
     out = out.transpose(1, 2).reshape(b, s, h * m.v_head)
     return dense(p["wo"], out), cache
 
