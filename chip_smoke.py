@@ -241,6 +241,25 @@
       deepseek-v2-lite, mamba2 and seamless-m4t at smoke size trained 8
       steps each on the card (losses falling, flash launches counted), the
       first resumed from its checkpoint.
+   m. the SoC simulator (``repro_torch.sim``) and the objectives that rest
+      on it: on the host, ``NetPlan.simulate`` on the eight zoo CNNs'
+      exact_opt NetPlans under both controllers (words equal to
+      ``NetPlan.traffic``), ``plan_graph(..., objective="sim_latency")`` on
+      the eight, timed, and at ``residency_bytes=0`` the per-layer
+      ``plan(strategy="sim_latency")`` schedules; on the card,
+      ``simulate_batch`` over ResNet-18's widest conv layer's exact grid
+      (both controllers, all spilled and 64 beam states, both residency
+      variants) in torch float64 against numpy on the host (integer-valued
+      columns ==, the others within 1e-12), both timed; then ResNet-18 at
+      ``shrink(56, 1)`` walked in fp32 through ``run_network_kernels`` under
+      the sim_latency and sim_energy strategies' ``plan_many`` schedules and
+      the sim_latency NetPlan (3 walks each, 20 conv2d_psum and 20 pack
+      launches a walk, every tensor within 1e-3 of the reference walk),
+      beside exact_opt's, each replayed as a CUDA graph and printed beside
+      the simulator's latency for the same schedules (the modelled SoC at
+      1 GHz, not card time), the strategies' order by both; last, the
+      roofline_latency objective at the port's H100 constants beside each
+      layer's measured conv2d_psum time.
    Every output is checked against a library reference (the served logits
    against the model with `ref.attention_ref` as its attention, and against
    one full forward of prompt plus generated tokens; the fp32 forward's
@@ -3290,6 +3309,254 @@ def train_on_card(torch, dev, card: str, time_ms, bound) -> dict:
     return out
 
 
+# 4m: the SoC simulator and the objectives that rest on it, its schedules on
+#     the card
+SIM_NET = "resnet18"
+SIM_WALKS = 3
+SIM_STATES = 64                     # beam states of 4m(b)'s vector batch
+SIM_REL_TOL = 1e-12                 # 4m(b): torch on the card vs numpy
+SIM_METRICS = ("cycles", "latency_s", "energy_pj", "interconnect_words",
+               "input_words", "output_words", "sram_reads", "sram_writes",
+               "interconnect_bytes", "dram_words", "dram_bytes", "row_hits",
+               "row_misses", "bank_conflicts", "avg_bw_bytes_s",
+               "peak_bw_bytes_s", "row_miss_rate")
+#: integer-valued columns, held with ==; the others at SIM_REL_TOL
+SIM_EXACT = ("cycles", "interconnect_words", "input_words", "output_words",
+             "sram_reads", "sram_writes", "interconnect_bytes", "dram_words",
+             "dram_bytes", "row_hits", "row_misses", "bank_conflicts")
+
+
+def sim_on_card(torch, dev, graph_ms, card: str) -> dict[str, int]:
+    """Phase 4m. (a) On the host: `NetPlan.simulate` on the eight zoo CNNs'
+    exact_opt NetPlans under both controllers (words == `NetPlan.traffic`),
+    `plan_graph(..., objective="sim_latency")` on the eight, timed, and at
+    ``residency_bytes=0`` the per-layer ``plan(strategy="sim_latency")``
+    schedules. (b) `simulate_batch` over ResNet-18's widest conv layer's
+    exact grid, both controllers, in torch float64 on the card against numpy
+    on the host, both timed. (c) ResNet-18 at ``shrink(56, 1)`` walked in
+    fp32 through `run_network_kernels` under the sim_latency and sim_energy
+    strategies' `plan_many` schedules and the sim_latency NetPlan, each
+    against `run_network_reference`, beside exact_opt's walk, with the
+    simulator's modelled latency of the same schedules. (d) The
+    roofline_latency objective at the port's H100 constants beside each
+    layer's measured conv2d_psum time. Returns the sim walks' launches."""
+    import numpy as np
+
+    from repro_torch import plan, sim
+    from repro_torch.core.cnn_zoo import PAPER_CNNS
+    from repro_torch.kernels import launch
+    from repro_torch.kernels.conv2d_psum import conv2d_psum
+    from repro_torch.kernels.conv_network import (init_network_params,
+                                                  run_network_kernels,
+                                                  run_network_reference)
+    from repro_torch.plan import objectives
+    from repro_torch.plan.graph import NetworkGraph
+    from repro_torch.roofline import constants
+
+    soc = (f"modelled SoC at {sim.DEFAULT_PARAMS.clock_ghz:g} GHz, not card "
+           f"time")
+    # (a) the zoo on the host
+    words = ("interconnect_words", "input_words", "output_words",
+             "sram_reads", "sram_writes")
+    for c in ("passive", "active"):
+        sim_ms = 0.0
+        for net in PAPER_CNNS:
+            netp = plan.plan_graph(net, P_MACS, "exact_opt", c)
+            sim.clear_node_report_cache()
+            t0 = time.perf_counter()
+            rep = netp.simulate()
+            sim_ms += 1e3 * (time.perf_counter() - t0)
+            got = tuple(getattr(rep, f) for f in words) + (rep.interconnect_bytes,)
+            want = tuple(getattr(netp.traffic, f) for f in words) + (
+                netp.traffic.bytes,)
+            if got != want:
+                fail(f"sim {net} {c}: simulated words {got} != NetPlan.traffic "
+                     f"{want}")
+            print(f"sim {net} {c} (exact_opt NetPlan, P {P_MACS}): words == "
+                  f"NetPlan.traffic ({rep.interconnect_words:.0f} on the bus); "
+                  f"latency {rep.latency_s * 1e3:.4f} ms, energy "
+                  f"{rep.energy_pj / 1e6:.3f} uJ, row misses {rep.row_misses}, "
+                  f"peak bus {rep.peak_bw_bytes_s / 1e9:.2f} GB/s ({soc})")
+        print(f"sim zoo {c}: NetPlan.simulate on {len(PAPER_CNNS)} CNNs, host "
+              f"{sim_ms:.3f} ms ({card})")
+        plan.clear_plan_graph_cache()
+        t0 = time.perf_counter()
+        for net in PAPER_CNNS:
+            netp = plan.plan_graph(net, P_MACS, "exact_opt", c,
+                                   objective="sim_latency")
+            rep = netp.simulate()
+            if rep.interconnect_words != netp.traffic.interconnect_words:
+                fail(f"sim_latency NetPlan {net} {c}: words differ")
+        sl_ms = 1e3 * (time.perf_counter() - t0)
+        print(f"plan_graph objective=sim_latency {c}: {len(PAPER_CNNS)} CNNs "
+              f"planned and simulated on the host in {sl_ms:.3f} ms ({card})")
+        for net in PAPER_CNNS:
+            netp = plan.plan_graph(net, P_MACS, "exact_opt", c,
+                                   residency_bytes=0, objective="sim_latency")
+            for node in netp.graph.workload_nodes:
+                want = plan.plan(node.workload, P_MACS, "sim_latency",
+                                 c).schedule
+                if netp.schedules[node.name] != want:
+                    fail(f"sim_latency NetPlan {net} {c} residency 0: "
+                         f"{node.name} {netp.schedules[node.name]} != "
+                         f"plan's {want}")
+        print(f"plan_graph residency 0 objective=sim_latency {c}: every layer "
+              f"of the {len(PAPER_CNNS)} CNNs takes plan(strategy="
+              f"'sim_latency')'s schedule")
+    plan.clear_plan_graph_cache()
+
+    # (b) the batch on the card against numpy on the host
+    g = NetworkGraph.from_cnn(SIM_NET).shrink(WALK_PX, 1)
+    nodes = g.workload_nodes
+    wide = max(g.workloads, key=lambda w: (w.cout, w.cin, w.k))
+    cands = plan.space.ConvExactSpace()(wide, P_MACS)
+    rng = np.random.default_rng(32)
+    states = np.sort(rng.integers(0, wide.in_acts + 1, SIM_STATES))
+    worst = {}
+    sim.simulate_batch(wide, cands, "active", xp=torch, device=dev).metric(
+        "energy_pj")                # loads the card's kernels, untimed
+    for c in ("passive", "active"):
+        for spilled in (None, states):
+            for out_spilled in (True, False):
+                kw = dict(spilled_in_words=spilled, out_spilled=out_spilled)
+                t0 = time.perf_counter()
+                host = sim.simulate_batch(wide, cands, c, **kw)
+                want = {f: host.metric(f) for f in SIM_METRICS}
+                host_ms = 1e3 * (time.perf_counter() - t0)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                card_res = sim.simulate_batch(wide, cands, c, xp=torch,
+                                              device=dev, **kw)
+                got = {f: card_res.metric(f) for f in SIM_METRICS}
+                torch.cuda.synchronize()
+                card_ms = 1e3 * (time.perf_counter() - t0)
+                for f in SIM_METRICS:
+                    g_col = got[f]
+                    if g_col.device.type != dev.type:
+                        fail(f"simulate_batch torch {f}: on {g_col.device}")
+                    g_col = g_col.cpu().numpy()
+                    w_col = want[f]
+                    if g_col.shape != w_col.shape or g_col.dtype != w_col.dtype:
+                        fail(f"simulate_batch torch {f}: {g_col.dtype} "
+                             f"{g_col.shape} vs numpy {w_col.dtype} "
+                             f"{w_col.shape}")
+                    if f in SIM_EXACT:
+                        if not np.array_equal(g_col, w_col):
+                            fail(f"simulate_batch torch {f} {c}: integer "
+                                 f"column differs from numpy")
+                        rel = 0.0
+                    else:
+                        den = np.maximum(np.abs(w_col), np.finfo(float).tiny)
+                        rel = float((np.abs(g_col - w_col) / den).max())
+                        if rel > SIM_REL_TOL:
+                            fail(f"simulate_batch torch {f} {c}: rel err {rel} "
+                                 f"> {SIM_REL_TOL}")
+                    worst[f] = max(worst.get(f, 0.0), rel)
+                shape = tuple(got["cycles"].shape)
+                equal = sum(np.array_equal(got[f].cpu().numpy(), want[f])
+                            for f in SIM_METRICS)
+                print(f"simulate_batch {wide.name} ({wide.cin} -> {wide.cout}, "
+                      f"{len(cands)} candidates) {c} "
+                      f"{'states ' + str(len(states)) if spilled is not None else 'all spilled'}"
+                      f" out_spilled={out_spilled}: columns {shape}; torch "
+                      f"float64 on the card {card_ms:.3f} ms, numpy on the host "
+                      f"{host_ms:.3f} ms; {equal} of {len(SIM_METRICS)} "
+                      f"columns bit-equal ({card})")
+    print(f"simulate_batch torch vs numpy: worst rel err per column "
+          f"{ {f: v for f, v in worst.items() if v} or 'none (all equal)'} "
+          f"(limit {SIM_REL_TOL}; integer and word columns ==)")
+
+    # (c) the simulator's schedules through conv2d_psum
+    plans = {
+        "exact_opt": {n.name: p.schedule for n, p in zip(
+            nodes, plan.plan_many(g.workloads, P_MACS, "exact_opt", "active"))},
+        "sim_latency": {n.name: p.schedule for n, p in zip(
+            nodes, plan.plan_many(g.workloads, P_MACS, "sim_latency", "active"))},
+        "sim_energy": {n.name: p.schedule for n, p in zip(
+            nodes, plan.plan_many(g.workloads, P_MACS, "sim_energy", "active"))},
+        "sim_latency NetPlan": plan.plan_graph(g, P_MACS, "sim_latency",
+                                               "active"),
+    }
+    params = init_network_params(g, seed=0, device=dev)
+    gen = torch.Generator().manual_seed(32)
+    inputs = {g.inputs[0]: torch.randn(3, WALK_PX, WALK_PX, generator=gen).to(dev)}
+    want = run_network_reference(g, params, inputs=inputs, device=dev)
+    expect = {"conv2d_psum": len(nodes), "conv2d_psum/pack": len(nodes)}
+    phase = {key: 0 for key in expect}
+    card_ms, model_ms = {}, {}
+    for label, plan_ in plans.items():
+        scheds = plan_.schedules if label.endswith("NetPlan") else plan_
+        rep = (plan_.simulate() if label.endswith("NetPlan")
+               else sim.simulate_network(g, scheds))
+        model_ms[label] = rep.latency_s * 1e3
+        run_network_kernels(g, plan_, params, inputs=inputs, device=dev)
+        worst_rel = 0.0
+        for _ in range(SIM_WALKS):
+            torch.cuda.synchronize()
+            launch.reset_launches()
+            got = run_network_kernels(g, plan_, params, inputs=inputs,
+                                      device=dev)
+            torch.cuda.synchronize()
+            counts = dict(launch.LAUNCHES)
+            if counts != expect:
+                fail(f"sim walk {label}: launched {counts}, expected {expect}")
+            if label != "exact_opt":
+                for key in phase:
+                    phase[key] += counts[key]
+            for name, value in want.items():
+                out = got[name]
+                if out.shape != value.shape or not torch.isfinite(out).all():
+                    fail(f"sim walk {label} {name}: shape or non-finite values")
+                rel = ((out - value).abs().max() / value.abs().max()).item()
+                if rel > NETWORK_REL_TOL:
+                    fail(f"sim walk {label} {name}: max abs err / max abs = "
+                         f"{rel}")
+                worst_rel = max(worst_rel, rel)
+            del got
+        card_ms[label] = graph_ms(lambda: run_network_kernels(
+            g, plan_, params, inputs=inputs, device=dev), calls=1, reps=3)
+        differ = sum(scheds[n.name] != plans["exact_opt"][n.name] for n in nodes)
+        resident = (f"; the model holds {len(plan_.resident_tensors)} edges "
+                    f"resident on chip, the card none"
+                    if label.endswith("NetPlan") else "")
+        print(f"sim walk {g.name} {label} (fp32, active, P {P_MACS}): replayed "
+              f"{card_ms[label]:.3f} ms on the card ({card}); the simulator's "
+              f"latency for the same schedules {model_ms[label]:.4f} ms "
+              f"({soc}{resident}); {differ} of {len(nodes)} schedules differ from "
+              f"exact_opt's; launches a walk {expect}; worst rel err "
+              f"{worst_rel:.3g} (limit {NETWORK_REL_TOL})")
+    by_model = sorted(plans, key=lambda k: model_ms[k])
+    by_card = sorted(plans, key=lambda k: card_ms[k])
+    print(f"sim order of the four schedules, fastest first: by the simulator "
+          f"{by_model}; by the card {by_card} "
+          f"({'the same' if by_model == by_card else 'different'}; a finding, "
+          f"not a limit)")
+
+    # (d) the roofline objective at the card's numbers, per layer
+    sums = {"roofline": 0.0, "card": 0.0}
+    scheds = plans["sim_latency"]
+    for node in nodes:
+        wl, pad, sc = node.workload, node.workload.k // 2, scheds[node.name]
+        cand = plan.Candidates(kind="conv", bm=np.asarray([sc.m]),
+                               bn=np.asarray([sc.n]), bk=np.asarray([0]))
+        roof = 1e3 * float(objectives.roofline_latency(
+            wl, cand, plan.Controller.ACTIVE)[0])
+        x = torch.nn.functional.pad(torch.cat([want[t] for t in node.ins], dim=0),
+                                    (pad, pad, pad, pad)).contiguous()
+        ms = graph_ms(lambda: conv2d_psum(x, params[node.name], schedule=sc,
+                                          stride=wl.stride))
+        sums["roofline"] += roof
+        sums["card"] += ms
+        print(f"sim roofline {node.name} ({wl.cin} -> {wl.cout}, {wl.k}x{wl.k}, "
+              f"{WALK_PX} px, sim_latency m {sc.m} n {sc.n}): roofline_latency "
+              f"{roof:.6f} ms at the H100's {constants.PEAK_FLOPS_BF16:.3g} "
+              f"FLOP/s and {constants.HBM_BW:.3g} B/s; conv2d_psum fp32 "
+              f"{ms:.4f} ms ({ms / roof:.1f} x) ({card})")
+    print(f"sim roofline: {len(nodes)} layers sum to {sums['roofline']:.4f} ms "
+          f"by the objective and {sums['card']:.4f} ms measured ({card})")
+    return phase
+
+
 def kernel_name(mangled: str) -> str:
     """A kernel's mangled name without its anonymous namespace's token."""
     m = re.match(r"_ZN(\d+)_GLOBAL__N_", mangled)
@@ -4480,6 +4747,16 @@ def main() -> None:
     print(f"train phase: {time.perf_counter() - t0:.1f} s, launches "
           f"{training['counts']}")
 
+    # 4m. the SoC simulator: the zoo's NetPlans simulated and sim-planned on
+    #     the host, the batched evaluator in torch on the card against numpy,
+    #     the sim strategies' ResNet-18 schedules through conv2d_psum, and
+    #     the roofline objective beside each layer's time
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sim_launches = sim_on_card(torch, dev, graph_ms, smi)
+    print(f"sim phase: {time.perf_counter() - t0:.1f} s, launches "
+          f"{sim_launches}")
+
     # 5. result lines
     sources = {"psum_matmul/active": ("psum_matmul", "src/repro/kernels/psum_matmul.py:48"),
                "psum_matmul/passive": ("psum_matmul", "src/repro/kernels/psum_matmul.py:66"),
@@ -4513,6 +4790,11 @@ def main() -> None:
                if name in amc_launches else {}),
             # phase 4g's launches: the traced walk and GEMM
             "obs_launches": obs_launches.get(name, 0),
+            # phase 4m's launches: the sim strategies' and the sim NetPlan's
+            # ResNet-18 walks (conv)
+            **({"sim_launches": sim_launches[name],
+                "sim_pack_launches": sim_launches[f"{name}/pack"]}
+               if name in sim_launches else {}),
             "dtype": "float32",
             "body_by_dtype": {d: v["body"] for d, v in by_dtype.items()},
             "by_dtype": by_dtype})

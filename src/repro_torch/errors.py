@@ -16,7 +16,7 @@ kind of failure (``except BudgetError``) rather than on a message:
     drift, a replan that differs from a fresh plan).
 
 The port raises `PlanError` and `BudgetError` today; the other three wait
-for the planner service and the fault harness (ROADMAP A10).
+for the hardened planner service and the fault harness (ROADMAP A10(b)).
 """
 
 from __future__ import annotations

@@ -22,8 +22,11 @@ Planning runs on the host in numpy; nothing here touches the card.
 
 The hardened server of the reference (`ServerPolicy`,
 `ResilientPlanServer`, `fault_catalog`, `run_fault_load`) needs the fault
-models and the simulator's ``sim_latency`` objective, which are not ported
-yet: each raises `NotImplementedError` naming ROADMAP A10.
+injector and the chaos harness (the reference's ``faults.inject`` and
+``faults.chaos``), which are not ported yet: each raises
+`NotImplementedError` naming ROADMAP A10(b). The fault models and the
+simulator's ``sim_latency`` objective it plans with are ported
+(`repro_torch.faults`, `repro_torch.sim`).
 """
 
 from __future__ import annotations
@@ -203,16 +206,16 @@ def run_load(requests: int = 64, rate_per_s: float = 500.0,
     }
 
 
-# ------------------------------------------------ the hardened server (A10)
+# --------------------------------------------- the hardened server (A10(b))
 def _waits_for_a10(name: str) -> NoReturn:
     raise NotImplementedError(
-        f"planserve.{name} needs the fault models (repro_torch.faults) and "
-        f"the simulator's sim_latency objective, which are not ported yet: "
-        f"ROADMAP A10")
+        f"planserve.{name} needs the fault injector and the chaos harness "
+        f"(repro_torch.faults.inject, .chaos), which are not ported yet: "
+        f"ROADMAP A10(b)")
 
 
 class ServerPolicy:
-    """The reference's knobs of the hardened server; waits for A10."""
+    """The reference's knobs of the hardened server; waits for A10(b)."""
 
     def __init__(self, *args: Any, **kwargs: Any) -> None:
         _waits_for_a10("ServerPolicy")
@@ -220,19 +223,20 @@ class ServerPolicy:
 
 class ResilientPlanServer(PlanServer):
     """The reference's server hardened for faults and overload; waits for
-    A10."""
+    A10(b)."""
 
     def __init__(self, *args: Any, **kwargs: Any) -> None:
         _waits_for_a10("ResilientPlanServer")
 
 
 def fault_catalog(smoke: bool = False) -> list[PlanRequest]:
-    """The reference's fault-load catalog (``sim_latency``); waits for A10."""
+    """The reference's fault-load catalog (``sim_latency``); waits for
+    A10(b)."""
     _waits_for_a10("fault_catalog")
 
 
 def run_fault_load(*args: Any, **kwargs: Any) -> dict:
-    """The reference's fault-injection load run; waits for A10."""
+    """The reference's fault-injection load run; waits for A10(b)."""
     _waits_for_a10("run_fault_load")
 
 

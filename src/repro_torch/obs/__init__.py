@@ -4,7 +4,8 @@ Three parts, one package, stdlib only (no ``torch``):
 
   * `repro_torch.obs.trace`: contextvar-scoped runtime spans (`span`,
     `tracing`, `Stopwatch`) with a no-op fast path when disabled;
-    instrumented into the planner, the plan and dataflow checks, the planner
+    instrumented into the planner, the simulator-scored beam
+    (``sim.eval_batch``), the plan and dataflow checks, the planner
     service, and the kernel pre-flight and launch (``kernel.preflight``,
     ``kernel.launch``). It is the port's one home for a host clock.
   * `repro_torch.obs.metrics`: the process-wide metric `REGISTRY`
@@ -12,9 +13,11 @@ Three parts, one package, stdlib only (no ``torch``):
     statistics and the service's latency distribution; Prometheus text and
     a JSON snapshot.
   * `repro_torch.obs.export`: Chrome/Perfetto trace-event JSON from runtime
-    spans (host time). The simulator timeline waits for ROADMAP A10.
+    spans (host time) or from a simulator `SimReport` (a virtual-time
+    resource timeline of the modelled SoC with an interconnect-bandwidth
+    counter track).
 
-CLI: ``python -m repro_torch.obs`` (metrics / trace-load / export). See the
+CLI: ``python -m repro_torch.obs`` (export / metrics / trace-load). See the
 README's "Observability in the port" for the span API and the metric names.
 """
 

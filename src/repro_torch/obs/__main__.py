@@ -1,4 +1,9 @@
-"""CLI: ``python -m repro_torch.obs``: dump metrics, trace a load run.
+"""CLI: ``python -m repro_torch.obs``: export timelines, dump metrics, trace
+a load run.
+
+    # virtual-time Perfetto timeline of one zoo network's simulation
+    PYTHONPATH=src python -m repro_torch.obs export --net resnet18 \
+        --controller active --out trace.json
 
     # process metrics after a small planning workload
     PYTHONPATH=src python -m repro_torch.obs metrics --prometheus
@@ -6,17 +11,19 @@
     # host-time span trace of a planner-service load run
     PYTHONPATH=src python -m repro_torch.obs trace-load --smoke --out spans.json
 
-``trace-load`` writes Chrome trace-event JSON (open it in
-https://ui.perfetto.dev or chrome://tracing). ``export``, the reference's
-virtual-time timeline of a simulated network, needs ``NetPlan.simulate``,
-which waits for the SoC simulator (ROADMAP A10): it exits non-zero saying so.
+``export`` and ``trace-load`` write Chrome trace-event JSON (open it in
+https://ui.perfetto.dev or chrome://tracing). ``export`` plans the network,
+simulates the plan on the modelled SoC (``NetPlan.simulate``), lays the
+phases out with one track per bottleneck resource and an ``interconnect
+GB/s`` counter track, and checks the timeline (per-track cycles ==
+``SimReport.cycles``, counter words == ``interconnect_words``) before it
+writes.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import sys
 from typing import Any, Optional
 
 from repro_torch.obs import export as _export
@@ -25,10 +32,25 @@ from repro_torch.obs import trace as _trace
 
 
 def _cmd_export(args: argparse.Namespace) -> int:
-    print(f"export {args.net} ({args.controller}): the virtual-time timeline "
-          f"needs NetPlan.simulate, which waits for the SoC simulator "
-          f"(ROADMAP A10)", file=sys.stderr)
-    return 2
+    from repro_torch.plan.netplan import plan_graph
+    netp = plan_graph(args.net, strategy=args.strategy,
+                      controller=args.controller)
+    report = netp.simulate()
+    events = _export.simreport_to_trace(report)
+    pins = _export.verify_sim_trace(report, events)
+    out = args.out or f"trace_{args.net}_{args.controller}.json"
+    with open(out, "w") as fp:
+        _export.write_trace(events, fp)
+    print(f"wrote {out}: {len(events)} events, "
+          f"{report.cycles:.3e} cycles of the modelled SoC over "
+          f"{len(_export.RESOURCE_TRACKS)} resource tracks")
+    per_track = {k: v for k, v in pins.items() if k != "interconnect_words"}
+    print("  cycles by bound:  "
+          + "  ".join(f"{k}={v:.3e}" for k, v in sorted(per_track.items())
+                      if v))
+    print(f"  counter words:    {pins['interconnect_words']:.6e} "
+          f"(== report.interconnect_words)")
+    return 0
 
 
 def _cmd_metrics(args: argparse.Namespace) -> int:
@@ -70,8 +92,7 @@ def main(argv: Optional[list[str]] = None) -> int:
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     ex = sub.add_parser("export",
-                        help="virtual-time Perfetto timeline of a sim run "
-                             "(waits for ROADMAP A10)")
+                        help="virtual-time Perfetto timeline of a sim run")
     ex.add_argument("--net", default="resnet18")
     ex.add_argument("--controller", default="passive",
                     choices=("passive", "active"))

@@ -64,19 +64,20 @@ def default_budget(workload: Workload) -> int:
 def coerce_strategy(value: "Strategy | str") -> "Strategy | str":
     """Coerce to a `Strategy` member, or pass through the name of a custom
     strategy registered with ``dse.register_strategy`` / ``register_planner``
-    (strings stay strings, so the plan cache keys them). Any other name
-    raises `PlanError`."""
+    (strings stay strings, so the plan cache keys them). A ``sim_*`` name
+    imports `repro_torch.sim`, which registers ``sim_latency`` and
+    ``sim_energy``. Any other name raises `PlanError`."""
     if isinstance(value, Strategy):
         return value
     try:
         return Strategy(value)
     except ValueError:
+        if str(value).startswith("sim_") and value not in PLANNERS:
+            import repro_torch.sim  # noqa: F401  (registers the sim_* strategies)
         if value in PLANNERS:
             return value
-        waits = (" (the sim_* strategies wait for the SoC simulator, ROADMAP "
-                 "A10)" if str(value).startswith("sim_") else "")
         raise PlanError(
-            f"unknown strategy {value!r}{waits}; known: "
+            f"unknown strategy {value!r}; known: "
             f"{sorted(set([s.value for s in Strategy]) | set(PLANNERS))}"
         ) from None
 

@@ -191,6 +191,8 @@ def strategy_spec(strategy: "Strategy | str", kind: str,
     one workload kind. Custom `register_strategy` presets take precedence;
     unknown combinations raise the planner's 'not applicable' error."""
     name = strategy.value if isinstance(strategy, Strategy) else str(strategy)
+    if name.startswith("sim_") and (kind, name) not in _CUSTOM_SPECS:
+        import repro_torch.sim  # noqa: F401  (registers the sim_* presets)
     if (kind, name) in _CUSTOM_SPECS:
         return _CUSTOM_SPECS[(kind, name)]
     return _builtin_spec(name, kind, max_block)

@@ -4,13 +4,15 @@
 search, the way ``plan_many`` batches the per-layer pipeline:
 
   * one shared `PlanContext` memoizes candidate grids, per-layer baseline
-    schedules and residency-adjusted traffic reports on name-stripped
-    workload shapes, so the zoo's repeated conv shapes are planned once per
-    shape, not once per (network, node);
+    schedules, residency-adjusted traffic reports and sim-objective grid
+    evaluations on name-stripped workload shapes, so the zoo's repeated conv
+    shapes are planned once per shape, not once per (network, node);
   * the per-network beams run in lockstep over the topological step index,
     and at each step all frontiers that land on the same node grid are
-    scored in one `score_frontier` call over their concatenated
-    ``(states, candidates)`` cost matrix;
+    scored in one `score_frontier` call (a masked argmin over the
+    concatenated ``(states, candidates)`` cost matrix for word-count grids;
+    one vector-``spilled_in_words`` `simulate_batch` evaluation per
+    out-spilled variant for sim grids);
   * duplicate requests (same graph and parameters) are planned once and fan
     out to every position, and each result lands in the graph-level plan
     cache that ``plan_graph`` reads.
@@ -70,16 +72,16 @@ def plan_graphs(graphs, budget: int | None = None,
     across fleet calls too; by default each call gets a fresh one. Results
     hit and fill the same graph-level LRU as ``plan_graph``.
     """
-    _np._check_objective(objective)
     strategy = _api.coerce_strategy(strategy)
     controller = Controller.coerce(controller)
     ctx = PlanContext() if context is None else context
     coerced = [ctx.graph_of(g) for g in graphs]
+    sim_obj = _np._resolve_sim_objective(strategy, objective)
     with span("fleet.plan_graphs", cat="plan", nets=len(coerced),
               controller=controller.value):
         results = _plan_graphs_batched(coerced, budget, strategy, controller,
                                        residency_bytes, beam_width, objective,
-                                       ctx)
+                                       ctx, sim_obj)
         if checked:
             seen: set[int] = set()
             for netp in results:
@@ -91,7 +93,7 @@ def plan_graphs(graphs, budget: int | None = None,
 
 def _plan_graphs_batched(coerced, budget, strategy, controller,
                          residency_bytes, beam_width, objective,
-                         ctx) -> list[NetPlan]:
+                         ctx, sim_obj) -> list[NetPlan]:
     results: "list[NetPlan | None]" = [None] * len(coerced)
     lanes: dict[tuple, _Lane] = {}
     for pos, graph in enumerate(coerced):
@@ -112,14 +114,15 @@ def _plan_graphs_batched(coerced, budget, strategy, controller,
     live: list[_Lane] = []
     for lane in lanes.values():
         lane.baseline = _np._baseline_plans(lane.graph, budget, strategy,
-                                            controller, ctx)
+                                            controller, sim_obj, objective,
+                                            ctx)
         if residency_bytes <= 0:
             lane.netp = _np._unfused(lane.graph, lane.baseline, budget,
                                      strategy, controller, residency_bytes,
-                                     beam_width, objective, ctx)
+                                     beam_width, objective, sim_obj, ctx)
             continue
         lane.beam = _np._make_beam(lane.graph, budget, strategy, controller,
-                                   residency_bytes, beam_width, ctx)
+                                   residency_bytes, beam_width, sim_obj, ctx)
         live.append(lane)
 
     # Lockstep beam: at each topological step, bucket the active lanes by
@@ -159,10 +162,10 @@ def _plan_graphs_batched(coerced, budget, strategy, controller,
     for lane in live:
         lane.netp = _np._finish(lane.graph, lane.beam, lane.baseline, budget,
                                 strategy, controller, residency_bytes,
-                                beam_width, objective, ctx)
+                                beam_width, objective, sim_obj, ctx)
 
     for lane in lanes.values():
-        _np._cache_put(lane.key, lane.netp)
+        _np._cache_put(lane.key, lane.netp, objective)
         for pos in lane.positions:
             results[pos] = lane.netp
     return [r for r in results if r is not None]
@@ -172,7 +175,8 @@ def plan_graph_loop(graph_or_name, budget: int | None = None,
                     strategy: "Strategy | str" = Strategy.EXACT_OPT,
                     controller: "Controller | str" = Controller.PASSIVE,
                     residency_bytes: int = DEFAULT_RESIDENCY_BYTES,
-                    beam_width: int = DEFAULT_BEAM_WIDTH) -> NetPlan:
+                    beam_width: int = DEFAULT_BEAM_WIDTH, *,
+                    objective=None) -> NetPlan:
     """Frozen loop-rate reference planner, the pre-fleet implementation.
 
     One network, one node and one beam state at a time: the graph and every
@@ -184,8 +188,22 @@ def plan_graph_loop(graph_or_name, budget: int | None = None,
     graph = _np._coerce_graph(graph_or_name)
     strategy = _api.coerce_strategy(strategy)
     controller = Controller.coerce(controller)
-    baseline = tuple(_api.plan_many(list(graph.workloads), budget, strategy,
-                                    controller, exact_iters=True))
+    sim_obj = _np._resolve_sim_objective(strategy, objective)
+
+    if sim_obj is None or objective is None:
+        baseline = tuple(_api.plan_many(list(graph.workloads), budget,
+                                        strategy, controller,
+                                        exact_iters=True))
+    else:
+        baseline = []
+        for wl in graph.workloads:
+            b = _api.default_budget(wl) if budget is None else int(budget)
+            sched = _np.dse.plan_with_strategy(wl, b, strategy, controller,
+                                               objective=sim_obj)
+            baseline.append(_api.Plan(
+                workload=wl, budget=b, schedule=sched,
+                traffic=_np.traffic_report(wl, sched, exact_iters=True)))
+        baseline = tuple(baseline)
     if residency_bytes <= 0:
         chosen = {n.name: p.schedule
                   for n, p in zip(graph.workload_nodes, baseline)}
@@ -193,9 +211,18 @@ def plan_graph_loop(graph_or_name, budget: int | None = None,
                              residency_bytes, beam_width, chosen,
                              frozenset(), baseline, 0)
 
-    grids = {i: _np._node_grid(node.workload, budget, strategy, controller)
-             for i, node in enumerate(graph.nodes)
-             if node.workload is not None}
+    grids: dict[int, Any] = {}
+    for i, node in enumerate(graph.nodes):
+        if node.workload is not None:
+            if sim_obj is not None:
+                cands, mask, _ = _np._node_candidates(
+                    node.workload, budget, strategy, controller)
+                grids[i] = _np._SimNodeGrid(wl=node.workload, cands=cands,
+                                            mask=mask, controller=controller,
+                                            objective=sim_obj)
+            else:
+                grids[i] = _np._node_grid(node.workload, budget, strategy,
+                                          controller)
     non_residable, last_use = _np._residency_sets(graph)
 
     states = [_np._State(cost=0.0, bytes_live=0, peak_bytes=0,

@@ -23,9 +23,10 @@ The all-spilled assignment is the independent-layer answer: `NetPlan.baseline`
 is ``plan_many``'s result, the ``no_fusion`` reference.
 
 Each beam step scores its whole state frontier in one vectorized call
-(`_NodeGrid.score_frontier`); a `PlanContext` memoizes candidate grids,
-per-layer baseline schedules and residency-adjusted reports on name-stripped
-workload shapes; repeated ``plan_graph`` calls hit a graph-level LRU
+(`_NodeGrid.score_frontier`, or `_SimNodeGrid`'s batched simulation when the
+beam minimizes simulated cost); a `PlanContext` memoizes candidate grids,
+per-layer baseline schedules, residency-adjusted reports and sim
+evaluations on name-stripped workload shapes; repeated ``plan_graph`` calls hit a graph-level LRU
 (`plan_graph_cache_info` / `clear_plan_graph_cache`); and
 :meth:`NetPlan.replan` re-plans under a changed budget, residency or graph
 from the first step that differs, equal to a fresh ``plan_graph``.
@@ -34,8 +35,8 @@ The residency budget models the SoC's buffer, not the card: the kernels
 write every feature map to device memory whatever the plan holds resident.
 Every total carries its bytes beside its words (`TrafficReport.bytes`), and
 ``checked=True`` runs the `repro_torch.check` NetPlan verifier on the
-result; the simulated-cost objectives wait for the SoC simulator (ROADMAP
-A10).
+result, and `NetPlan.simulate` runs the plan through the SoC simulator
+(`repro_torch.sim`), whose word totals equal `NetPlan.traffic`.
 """
 
 from __future__ import annotations
@@ -74,6 +75,12 @@ def _shape_key(wl):
     return dataclasses.replace(wl, name="")
 
 
+def _grid_objective_key(sim_obj) -> tuple:
+    """Hashable identity of a sim objective for grid and baseline memo keys:
+    a `SimObjective`'s behaviour is fixed by (type, metric, params)."""
+    return (type(sim_obj).__qualname__, sim_obj.metric, sim_obj.params)
+
+
 class PlanContext:
     """Cross-call memoization shared by `plan_graph`, `NetPlan.replan` and
     `repro_torch.plan.fleet.plan_graphs`.
@@ -82,13 +89,14 @@ class PlanContext:
     ``plan_graph`` call). All memos key on name-stripped workload shapes, so
     two nodes, in one network or across a fleet, that share a shape share
     candidate grids, per-layer baseline schedules and residency-adjusted
-    traffic reports. ``stats`` counts hits and misses per memo; it is a
+    traffic reports and sim-objective grid evaluations. ``stats`` counts hits
+    and misses per memo; it is a
     `collections.Counter` whose increments also roll up into the
     process-wide ``plan_context_stats{key=...}`` metrics.
     """
 
     def __init__(self) -> None:
-        self.grids: dict = {}       # grid key -> _NodeGrid
+        self.grids: dict = {}       # grid key -> _NodeGrid | _SimNodeGrid
         self.scheds: dict = {}      # baseline key -> (Schedule, TrafficReport)
         self.reports: dict = {}     # bus-report key -> TrafficReport
         self.stats: collections.Counter = StatsCounter()
@@ -112,18 +120,27 @@ class PlanContext:
             return hit
         return _coerce_graph(graph_or_name)
 
-    def grid(self, wl, budget, strategy, controller: Controller) -> "_NodeGrid":
+    def grid(self, wl, budget, strategy, controller: Controller, sim_obj):
         """The node grid for one workload shape, built once per context."""
         b = _api.default_budget(wl) if budget is None else int(budget)
         name = (strategy.value if isinstance(strategy, Strategy)
                 else str(strategy))
-        key = (self.shape_of(wl), b, name, controller)
+        obj_key = None if sim_obj is None else _grid_objective_key(sim_obj)
+        key = (self.shape_of(wl), b, name, controller, obj_key)
         hit = self.grids.get(key)
         if hit is not None:
             self.stats["grid_hits"] += 1
             return hit
         self.stats["grid_misses"] += 1
-        grid = _node_grid(self.shape_of(wl), budget, strategy, controller)
+        wl_s = self.shape_of(wl)
+        if sim_obj is not None:
+            cands, mask, _ = _node_candidates(wl_s, budget, strategy,
+                                              controller)
+            grid: "_NodeGrid | _SimNodeGrid" = _SimNodeGrid(
+                wl=wl_s, cands=cands, mask=mask, controller=controller,
+                objective=sim_obj, stats=self.stats)
+        else:
+            grid = _node_grid(wl_s, budget, strategy, controller)
         self.grids[key] = grid
         return grid
 
@@ -190,7 +207,7 @@ class _NodeGrid:
 def _node_candidates(wl, budget: int | None, strategy, controller: Controller):
     """(cands, mask, kind): the strategy preset's feasible candidate grid for
     one workload node, with the space's fallback taken when nothing is
-    feasible."""
+    feasible; shared by the word-count and the simulated-cost node grids."""
     budget = _api.default_budget(wl) if budget is None else int(budget)
     kind = "conv" if isinstance(wl, ConvWorkload) else "matmul"
     spec = dse.strategy_spec(strategy, kind)
@@ -229,16 +246,117 @@ def _node_grid(wl, budget: int | None, strategy,
                      fixed=fixed, out_traffic=out_traffic)
 
 
-def _check_objective(objective) -> None:
-    """The beam minimizes interconnect words; the simulated-cost objectives
-    (the only others the reference's beam takes) wait for the simulator."""
-    if objective is None or (isinstance(objective, str)
-                             and objective == "interconnect_words"):
-        return
+@dataclasses.dataclass(eq=False)
+class _SimNodeGrid:
+    """Simulated-cost analogue of `_NodeGrid`: the node's cost over the
+    candidate grid is a batched ``simulate_batch`` evaluation under the beam
+    state's residency (``spilled_in_words`` / ``out_spilled``), cached per
+    residency key. Grids are shared through a `PlanContext`, so beam states
+    of one network or of a whole fleet that agree on a node shape's spilled
+    words share one evaluation; a frontier's missing keys are evaluated in
+    one vector-``spilled_in_words`` batch call."""
+
+    wl: "ConvWorkload | MatmulWorkload"
+    cands: dse.Candidates
+    mask: np.ndarray
+    controller: Controller
+    objective: object                  # repro_torch.sim.SimObjective
+    stats: collections.Counter | None = None
+    _cache: dict = dataclasses.field(default_factory=dict)
+
+    def _ensure(self, spills, out_spilled: bool) -> None:
+        """Evaluate every (spilled, out_spilled) key not yet cached, all of
+        them in one batched simulate call."""
+        missing = sorted({int(s) for s in spills
+                          if (int(s), out_spilled) not in self._cache})
+        if self.stats is not None:
+            self.stats["sim_eval_misses"] += len(missing)
+        if not missing:
+            return
+        if self.stats is not None:
+            self.stats["sim_batch_calls"] += 1
+        vec = np.asarray(missing, dtype=np.int64)
+        with span("sim.eval_batch", cat="plan", node=self.wl.name or "shape",
+                  states=len(missing), candidates=len(self.cands),
+                  out_spilled=out_spilled):
+            res = self.objective.batch(self.wl, self.cands, self.controller,
+                                       spilled_in_words=vec,
+                                       out_spilled=out_spilled)
+        cost = np.asarray(res.metric(self.objective.metric), dtype=np.float64)
+        if cost.ndim == 1:      # spill-independent metric: every row equal
+            cost = np.broadcast_to(cost, (len(missing), cost.size))
+        idx = np.argmin(np.where(self.mask, cost, np.inf), axis=1)
+        for r, s in enumerate(missing):
+            self._cache[(s, out_spilled)] = (int(idx[r]),
+                                             float(cost[r, idx[r]]))
+
+    def best(self, spilled_in_words: int, out_spilled: bool
+             ) -> tuple[int, float]:
+        key = (int(spilled_in_words), out_spilled)
+        hit = self._cache.get(key)
+        if hit is not None:
+            if self.stats is not None:
+                self.stats["sim_eval_hits"] += 1
+            return hit
+        self._ensure((spilled_in_words,), out_spilled)
+        return self._cache[key]
+
+    def score_frontier(self, spilled: np.ndarray
+                       ) -> tuple[np.ndarray, np.ndarray,
+                                  np.ndarray, np.ndarray]:
+        """Frontier scoring through the shared residency-key cache; rows
+        equal per-state ``best`` calls (the same cached scalars)."""
+        keys = [int(s) for s in spilled]
+        out: list[np.ndarray] = []
+        for out_spilled in (True, False):
+            # A requested key is a hit unless it forced a fresh evaluation:
+            # rows that agree on spilled words, within one network's
+            # frontier or across a fleet bucket's concatenated frontiers,
+            # share the one cached evaluation.
+            before = (self.stats["sim_eval_misses"]
+                      if self.stats is not None else 0)
+            self._ensure(keys, out_spilled)
+            if self.stats is not None:
+                fresh = self.stats["sim_eval_misses"] - before
+                self.stats["sim_eval_hits"] += len(keys) - fresh
+            pairs = [self._cache[(k, out_spilled)] for k in keys]
+            out.append(np.asarray([p[0] for p in pairs], dtype=np.int64))
+            out.append(np.asarray([p[1] for p in pairs], dtype=np.float64))
+        return out[0], out[1], out[2], out[3]
+
+
+def _resolve_sim_objective(strategy, objective):
+    """A `repro_torch.sim.SimObjective` when the beam should score with
+    simulated cost, else None (word-count planning).
+
+    ``objective=None`` inherits the strategy's own scoring: a ``sim_*``
+    strategy plans its per-layer searches by simulated cost, so the network
+    beam does too. An explicit objective must be a sim objective
+    (``"sim_latency"`` / ``"sim_energy"`` / a ``make_sim_objective`` result)
+    or ``"interconnect_words"`` (the word-count default): other word
+    objectives do not decompose over the residency states the beam explores.
+    """
+    name = strategy.value if isinstance(strategy, Strategy) else str(strategy)
+    if objective is None and not name.startswith("sim_"):
+        return None
+    if isinstance(objective, str) and objective == "interconnect_words":
+        return None
+    from repro_torch.plan.objectives import get_objective
+    from repro_torch.sim.objectives import SimObjective
+    if isinstance(objective, SimObjective):
+        return objective
+    try:
+        obj = get_objective(objective if objective is not None else name)
+    except KeyError:
+        obj = None
+    if isinstance(obj, SimObjective):
+        return obj
+    if objective is None:       # a custom "sim_"-named, non-sim strategy
+        return None
     raise PlanError(
-        f"plan_graph objective {objective!r} is not ported: the beam "
-        f"minimizes 'interconnect_words' (the default), and its sim "
-        f"objectives wait for the SoC simulator, repro.sim (ROADMAP A10)")
+        f"plan_graph objective {objective!r} is not a sim objective; pass "
+        f"'sim_latency', 'sim_energy', a make_sim_objective(...) instance, "
+        f"or 'interconnect_words' (the word-count default)")
 
 
 # ------------------------------------------------------- analytical totals
@@ -380,6 +498,14 @@ class NetPlan:
             return 0.0
         return 100.0 * (1.0 - self.total_words / self.baseline_words)
 
+    def simulate(self, params=None):
+        """Run this plan through the SoC simulator: a
+        `repro_torch.sim.SimReport` whose word totals equal `traffic`, plus
+        the modelled SoC's time, bandwidth and energy, which the word counts
+        cannot express."""
+        from repro_torch.sim import simulate_network
+        return simulate_network(self, params=params)
+
     def replan(self, budget: Any = _UNSET, residency_bytes: Any = _UNSET,
                subgraph: Any = None, beam_width: Any = _UNSET, *,
                checked: bool = False) -> "NetPlan":
@@ -440,6 +566,7 @@ class _Replay:
     residency_bytes: int
     beam_width: int
     objective: Any
+    sim_obj: Any
     non_residable: frozenset
     last_use: dict
     trace: "tuple | None"    # trace[i] = state frontier entering step i
@@ -479,7 +606,7 @@ class _NetBeam:
     """Mutable beam-search state for one network (one fleet lane)."""
 
     graph: NetworkGraph
-    grids: dict            # node index -> _NodeGrid
+    grids: dict            # node index -> _NodeGrid | _SimNodeGrid
     non_residable: frozenset
     last_use: dict
     residency_bytes: int
@@ -573,12 +700,14 @@ class _NetBeam:
 
 
 def _make_beam(graph: NetworkGraph, budget, strategy, controller: Controller,
-               residency_bytes: int, beam_width: int, ctx: PlanContext,
-               sets: "tuple[set, dict] | None" = None) -> _NetBeam:
+               residency_bytes: int, beam_width: int, sim_obj,
+               ctx: PlanContext, sets: "tuple[set, dict] | None" = None
+               ) -> _NetBeam:
     grids: dict = {}
     for i, node in enumerate(graph.nodes):
         if node.workload is not None:
-            grids[i] = ctx.grid(node.workload, budget, strategy, controller)
+            grids[i] = ctx.grid(node.workload, budget, strategy, controller,
+                                sim_obj)
     non_residable, last_use = _residency_sets(graph) if sets is None else sets
     init = [_State(cost=0.0, bytes_live=0, peak_bytes=0,
                    live=frozenset(), resident=frozenset(), choices=())]
@@ -589,9 +718,11 @@ def _make_beam(graph: NetworkGraph, budget, strategy, controller: Controller,
 
 
 def _baseline_plans(graph: NetworkGraph, budget, strategy,
-                    controller: Controller, ctx: PlanContext) -> tuple:
+                    controller: Controller, sim_obj, objective,
+                    ctx: PlanContext) -> tuple:
     """The ``no_fusion`` baseline: the per-layer pipeline's answer
-    (``plan_many``), memoized per workload shape.
+    (``plan_many``; under an explicit sim objective, the per-layer searches
+    scored by it), memoized per workload shape.
 
     ``plan_many``'s batched all-conv exact search is a per-layer segmented
     argmin and its other path is per-layer ``plan()`` calls, so computing only
@@ -599,7 +730,12 @@ def _baseline_plans(graph: NetworkGraph, budget, strategy,
     """
     workloads = list(graph.workloads)
     name = strategy.value if isinstance(strategy, Strategy) else str(strategy)
-    exact_batch = (strategy in (Strategy.EXACT_OPT, Strategy.EXHAUSTIVE_VMEM)
+    override = sim_obj is not None and objective is not None
+    tag = (("override", _grid_objective_key(sim_obj)) if override
+           else ("words",))
+    exact_batch = (not override
+                   and strategy in (Strategy.EXACT_OPT,
+                                    Strategy.EXHAUSTIVE_VMEM)
                    and bool(workloads)
                    and all(isinstance(w, ConvWorkload) for w in workloads))
 
@@ -607,7 +743,7 @@ def _baseline_plans(graph: NetworkGraph, budget, strategy,
     missing: dict = {}
     for wl in workloads:
         b = _api.default_budget(wl) if budget is None else int(budget)
-        key = (ctx.shape_of(wl), b, name, controller)
+        key = (ctx.shape_of(wl), b, name, controller, tag)
         entries.append((key, wl, b))
         if key not in ctx.scheds and key not in missing:
             missing[key] = (ctx.shape_of(wl), b)
@@ -623,6 +759,12 @@ def _baseline_plans(graph: NetworkGraph, budget, strategy,
             for key, (wl, _), (m, n) in zip(missing, missing.values(), mns):
                 sched = Schedule(kind="conv", bm=m, bn=n, bk=0,
                                  controller=controller)
+                ctx.scheds[key] = (sched, traffic_report(wl, sched,
+                                                         exact_iters=True))
+        elif override:
+            for key, (wl, b) in missing.items():
+                sched = dse.plan_with_strategy(wl, b, strategy, controller,
+                                               objective=sim_obj)
                 ctx.scheds[key] = (sched, traffic_report(wl, sched,
                                                          exact_iters=True))
         else:
@@ -652,7 +794,7 @@ class PlanGraphCacheInfo(NamedTuple):
     currsize: int
 
 
-_GRAPH_CACHE: "collections.OrderedDict[tuple, NetPlan]" = \
+_GRAPH_CACHE: "collections.OrderedDict[tuple, tuple[NetPlan, Any]]" = \
     collections.OrderedDict()
 _GRAPH_CACHE_MAXSIZE = 128
 # Hit/miss counts live in the obs registry (``plan_graph_cache{event=...}``)
@@ -676,27 +818,38 @@ def _graph_signature(graph: NetworkGraph) -> tuple:
                          for t in graph.tensors.values())))
 
 
+def _objective_cache_key(objective) -> Any:
+    if objective is None or isinstance(objective, str):
+        return objective
+    from repro_torch.sim.objectives import SimObjective
+    if isinstance(objective, SimObjective):
+        return ("sim",) + _grid_objective_key(objective)
+    # Any other callable: key on identity; the cache entry keeps a strong
+    # reference, so the id stays valid for the entry's lifetime.
+    return ("id", id(objective))
+
+
 def _cache_key(graph: NetworkGraph, budget, strategy,
                controller: Controller, residency_bytes, beam_width,
                objective) -> tuple:
     name = strategy.value if isinstance(strategy, Strategy) else str(strategy)
     return (_graph_signature(graph),
             None if budget is None else int(budget), name, controller,
-            residency_bytes, beam_width, objective)
+            residency_bytes, beam_width, _objective_cache_key(objective))
 
 
 def _cache_get(key: tuple) -> "NetPlan | None":
-    netp = _GRAPH_CACHE.get(key)
-    if netp is None:
+    entry = _GRAPH_CACHE.get(key)
+    if entry is None:
         _CACHE_MISSES.inc()
         return None
     _GRAPH_CACHE.move_to_end(key)
     _CACHE_HITS.inc()
-    return netp
+    return entry[0]
 
 
-def _cache_put(key: tuple, netp: NetPlan) -> None:
-    _GRAPH_CACHE[key] = netp
+def _cache_put(key: tuple, netp: NetPlan, objective) -> None:
+    _GRAPH_CACHE[key] = (netp, objective)
     _GRAPH_CACHE.move_to_end(key)
     while len(_GRAPH_CACHE) > _GRAPH_CACHE_MAXSIZE:
         _GRAPH_CACHE.popitem(last=False)
@@ -731,19 +884,27 @@ def plan_graph(graph_or_name, budget: int | None = None,
     independent-layer baseline). Tensors entering or leaving the network are
     never held resident: external data must cross the bus.
 
-    The beam minimizes interconnect words (``objective`` None or
-    ``"interconnect_words"``); the reference's sim objectives raise, naming
-    what they wait for. Repeat calls with identical arguments hit a
-    graph-level LRU (`plan_graph_cache_info` / `clear_plan_graph_cache`).
-    ``context`` supplies a `PlanContext` whose shape-keyed memos are shared
-    across calls.
+    ``objective`` selects what the beam minimizes. The default is the
+    strategy's own scoring: interconnect words for the word-count
+    strategies, simulated cost for the ``sim_*`` presets. Passing
+    ``"sim_latency"`` / ``"sim_energy"`` (or a ``sim.make_sim_objective``
+    instance) re-scores any strategy's candidate spaces by batched per-node
+    simulation: each beam state's residency goes into one
+    ``simulate_batch`` grid evaluation per node (cached per residency key),
+    and the ``no_fusion`` baseline becomes the per-layer sim-optimal plans,
+    equal to ``plan(wl, strategy="sim_latency")`` layer by layer. Any other
+    objective raises `PlanError`.
+
+    Repeat calls with identical arguments hit a graph-level LRU
+    (`plan_graph_cache_info` / `clear_plan_graph_cache`). ``context``
+    supplies a `PlanContext` whose shape-keyed memos (grids, baselines, sim
+    evaluations) are shared across calls.
 
     ``checked=True`` runs the full `repro_torch.check` NetPlan verifier on
     the result (graph invariants, per-node feasibility, word conservation,
     the residency-budget proof) and raises `repro_torch.check.CheckError`
     on any error-severity diagnostic, a cached plan included.
     """
-    _check_objective(objective)
     graph = _coerce_graph(graph_or_name)
     strategy = _api.coerce_strategy(strategy)
     controller = Controller.coerce(controller)
@@ -762,7 +923,7 @@ def plan_graph(graph_or_name, budget: int | None = None,
         netp = _plan_graph_uncached(graph, budget, strategy, controller,
                                     residency_bytes, beam_width, objective,
                                     ctx)
-        _cache_put(key, netp)
+        _cache_put(key, netp, objective)
         return _verified(netp, checked)
 
 
@@ -776,7 +937,7 @@ def _verified(netp: NetPlan, checked: bool) -> NetPlan:
 
 def _unfused(graph: NetworkGraph, baseline: tuple, budget, strategy,
              controller: Controller, residency_bytes, beam_width, objective,
-             ctx: PlanContext) -> NetPlan:
+             sim_obj, ctx: PlanContext) -> NetPlan:
     """Nothing can be held resident: the baseline schedules are the answer,
     with no candidate grids and no beam."""
     chosen = {n.name: p.schedule
@@ -784,28 +945,30 @@ def _unfused(graph: NetworkGraph, baseline: tuple, budget, strategy,
     netp = _assemble(graph, budget, strategy, controller, residency_bytes,
                      beam_width, chosen, frozenset(), baseline, 0, ctx)
     _attach_replay(netp, ctx, budget, strategy, controller, residency_bytes,
-                   beam_width, objective, frozenset(), {}, None)
+                   beam_width, objective, sim_obj, frozenset(), {}, None)
     return netp
 
 
 def _plan_graph_uncached(graph: NetworkGraph, budget, strategy,
                          controller: Controller, residency_bytes,
                          beam_width, objective, ctx: PlanContext) -> NetPlan:
-    baseline = _baseline_plans(graph, budget, strategy, controller, ctx)
+    sim_obj = _resolve_sim_objective(strategy, objective)
+    baseline = _baseline_plans(graph, budget, strategy, controller, sim_obj,
+                               objective, ctx)
     if residency_bytes <= 0:
         return _unfused(graph, baseline, budget, strategy, controller,
-                        residency_bytes, beam_width, objective, ctx)
+                        residency_bytes, beam_width, objective, sim_obj, ctx)
     beam = _make_beam(graph, budget, strategy, controller, residency_bytes,
-                      beam_width, ctx)
+                      beam_width, sim_obj, ctx)
     for i in range(len(graph.nodes)):
         beam.step(i)
     return _finish(graph, beam, baseline, budget, strategy, controller,
-                   residency_bytes, beam_width, objective, ctx)
+                   residency_bytes, beam_width, objective, sim_obj, ctx)
 
 
 def _finish(graph: NetworkGraph, beam: _NetBeam, baseline: tuple, budget,
             strategy, controller: Controller, residency_bytes, beam_width,
-            objective, ctx: PlanContext) -> NetPlan:
+            objective, sim_obj, ctx: PlanContext) -> NetPlan:
     best = beam.states[0]
     if not best.resident:
         # With nothing resident the beam's argmin choices are the per-layer
@@ -824,19 +987,21 @@ def _finish(graph: NetworkGraph, beam: _NetBeam, baseline: tuple, budget,
                      beam_width, chosen, best.resident, baseline,
                      best.peak_bytes, ctx)
     _attach_replay(netp, ctx, budget, strategy, controller, residency_bytes,
-                   beam_width, objective, beam.non_residable, beam.last_use,
-                   tuple(beam.trace))
+                   beam_width, objective, sim_obj, beam.non_residable,
+                   beam.last_use, tuple(beam.trace))
     return netp
 
 
 def _attach_replay(netp: NetPlan, ctx: PlanContext, budget, strategy,
                    controller: Controller, residency_bytes, beam_width,
-                   objective, non_residable, last_use, trace) -> None:
+                   objective, sim_obj, non_residable, last_use,
+                   trace) -> None:
     object.__setattr__(netp, "_replay", _Replay(
         context=ctx, budget=budget, strategy=strategy, controller=controller,
         residency_bytes=residency_bytes, beam_width=beam_width,
-        objective=objective, non_residable=frozenset(non_residable),
-        last_use=dict(last_use), trace=trace))
+        objective=objective, sim_obj=sim_obj,
+        non_residable=frozenset(non_residable), last_use=dict(last_use),
+        trace=trace))
 
 
 def _dirty_index(old_graph: NetworkGraph, new_graph: NetworkGraph,
@@ -882,11 +1047,14 @@ def _replan(netp: NetPlan, budget, residency_bytes, subgraph,
         return hit
 
     ctx = rp.context if rp is not None else PlanContext()
-    baseline = _baseline_plans(graph, new_budget, strategy, controller, ctx)
+    sim_obj = (rp.sim_obj if rp is not None
+               else _resolve_sim_objective(strategy, objective))
+    baseline = _baseline_plans(graph, new_budget, strategy, controller,
+                               sim_obj, objective, ctx)
     if new_res <= 0:
         out = _unfused(graph, baseline, new_budget, strategy, controller,
-                       new_res, new_beam, objective, ctx)
-        _cache_put(key, out)
+                       new_res, new_beam, objective, sim_obj, ctx)
+        _cache_put(key, out, objective)
         return out
 
     sets = _residency_sets(graph)
@@ -903,15 +1071,15 @@ def _replan(netp: NetPlan, budget, residency_bytes, subgraph,
         d = _dirty_index(netp.graph, graph, rp.non_residable, rp.last_use,
                          sets[0], sets[1])
     beam = _make_beam(graph, new_budget, strategy, controller, new_res,
-                      new_beam, ctx, sets=sets)
+                      new_beam, sim_obj, ctx, sets=sets)
     if d > 0:
         beam.states = list(rp.trace[d])
         beam.trace = list(rp.trace[:d + 1])
     for i in range(d, len(graph.nodes)):
         beam.step(i)
     out = _finish(graph, beam, baseline, new_budget, strategy, controller,
-                  new_res, new_beam, objective, ctx)
-    _cache_put(key, out)
+                  new_res, new_beam, objective, sim_obj, ctx)
+    _cache_put(key, out, objective)
     return out
 
 

@@ -13,10 +13,18 @@ Built-ins:
                       objective every built-in search Strategy minimizes
   sram_accesses       accesses at the memory that owns the accumulator,
                       as `plan.traffic` counts them
+  energy_bytes        energy-weighted bytes (pJ): an interconnect byte costs
+                      8x an SRAM byte (the shared table of
+                      `repro_torch.roofline.constants`), so this trades bus
+                      words against local accesses
+  roofline_latency    max(compute, memory) seconds at the H100's dense bf16
+                      peak and HBM rate (`repro_torch.roofline.constants`):
+                      latency, not traffic, as the target
 
-Both use ceil iteration counts (the executable semantics). The reference's
-energy and roofline objectives are not here yet: `get_objective` names the
-ROADMAP item each waits for (`WAITING`).
+All use ceil iteration counts (the executable semantics). The simulator's
+``sim_latency`` and ``sim_energy`` register themselves when
+`repro_torch.sim` is imported, which `get_objective` does for a ``sim_*``
+name.
 """
 
 from __future__ import annotations
@@ -28,21 +36,15 @@ import numpy as np
 from repro_torch.plan import conv_model, gemm_model
 from repro_torch.plan.schedule import Controller
 from repro_torch.plan.space import Candidates
+from repro_torch.plan.units import nbytes
 from repro_torch.plan.workload import ConvWorkload, MatmulWorkload, Workload
+from repro_torch.roofline.constants import (HBM_BW, PEAK_FLOPS_BF16,
+                                            PJ_INTERCONNECT_BYTE, PJ_SRAM_BYTE)
 
 ObjectiveFn = Callable[[Workload, Candidates, Controller], np.ndarray]
 Objective = Union[str, ObjectiveFn]
 
 OBJECTIVES: dict[str, ObjectiveFn] = {}
-
-#: the reference's objectives this package does not have yet, and what each
-#: waits for
-WAITING = {
-    "energy_bytes": "the per-access energy table of the roofline models "
-                    "(ROADMAP A10)",
-    "roofline_latency": "the H100 roofline constants (ROADMAP A10)",
-}
-_SIM_WAITS_FOR = "the SoC simulator, repro.sim (ROADMAP A10)"
 
 
 def register_objective(name: str) -> Callable[[ObjectiveFn], ObjectiveFn]:
@@ -58,14 +60,11 @@ def register_objective(name: str) -> Callable[[ObjectiveFn], ObjectiveFn]:
 def get_objective(objective: Objective) -> ObjectiveFn:
     if callable(objective):
         return objective
+    if isinstance(objective, str) and objective.startswith("sim_") \
+            and objective not in OBJECTIVES:
+        import repro_torch.sim  # noqa: F401  (registers sim_latency / sim_energy)
     if objective in OBJECTIVES:
         return OBJECTIVES[objective]
-    waits = WAITING.get(objective)
-    if waits is None and isinstance(objective, str) and objective.startswith("sim_"):
-        waits = _SIM_WAITS_FOR
-    if waits is not None:
-        raise KeyError(f"objective {objective!r} is not ported yet: it waits "
-                       f"for {waits}")
     raise KeyError(f"unknown objective {objective!r}; "
                    f"registered: {sorted(OBJECTIVES)}")
 
@@ -125,3 +124,48 @@ def sram_accesses(wl: Workload, cands: Candidates,
         reads, writes = _matmul_sram(wl, cands)
         return reads + writes
     raise _kind_error("sram_accesses", wl)
+
+
+@register_objective("energy_bytes")
+def energy_bytes(wl: Workload, cands: Candidates,
+                 controller: Controller) -> np.ndarray:
+    """Energy-weighted bytes (pJ): interconnect bytes at 8x the cost of SRAM
+    bytes. Unlike a word count this charges the passive controller's
+    read-back twice (once on the bus, once in SRAM)."""
+    if isinstance(wl, ConvWorkload):
+        ic_bytes = nbytes(interconnect_words(wl, cands, controller),
+                          wl.word_bytes)
+        reads, writes = _conv_sram(wl, cands, controller)
+        sram_bytes = nbytes(reads + writes, wl.word_bytes)
+    elif isinstance(wl, MatmulWorkload):
+        ic_bytes = gemm_model.traffic_model_bytes_grid(
+            wl.m, wl.n, wl.k, cands.bm, cands.bn, cands.bk, controller,
+            in_bytes=wl.in_dtype.itemsize, out_bytes=wl.out_dtype.itemsize,
+            acc_bytes=wl.acc_dtype.itemsize)
+        reads, writes = _matmul_sram(wl, cands)
+        sram_bytes = nbytes(reads + writes, wl.acc_dtype.itemsize)
+    else:
+        raise _kind_error("energy_bytes", wl)
+    return (ic_bytes * PJ_INTERCONNECT_BYTE + sram_bytes * PJ_SRAM_BYTE)
+
+
+@register_objective("roofline_latency")
+def roofline_latency(wl: Workload, cands: Candidates,
+                     controller: Controller) -> np.ndarray:
+    """max(compute, memory) seconds on the H100's roofline
+    (`repro_torch.roofline.constants`). Compute time does not depend on the
+    schedule, so this objective is flat wherever the workload is
+    compute-bound and minimizes bytes where it is bandwidth-bound."""
+    if isinstance(wl, ConvWorkload):
+        flops = 2.0 * wl.macs
+        moved = nbytes(interconnect_words(wl, cands, controller),
+                       wl.word_bytes)
+    elif isinstance(wl, MatmulWorkload):
+        flops = float(wl.flops)
+        moved = gemm_model.traffic_model_bytes_grid(
+            wl.m, wl.n, wl.k, cands.bm, cands.bn, cands.bk, controller,
+            in_bytes=wl.in_dtype.itemsize, out_bytes=wl.out_dtype.itemsize,
+            acc_bytes=wl.acc_dtype.itemsize)
+    else:
+        raise _kind_error("roofline_latency", wl)
+    return np.maximum(flops / PEAK_FLOPS_BF16, moved / HBM_BW)

@@ -494,16 +494,56 @@ def test_objectives_match(objective):
                                         ("roofline_latency", "A10"),
                                         ("sim_latency", "A10"),
                                         ("sim_energy", "A10")])
-def test_waiting_objectives_name_their_roadmap_item(name, item):
-    with pytest.raises(KeyError, match=f"not ported yet.*{item}"):
-        tplan.get_objective(name)
-    with pytest.raises(KeyError, match=item):
-        tdse.sweep("alexnet", 2048, objective=name)
+def test_waiting_objectives_name_their_roadmap_item(name, item, monkeypatch):
+    """The four objectives that waited for ROADMAP ``item`` (the simulator,
+    the energy table and the roofline constants) now equal the reference's
+    through ``get_objective``, ``dse.sweep`` and ``plan`` (the sim presets
+    by name, the other two through a strategy that scores by them). The
+    reference's roofline is priced at the port's H100 constants by
+    ``monkeypatch``."""
+    from repro.plan import objectives as jobjectives
+    from repro_torch.roofline import constants as tconstants
+    monkeypatch.setattr(jobjectives, "PEAK_FLOPS_BF16",
+                        tconstants.PEAK_FLOPS_BF16)
+    monkeypatch.setattr(jobjectives, "HBM_BW", tconstants.HBM_BW)
+    conv = tplan.conv_workloads("resnet18")[3]
+    gemm = tplan.MatmulWorkload(m=1024, n=768, k=1536)
+    for wl, cands in ((conv, tplan.space.ConvExactSpace()(conv, 2048)),
+                      (gemm, tplan.space.AlignedBlockSpace()(
+                          gemm, tplan.SMEM_BUDGET))):
+        jc = jplan.space.Candidates(cands.kind, cands.bm, cands.bn, cands.bk)
+        for c in ("passive", "active"):
+            got = tplan.get_objective(name)(wl, cands, tplan.Controller(c))
+            want = jplan.get_objective(name)(_jwl(wl), jc, jplan.Controller(c))
+            assert got.shape == (len(cands),) and np.array_equal(got, want)
+    got, want = (
+        [(r["network"], r["strategy"], r["controller"], r["cost"],
+          r["interconnect_words"]) for r in pkg.sweep(
+            ["alexnet", "squeezenet"], 2048, ("paper_opt", "exact_opt"),
+            ("passive", "active"), objective=name)]
+        for pkg in (tdse, jdse))
+    assert got == want and len(got) > 0
+    strategy = name
+    if not name.startswith("sim_"):
+        strategy = f"_port_test_min_{name}"
+        for pkg in (tdse, jdse):
+            pkg.register_strategy(strategy, conv=pkg.StrategySpec(
+                space=pkg.ConvExactSpace(),
+                constraints=(pkg.MacBudget(), pkg.GroupDivisible()),
+                objective=name))
+    try:
+        for wl in tplan.conv_workloads("alexnet"):
+            for c in ("passive", "active"):
+                got = tplan.plan(wl, 2048, strategy, c)
+                want = jplan.plan(_jwl(wl), 2048, strategy, c)
+                assert _sched(got.schedule) == _sched(want.schedule)
+                assert _words(got.traffic) == _words(want.traffic)
+    finally:
+        if strategy != name:
+            tdse.unregister_strategy(strategy)
+            jdse.unregister_strategy(strategy)
     with pytest.raises(KeyError, match="unknown objective"):
         tplan.get_objective("wall_time")
-    if name.startswith("sim_"):
-        with pytest.raises(ValueError, match="A10"):
-            tplan.plan(tplan.conv_workloads("alexnet")[0], 2048, name)
 
 
 # ----------------------------------------------- strategies, planners, cache
@@ -616,11 +656,22 @@ def test_builtin_strategies_refuse_unregistration_and_shadowing():
 
 
 def test_planner_registry_and_strategy_specs():
-    # one planner per built-in strategy, as in the reference (whose sim_*
-    # planners exist once `repro.sim` is imported; the port's wait for A10)
+    # one planner per built-in strategy, as in the reference, and the sim_*
+    # planners that importing the simulator (`repro.sim`, `repro_torch.sim`)
+    # registers in each package
+    import repro.sim  # noqa: F401
+    import repro_torch.sim  # noqa: F401
     assert [s.value for s in tplan.Strategy] == [s.value for s in jplan.Strategy]
-    assert sorted(tplan.PLANNERS) == sorted(s.value for s in tplan.Strategy)
+    sim = {"sim_latency", "sim_energy"}
+    assert sim <= set(tplan.PLANNERS) and sim <= set(jplan.PLANNERS)
+    assert sorted(set(tplan.PLANNERS) - sim) == \
+        sorted(s.value for s in tplan.Strategy)
     assert set(tplan.PLANNERS) <= set(jplan.PLANNERS)
+    for name in sim:
+        for kind in ("conv", "matmul"):
+            t, j = tdse.strategy_spec(name, kind), jdse.strategy_spec(name, kind)
+            assert t.objective == j.objective == name
+            assert type(t.space).__name__ == type(j.space).__name__
     assert tplan.Strategy.FIRST_ORDER.value == "first_order"
     for name in tplan.PLANNERS:
         assert tplan.get_planner(name) is tplan.PLANNERS[name]

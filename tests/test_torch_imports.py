@@ -49,6 +49,38 @@ def test_port_imports_without_jax_or_repro():
             "repro_torch.obs.export", "repro_torch.obs.__main__",
             "repro_torch.launch.planserve", "repro_torch.data",
             "repro_torch.data.pipeline"} <= names
+    assert SIM_MODULES <= names
+
+
+SIM_MODULES = {
+    "repro_torch.roofline", "repro_torch.roofline.constants",
+    "repro_torch.faults", "repro_torch.faults.models",
+    "repro_torch.sim", "repro_torch.sim.params", "repro_torch.sim.energy",
+    "repro_torch.sim.report", "repro_torch.sim.engine",
+    "repro_torch.sim.batch", "repro_torch.sim.network",
+    "repro_torch.sim.objectives"}
+
+_IMPORT_ONE = """
+import importlib, sys
+sys.modules["jax"] = None
+mod = importlib.import_module(sys.argv[1])
+bad = sorted(m for m, v in sys.modules.items()
+             if v is not None and m.split(".")[0] in ("repro", "jax", "jaxlib"))
+assert not bad, bad
+print(mod.__name__)
+"""
+
+
+@pytest.mark.parametrize("module", ["repro_torch.sim", "repro_torch.roofline",
+                                    "repro_torch.faults.models"])
+def test_simulator_modules_import_alone_without_jax_or_repro(module):
+    """Each package of the simulator slice, imported first and alone in a
+    fresh interpreter, pulls in neither JAX nor the reference package."""
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module],
+                         env=_env(), capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == [module]
 
 
 def test_chip_smoke_imports_nothing_of_jax_or_repro():

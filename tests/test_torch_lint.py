@@ -1,4 +1,4 @@
-"""The port's two single homes, held by the reference's own lint visitors.
+"""The port's single homes, held by the reference's own lint visitors.
 
 Words to bytes only in `repro_torch.plan.units`: the reference's RPL100
 visitor (`repro.check.lint.raw_byte_arith_rule`), its width names widened to
@@ -12,6 +12,15 @@ any other port file, nor any import of a clock from ``time`` or attribute
 read of one, and ``obs/trace.py`` holds the port's one read. The repository's
 rule set cannot name the port's tracer as RPL104's home (its homes are listed
 in the reference's ``lint.py``), so this test holds the rule for the port.
+
+The per-access energy table only in `repro_torch.roofline.constants`: the
+reference's RPL101 visitor (`repro.check.lint.magic_energy_rule`) matches
+names with the reference's ``ENERGY_PJ_`` prefix; the port's table takes
+the prefix ``PJ_`` (so that the repository's rule, whose one home is the
+reference's ``constants.py``, does not flag it), and this test runs the
+reference's visitor on each port file with the port's prefix renamed to the
+reference's. No other port file defines an energy constant under either
+prefix, and ``roofline/constants.py`` holds the port's four.
 """
 
 import ast
@@ -26,6 +35,8 @@ PORT = ROOT / "src" / "repro_torch"
 UNITS = "src/repro_torch/plan/units.py"
 PORT_WIDTHS = frozenset({"itemsize", "in_size", "acc_size"})
 TRACE = "src/repro_torch/obs/trace.py"
+ENERGY_HOME = "src/repro_torch/roofline/constants.py"
+PORT_ENERGY = "PJ_"
 PORT_CLOCKS = frozenset({"time", "time_ns", "process_time", "perf_counter"})
 
 
@@ -120,3 +131,54 @@ def test_widened_clock_rule_sees_the_ways_round(port_clocks, src, calls,
     tree = ast.parse(src)
     assert len(port_clocks.visit(tree, "x.py")) == calls
     assert len(_clock_reads(tree)) == reads
+
+
+# ------------------------------------------------- one energy table home
+class _PortEnergyPrefix(ast.NodeTransformer):
+    """Renames the port's energy names (``PJ_*``) to the reference's prefix
+    (``ENERGY_PJ_*``), so the reference's RPL101 visitor sees them."""
+
+    def visit_Name(self, node):
+        if node.id.startswith(PORT_ENERGY):
+            node.id = "ENERGY_" + node.id
+        return node
+
+    def visit_Attribute(self, node):
+        self.generic_visit(node)
+        if node.attr.startswith(PORT_ENERGY):
+            node.attr = "ENERGY_" + node.attr
+        return node
+
+
+def _energy_findings(src, rel):
+    tree = _PortEnergyPrefix().visit(ast.parse(src))
+    return lint.magic_energy_rule(allowed=()).visit(tree, rel)
+
+
+def test_port_defines_energy_constants_only_in_roofline_constants():
+    files = sorted(p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py"))
+    assert ENERGY_HOME in files and len(files) >= 30
+    found = [d for rel in files if rel != ENERGY_HOME
+             for d in _energy_findings((ROOT / rel).read_text(), rel)]
+    assert found == [], [(d.file, d.line, d.message) for d in found]
+
+
+def test_roofline_constants_is_where_the_energy_table_lives():
+    found = _energy_findings((ROOT / ENERGY_HOME).read_text(), ENERGY_HOME)
+    assert [d.code for d in found] == ["RPL101"] * 4
+    assert sorted(d.message.split()[2] for d in found) == [
+        "ENERGY_PJ_DRAM_BYTE", "ENERGY_PJ_DRAM_ROW_ACT",
+        "ENERGY_PJ_INTERCONNECT_BYTE", "ENERGY_PJ_SRAM_BYTE"]
+
+
+@pytest.mark.parametrize("src,hits", [
+    ("PJ_SRAM_BYTE = 0.3", 1),
+    ("ENERGY_PJ_SRAM_BYTE = 0.3", 1),
+    ("cfg.PJ_DRAM_BYTE = 2 * 2.0", 1),
+    ("PJ_TABLE: float = 1500.0", 1),
+    ("from repro_torch.roofline.constants import PJ_SRAM_BYTE", 0),
+    ("cost = n * PJ_SRAM_BYTE", 0),
+    ("PJ_SRAM_BYTE = constants.PJ_SRAM_BYTE", 0),
+])
+def test_prefixed_energy_rule_sees_the_port_names(src, hits):
+    assert len(_energy_findings(src, "x.py")) == hits

@@ -325,10 +325,20 @@ def test_write_trace_equals_reference(tmp_path):
 
 
 def test_sim_exporters_wait_for_a10():
-    for fn, args in ((texport.simreport_to_trace, (None,)),
-                     (texport.verify_sim_trace, (None, []))):
-        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            fn(*args)
+    """The simulator timeline waited for ROADMAP A10(a): `simreport_to_trace`
+    and `verify_sim_trace` now equal the reference's on the same plan, a
+    network's and one layer's, passive and active."""
+    for c in ("passive", "active"):
+        rep = tplan.plan_graph("resnet18", 2048, "exact_opt", c).simulate()
+        jrep = jplan.plan_graph("resnet18", 2048, "exact_opt", c).simulate()
+        events = texport.simreport_to_trace(rep)
+        assert events == jexport.simreport_to_trace(jrep)
+        pins = texport.verify_sim_trace(rep, events)
+        assert pins == jexport.verify_sim_trace(jrep, events)
+        assert pins["interconnect_words"] == rep.interconnect_words
+        node = rep.phases[0].node
+        assert node and any(e.get("args", {}).get("node") == node
+                            for e in events)
 
 
 # ------------------------------------------- instrumented paths, span parity

@@ -4,7 +4,7 @@ equal to individual ``plan_graphs`` calls and to the reference's NetPlans
 (schedules and words with ``==``), the load report's deterministic fields
 equal to the reference's and its histogram percentiles within 1% of
 ``np.percentile``, the speedup report's words equal, the names that wait for
-ROADMAP A10 raising, and the CLI's three commands."""
+ROADMAP A10(b) raising, and the CLI's three commands."""
 
 import json
 
@@ -176,6 +176,13 @@ def test_cli_trace_load_writes_span_trace(tmp_path, capsys):
     assert not tobs.enabled() and not jobs.enabled()
 
 
-def test_cli_export_waits_for_a10(capsys):
-    assert obs_main(["export", "--net", "alexnet"]) != 0
-    assert "ROADMAP A10" in capsys.readouterr().err
+def test_cli_export_waits_for_a10(tmp_path, capsys):
+    """``export`` waited for the SoC simulator (ROADMAP A10(a)); it now
+    writes the reference's timeline of the same plan and exits 0."""
+    from repro.obs import export as jexport
+    out = tmp_path / "alexnet.json"
+    assert obs_main(["export", "--net", "alexnet", "--out", str(out)]) == 0
+    assert "wrote" in capsys.readouterr().out
+    want = jexport.simreport_to_trace(jplan.plan_graph("alexnet").simulate())
+    assert json.loads(out.read_text())["traceEvents"] == \
+        json.loads(json.dumps(want))
