@@ -260,6 +260,33 @@
       1 GHz, not card time), the strategies' order by both; last, the
       roofline_latency objective at the port's H100 constants beside each
       layer's measured conv2d_psum time.
+   n. the fault harness (``repro_torch.faults``): the fault schedules of
+      seeds 0-7 (``generate_schedule``) degrade the exact_opt/active NetPlan
+      of ResNet-18 at ``shrink(56, 1)`` (``apply_to_plan``: a halved or
+      quartered MAC budget, a shrunk residency, a passive re-plan); each
+      distinct degraded NetPlan is walked in fp32 through
+      ``run_network_kernels`` (20 conv2d_psum and 20 pack launches a walk,
+      every tensor within 1e-3 of the cuDNN walk), replayed as a CUDA
+      graph, beside its words and the simulator's latency; then
+      ``run_chaos(8, smoke=True)`` on the host must hold every invariant.
+   o. the tensor-parallel partial-sum combines (``repro_torch.sharding``):
+      Qwen1.5-MoE-A2.7B at its published widths and depth (24 layers, bf16,
+      seeded weights) served eagerly to 4 prompts of 1024 for 8 tokens, on
+      a (1, 2) mesh whose two ranks are two processes on this card talking
+      through gloo, each holding half the routed experts' ff: the experts'
+      partial sums combined actively (all-reduce) and passively (all-gather
+      and a local add), with flash decoding off and on (each rank attends
+      over its half of the cache, split_kv's pass 1 with its partials
+      handed back, the blocks combined across the ranks). A one-process
+      baseline runs first in a process of its own, unsplit and with each
+      MoE layer's experts split in two halves as the ranks split them:
+      both ranks' logits equal, without flash decoding bit for bit the
+      split, with it the split's prefill bit for bit and its decode within
+      5e-2 where the MoE routes agree; against the unsplit baseline within
+      5e-2 where the routes agree, route flips counted; the bytes of each
+      collective per decode step, decode ms and the collectives' share;
+      then two fp32 layers, active against passive and one process within
+      2e-4.
    Every output is checked against a library reference (the served logits
    against the model with `ref.attention_ref` as its attention, and against
    one full forward of prompt plus generated tokens; the fp32 forward's
@@ -274,6 +301,7 @@ result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -281,6 +309,7 @@ import math
 import os
 import pathlib
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -3557,6 +3586,620 @@ def sim_on_card(torch, dev, graph_ms, card: str) -> dict[str, int]:
     return phase
 
 
+FAULT_NET = "resnet18"
+FAULT_SEEDS = 8                      # generate_schedule seeds 0 .. 7
+
+
+def faults_on_card(torch, dev, graph_ms, card: str) -> dict[str, int]:
+    """Phase 4n. ResNet-18 at ``shrink(56, 1)``, exact_opt, active, P =
+    2048: the fault schedules of seeds 0-7 (`faults.generate_schedule`),
+    each schedule's plan faults applied to the NetPlan
+    (`faults.apply_to_plan`: EngineDegrade halves or quarters the MAC
+    budget, VmemShrink the residency, ControllerFallback re-plans passive);
+    each distinct degraded NetPlan walked in fp32 through
+    `run_network_kernels` (conv2d_psum on the card, every tensor within 1e-3
+    of `run_network_reference`, launches counted), beside its words, its
+    replayed device ms and the simulator's latency for it. The conv body
+    keeps its partial sums on chip whatever the plan's controller, as the
+    reference's does: a passive plan differs in its schedules and its
+    modelled words. Then `faults.run_chaos(8, smoke=True)` on the host,
+    which must report ok. Returns the counted walks' launches."""
+    from repro_torch import faults, plan
+    from repro_torch.kernels import launch
+    from repro_torch.kernels.conv_network import (init_network_params,
+                                                  run_network_kernels,
+                                                  run_network_reference)
+    from repro_torch.plan.graph import NetworkGraph
+
+    g = NetworkGraph.from_cnn(FAULT_NET).shrink(WALK_PX, 1)
+    nodes = g.workload_nodes
+    base = plan.plan_graph(g, P_MACS, "exact_opt", "active")
+    degraded: dict[tuple, tuple] = {}
+    for seed in range(FAULT_SEEDS):
+        sched = faults.generate_schedule(seed)
+        plan_faults = sched.plan_faults()
+        netp = faults.apply_to_plan(base, plan_faults)
+        args = faults.degraded_plan_args(plan_faults, faults.plan_args_of(base))
+        key = (args.budget, args.residency_bytes, args.controller.value)
+        kinds = [type(e.fault).__name__ for e in sched]
+        print(f"fault schedule seed {seed}: {kinds} at "
+              f"{[e.t_s for e in sched]} s; plan faults "
+              f"{[type(f).__name__ for f in plan_faults]} -> budget "
+              f"{args.budget}, residency {args.residency_bytes} B, "
+              f"{args.controller.value}"
+              f"{' (the base plan itself)' if netp is base else ''}")
+        degraded.setdefault(key, (netp, []))[1].append(seed)
+    params = init_network_params(g, seed=0, device=dev)
+    gen = torch.Generator().manual_seed(34)
+    inputs = {g.inputs[0]: torch.randn(3, WALK_PX, WALK_PX, generator=gen).to(dev)}
+    want = run_network_reference(g, params, inputs=inputs, device=dev)
+    expect = {"conv2d_psum": len(nodes), "conv2d_psum/pack": len(nodes)}
+    phase = {key: 0 for key in expect}
+    for (budget, residency, ctrl), (netp, seeds) in degraded.items():
+        run_network_kernels(g, netp, params, inputs=inputs, device=dev)
+        torch.cuda.synchronize()
+        launch.reset_launches()
+        got = run_network_kernels(g, netp, params, inputs=inputs, device=dev)
+        torch.cuda.synchronize()
+        counts = dict(launch.LAUNCHES)
+        if counts != expect:
+            fail(f"fault walk seeds {seeds}: launched {counts}, expected {expect}")
+        for key in phase:
+            phase[key] += counts[key]
+        worst = 0.0
+        for name, value in want.items():
+            out = got[name]
+            if out.shape != value.shape or not torch.isfinite(out).all():
+                fail(f"fault walk seeds {seeds} {name}: shape or non-finite")
+            rel = ((out - value).abs().max() / value.abs().max()).item()
+            if rel > NETWORK_REL_TOL:
+                fail(f"fault walk seeds {seeds} {name}: max abs err / max abs "
+                     f"= {rel}")
+            worst = max(worst, rel)
+        del got
+        ms = graph_ms(lambda: run_network_kernels(g, netp, params,
+                                                  inputs=inputs, device=dev),
+                      calls=1, reps=3)
+        rep = netp.simulate()
+        differ = sum((netp.schedules[n.name].m, netp.schedules[n.name].n)
+                     != (base.schedules[n.name].m, base.schedules[n.name].n)
+                     for n in nodes)
+        print(f"fault walk {g.name} seeds {seeds} (fp32, P {budget or P_MACS} "
+              f"MACs, residency {residency} B, {ctrl}): words "
+              f"{netp.total_words} (base {base.total_words}); {differ} of "
+              f"{len(nodes)} (m, n) partitions differ from the healthy "
+              f"plan's; "
+              f"replayed {ms:.4f} ms on the card ({card}); the simulator's "
+              f"latency {rep.latency_s * 1e3:.4f} ms (modelled SoC, not card "
+              f"time); launches {counts}; worst rel err vs cuDNN {worst:.3g} "
+              f"(limit {NETWORK_REL_TOL})")
+    t0 = time.perf_counter()
+    rep = faults.run_chaos(n_schedules=FAULT_SEEDS, smoke=True)
+    chaos_s = time.perf_counter() - t0
+    print(rep.summary())
+    if not rep.ok:
+        fail(f"run_chaos: {len(rep.violations)} violations")
+    print(f"fault chaos: run_chaos({FAULT_SEEDS}, smoke=True) ok on the host "
+          f"in {chaos_s:.2f} s; {len(degraded)} distinct degraded NetPlans "
+          f"walked, launches {phase}")
+    return phase
+
+
+TP_ARCH = "qwen2-moe-a2.7b"
+TP_SMOKE = False                     # True only in a CPU rehearsal
+TP_SERVE = (4, 1024, 8)              # batch, prompt, new tokens
+TP_WORLD = 2                         # ranks of the (1, 2) mesh, on one card
+TP_BLOCK = (2, 2, 128, 3)            # the fp32 block: layers, batch, tokens,
+                                     # decodes (a capacity of 132 cuts in two)
+TP_BLOCK_TOL = 2e-4                  # tests/test_distributed.py's, fp32
+TP_SETTINGS = (("active", False), ("passive", False),
+               ("active", True), ("passive", True))
+TP_TIMEOUT = 900                     # seconds a worker may take
+TP_DIR = ROOT / "build" / "tp_phase"   # git-ignored
+
+
+def _tp_common(spec: dict):
+    """A phase 4o worker's torch, device and config."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config, get_smoke
+
+    dev = torch.device(spec["device"], 0) if spec["device"] == "cuda" else \
+        torch.device("cpu")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    cfg = (get_smoke if spec["smoke"] else get_config)(TP_ARCH)
+    return torch, dev, cfg
+
+
+def _tp_generate(torch, dev, cfg, params, prompts, forced, gen, parallel,
+                 timed: bool) -> dict:
+    """Prefill the prompts and decode ``gen - 1`` steps, greedy, or
+    teacher-forced with ``forced`` (the baseline's greedy tokens) where
+    given: every step's logits (fp32,
+    on the host), the step's own greedy tokens, host ms of the prefill and
+    of each decode step (the card synchronised around each), the launch
+    counts and the collectives of the decode steps, and every MoE layer's
+    routes (top-k expert ids), prefill (layers, B S, k) and decode
+    (steps, layers, B, k)."""
+    from unittest import mock
+
+    from repro_torch.kernels import launch
+    from repro_torch.models import moe
+    from repro_torch.models import steps as model_steps
+    from repro_torch.sharding import collectives
+
+    max_len = prompts.shape[1] + gen
+    prefill = model_steps.make_prefill_step(cfg, max_len, parallel)
+    decode = model_steps.make_decode_step(cfg, parallel)
+    out: dict = {}
+    routes: list = []
+
+    def recorded(w, x2, mc):
+        weights, idx, aux = route(w, x2, mc)
+        routes.append(idx.cpu())
+        return weights, idx, aux
+
+    route = moe.route
+    with torch.inference_mode(), mock.patch.object(moe, "route", recorded):
+        collectives.reset()
+        launch.reset_launches()
+        card_sync(torch, dev)
+        t0 = time.perf_counter()
+        logits, caches = prefill(params, {"tokens": prompts})
+        card_sync(torch, dev)
+        out["prefill_ms"] = 1e3 * (time.perf_counter() - t0)
+        out["prefill_launches"] = dict(launch.LAUNCHES)
+        out["prefill_collectives"] = {k: dict(v) for k, v in
+                                      collectives.COLLECTIVES.items()}
+        out["kv_sharded"] = bool(caches.get("kv_sharded", False))
+        out["prefill_routes"] = torch.stack(routes)
+        routes.clear()
+        steps, own = [logits.float().cpu()], [torch.argmax(logits, -1).cpu()]
+        collectives.reset()
+        launch.reset_launches()
+        out["decode_ms"] = []
+        ctx = collectives.timed() if timed else contextlib.nullcontext()
+        with ctx:
+            for i in range(gen - 1):
+                card_sync(torch, dev)
+                t0 = time.perf_counter()
+                tok = (own[-1].to(dev)[:, None] if forced is None
+                       else forced[:, i:i + 1])
+                logits, caches = decode(params, caches, tok)
+                card_sync(torch, dev)
+                out["decode_ms"].append(1e3 * (time.perf_counter() - t0))
+                steps.append(logits.float().cpu())
+                own.append(torch.argmax(logits, -1).cpu())
+        out["decode_launches"] = dict(launch.LAUNCHES)
+        out["decode_collectives"] = {k: dict(v) for k, v in
+                                     collectives.COLLECTIVES.items()}
+        out["logits"] = torch.stack(steps)
+        out["tokens"] = torch.stack(own, 1)
+        out["decode_routes"] = torch.stack(routes).reshape(
+            gen - 1, -1, *routes[0].shape)
+        del caches
+    return out
+
+
+def tp_baseline(spec: dict) -> None:
+    """Phase 4o's one-process baseline (``parallel=None``), in its own
+    process: the whole model's seeded weights, greedy decoding from seeded
+    prompts; then the same prompts teacher-forced with its tokens, each
+    MoE layer's routed experts run as the two ranks run them, over each
+    half of ff, the halves' bf16 outputs added (the split, one process).
+    Saves both for the ranks."""
+    import numpy as np
+    from unittest import mock
+
+    torch, dev, cfg = _tp_common(spec)
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import init_lm
+
+    batch, prompt, gen = spec["serve"]
+    params = init_lm(cfg, seed=0, device=dev)
+    prompts = torch.from_numpy(np.random.default_rng(34).integers(
+        0, cfg.vocab, (batch, prompt))).to(dev)
+    run = _tp_generate(torch, dev, cfg, params, prompts, None, gen, None,
+                       timed=False)
+    forced = run["tokens"].to(dev)
+    ffn = moe._capacity_ffn
+    half = cfg.moe.expert_ff // spec["world"]
+
+    def split_ffn(routed, mc, x, weights, idx, act):
+        parts = [ffn({n: routed[n].narrow(1 if n == "wo" else 2, r * half,
+                                          half).contiguous()
+                      for n in ("wg", "wi", "wo")}, mc, x, weights, idx, act)
+                 for r in range(spec["world"])]
+        return functools.reduce(lambda a, b: a + b, parts)
+
+    with mock.patch.object(moe, "_capacity_ffn", split_ffn):
+        split = _tp_generate(torch, dev, cfg, params, prompts, forced, gen,
+                             None, timed=False)
+    run.update(prompts=prompts.cpu(), forced=forced.cpu(),
+               split={k: split[k] for k in ("logits", "tokens",
+                                            "prefill_routes", "decode_routes")},
+               held_gb=(torch.cuda.memory_allocated(dev) / 1e9
+                        if dev.type == "cuda" else 0.0))
+    torch.save(run, pathlib.Path(spec["dir"]) / "baseline.pt")
+
+
+def tp_rank(spec: dict) -> None:
+    """One rank of phase 4o's (1, 2) mesh: gloo over a file rendezvous,
+    the seeded weights made one rank at a time and cut to this rank's ff
+    block of the routed experts (`rules.routed_specs`), then the baseline's
+    prompts served under each `TP_SETTINGS` (psum_strategy x flash_decode),
+    teacher-forced with the baseline's tokens; then the fp32 first-layers
+    block under both strategies and in one process. A peer that does not
+    come raises within the rendezvous's timeout."""
+    import datetime
+
+    torch, dev, cfg = _tp_common(spec)
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.sharding import collectives, rules
+    from repro_torch.sharding.api import make_parallel
+
+    rank, world, out_dir = spec["rank"], spec["world"], pathlib.Path(spec["dir"])
+    dist.init_process_group("gloo", init_method=f"file://{out_dir / 'rdzv'}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    mesh = make_test_mesh(1, world, device_type=dev.type)
+    base = torch.load(out_dir / "baseline.pt")
+    batch, prompt, gen = spec["serve"]
+    res: dict = {"rank": rank, "coord": list(mesh.get_coordinate())}
+
+    def held(tree_fn):
+        """Weights made one rank at a time (the whole tree, then the cut), so
+        that two whole trees never share the card."""
+        params = None
+        for r in range(world):
+            if r == rank:
+                whole = tree_fn()
+                params = rules.shard_tree(whole, rules.routed_specs(whole, mesh),
+                                          mesh)
+                del whole
+                if dev.type == "cuda":
+                    torch.cuda.empty_cache()
+            dist.barrier()
+        return params
+
+    params = held(lambda: init_lm(cfg, seed=0, device=dev))
+    res["held_gb"] = (torch.cuda.memory_allocated(dev) / 1e9
+                      if dev.type == "cuda" else 0.0)
+    res["routed_ff"] = params["layers"][0]["moe"]["routed"]["wg"].shape[-1]
+
+    # how gloo moves a CUDA tensor: the profiler's events around one call
+    if dev.type == "cuda":
+        t = torch.ones(batch, cfg.d_model, dtype=torch.bfloat16, device=dev)
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            collectives.all_reduce(t, mesh.get_group("model"), site="probe")
+            torch.cuda.synchronize(dev)
+        res["gloo_events"] = sorted(
+            (e.key, e.count) for e in prof.key_averages()
+            if any(w in e.key.lower() for w in ("memcpy", "gloo", "allreduce",
+                                                "all_reduce", "copy_")))
+    prompts, forced = base["prompts"].to(dev), base["forced"].to(dev)
+    runs = {}
+    for strategy, flash in TP_SETTINGS:
+        par = make_parallel(mesh, psum_strategy=strategy, flash_decode=flash)
+        run = _tp_generate(torch, dev, cfg, params, prompts, forced, gen, par,
+                           timed=True)
+        key = f"{strategy}{' flash_decode' if flash else ''}"
+        torch.save({k: run.pop(k) for k in ("logits", "prefill_routes",
+                                            "decode_routes")},
+                   out_dir / f"logits_{rank}_{key}.pt")
+        run["tokens"] = run["tokens"].tolist()
+        runs[key] = run
+    res["runs"] = runs
+    del params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # the fp32 block: the first layers at full width, sharded under both
+    # strategies (flash decoding on) and whole in one process
+    layers, b, t_len, steps = spec["block"]
+    cfg32 = dataclasses.replace(cfg, dtype="float32", n_periods=layers)
+    whole = init_lm(cfg32, seed=1, device=dev)
+    cut = rules.shard_tree(whole, rules.routed_specs(whole, mesh), mesh)
+    gen_ = torch.Generator().manual_seed(35)
+    toks = torch.randint(0, cfg.vocab, (b, t_len + steps), generator=gen_).to(dev)
+    block = {}
+    for label, params32, par in (
+            ("one process", whole, None),
+            ("active", cut, make_parallel(mesh, psum_strategy="active",
+                                          flash_decode=True)),
+            ("passive", cut, make_parallel(mesh, psum_strategy="passive",
+                                           flash_decode=True))):
+        run = _tp_generate(torch, dev, cfg32, params32, toks[:, :t_len],
+                           toks[:, t_len:], steps + 1, par, timed=False)
+        block[label] = run["logits"]
+        if par is not None and not run["kv_sharded"]:
+            fail(f"tp fp32 block {label}: the caches were not cut for flash "
+                 f"decoding")
+    res["block"] = {
+        "active_vs_passive": (block["active"] - block["passive"]).abs().max().item(),
+        "active_vs_one": (block["active"] - block["one process"]).abs().max().item(),
+        "passive_vs_one": (block["passive"] - block["one process"]).abs().max().item(),
+        "max_abs": block["one process"].abs().max().item(),
+    }
+    (out_dir / f"rank{rank}.json").write_text(json.dumps(res))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def tp_partials_rows(torch, dev, card: str, cfg, graph_ms, time_ms,
+                     bound) -> dict:
+    """split_kv's pass 1 with its partials handed back (no combine), as one
+    rank's flash decoding calls it: ``cfg``'s heads, batch TP_SERVE[0],
+    over half of a cache of prompt + new tokens, at a local position
+    inside the block, at its last key and before the block (valid length
+    0: the rank sees no key), each against the plain version's (m, l,
+    acc) on the card's inputs; the whole block's case timed. Returns its
+    row."""
+    from repro_torch.kernels import flash_attention
+
+    on_card = dev.type == "cuda"
+    batch, prompt, gen = TP_SERVE
+    s_loc = (prompt + gen) // TP_WORLD
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    fp = flash_attention.flash_launch_plan(
+        bh=batch * hq, sq=1, skv=s_loc, d=hd, kv_group=hq // hkv,
+        dtype=torch.bfloat16, device_pos=True, partials=True)
+    if fp.launches != 1 or (on_card and fp.body != "split_kv"):
+        fail(f"tp partials: plan {fp.body} with {fp.launches} launches")
+    gen_ = torch.Generator().manual_seed(36)
+    q = torch.randn(batch * hq, 1, hd, generator=gen_).to(dev, torch.bfloat16)
+    k, v = (torch.randn(batch * hkv, s_loc, hd, generator=gen_)
+            .to(dev, torch.bfloat16) for _ in range(2))
+    call = fp.cuda if on_card else fp.plain
+    worst = 0.0
+    for label, off in (("inside", s_loc // 3), ("last key", s_loc - 1),
+                       ("before the block", -s_loc // 2)):
+        pos = torch.tensor([off, min(max(off + 1, 0), s_loc)], dtype=torch.int32,
+                           device=dev)
+        got, want = call(q, k, v, pos=pos), fp.plain(q, k, v, pos=pos)
+        for name, g, w in zip(("m", "l", "acc"), got, want):
+            if g.dtype != torch.float32 or g.shape != w.shape:
+                fail(f"tp partials {label} {name}: {g.dtype} {tuple(g.shape)}")
+            err = ((g - w).abs().max() / max(1.0, w.abs().max().item())).item()
+            if err > FLASH_TOL["float32"]:
+                fail(f"tp partials {label} {name}: err {err}")
+            worst = max(worst, err)
+        if off < 0 and not (torch.all(got[0] == flash_attention.NEG_INF)
+                            and torch.all(got[1] == 0) and torch.all(got[2] == 0)):
+            fail("tp partials before the block: a rank that sees no key must "
+                 "give m = NEG_INF, l = 0, acc = 0")
+    pos = torch.tensor([s_loc - 1, s_loc], dtype=torch.int32, device=dev)
+    b_ms, b_by = bound(4.0 * batch * hq * s_loc * hd,
+                       2 * (q.numel() + k.numel() + v.numel())
+                       + 4 * batch * hq * (hd + 2), torch.bfloat16)
+    row = {"body": fp.body, "max_abs_err": worst,
+           "ms": graph_ms(lambda: call(q, k, v, pos=pos)),
+           "plain_ms": time_ms(lambda: fp.plain(q, k, v, pos=pos)),
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    print(f"tp partials (split_kv pass 1 alone, bf16, B {batch}, {hq}/{hkv} "
+          f"heads, d {hd}, one query over a block of {s_loc} keys; the rank "
+          f"before the block sees none): " + " ".join(
+              f"{key}={val:.4g}" if isinstance(val, float) else f"{key}={val}"
+              for key, val in row.items()) + f" ({card})")
+    return row
+
+
+def tp_on_card(torch, dev, card: str, graph_ms, time_ms,
+               bound) -> dict:
+    """Phase 4o. Qwen1.5-MoE-A2.7B at full width and depth, bf16, seeded
+    weights, served on a (1, 2) mesh whose two ranks are two processes on
+    the one card, talking through gloo: first the one-process baseline in a
+    process of its own (its logits and greedy tokens saved), then the two
+    ranks (`tp_rank`), each holding half the routed experts' ff and the
+    rest whole, under the active and the passive combine, with flash
+    decoding off and on. Both ranks' logits and MoE routes equal; without
+    flash decoding equal bit for bit to the same split in one process
+    (`tp_baseline`), with it the prefill bit for bit and the decode within
+    `SERVE_REL_TOL` (bf16 max-abs-err / max-abs, per row) where the routes
+    agree; against the unsplit baseline within `SERVE_REL_TOL` where the
+    routes agree, greedy tokens equal where its top-2 margin exceeds twice
+    that, route flips counted (the bf16 split flips near-tie routes); the bytes through each collective per decode step, the
+    decode ms a step and the share in the collectives; split_kv's pass 1
+    with no combine in the flash-decoding steps. Then the fp32 first-layers
+    block: active against passive and against one process within 2e-4.
+    Before the processes start, `tp_partials_rows` holds the pass-1
+    partials against their plain version in this process. Returns the
+    ranks' decode launches under flash decoding and the partials' row."""
+    import shutil
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config, get_smoke
+    cfg = (get_smoke if TP_SMOKE else get_config)(TP_ARCH)
+    n_layers = cfg.n_layers
+    partials = tp_partials_rows(torch, dev, card, cfg, graph_ms, time_ms, bound)
+
+    batch, prompt, gen = TP_SERVE
+    if TP_DIR.exists():
+        shutil.rmtree(TP_DIR)
+    TP_DIR.mkdir(parents=True)
+    spec = {"dir": str(TP_DIR), "device": dev.type, "smoke": TP_SMOKE,
+            "serve": list(TP_SERVE), "block": list(TP_BLOCK),
+            "world": TP_WORLD}
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        print(f"tp phase: the main process holds "
+              f"{torch.cuda.memory_allocated(dev) / 1e9:.3f} GB allocated, "
+              f"{torch.cuda.memory_reserved(dev) / 1e9:.3f} GB reserved")
+
+    def spawn(role: str, extra: dict) -> subprocess.Popen:
+        return subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), role,
+             json.dumps({**spec, **extra})],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def finish(procs: list, what: str) -> None:
+        logs = []
+        try:
+            for proc in procs:
+                logs.append(proc.communicate(timeout=TP_TIMEOUT)[0])
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+        for i, (proc, log) in enumerate(zip(procs, logs)):
+            if proc.returncode != 0:
+                fail(f"{what} {i} exited {proc.returncode}:\n{log[-6000:]}")
+
+    t0 = time.perf_counter()
+    finish([spawn("--tp-baseline", {})], "tp baseline")
+    base_s = time.perf_counter() - t0
+    base = torch.load(TP_DIR / "baseline.pt")
+    t0 = time.perf_counter()
+    finish([spawn("--tp-rank", {"rank": r}) for r in range(TP_WORLD)], "tp rank")
+    ranks_s = time.perf_counter() - t0
+    ranks = [json.loads((TP_DIR / f"rank{r}.json").read_text())
+             for r in range(TP_WORLD)]
+    want = base["logits"]
+    on_card = dev.type == "cuda"
+    print(f"tp baseline ({TP_ARCH}, one process, parallel=None, batch {batch}, "
+          f"prompt {prompt}, {gen} new tokens, eager): prefill "
+          f"{base['prefill_ms']:.2f} ms, decode "
+          f"{statistics.median(base['decode_ms']):.3f} ms a step (median of "
+          f"{len(base['decode_ms'])}); held {base['held_gb']:.2f} GB; "
+          f"launches prefill {base['prefill_launches']}, decode "
+          f"{base['decode_launches']}; {base_s:.1f} s with its start ({card})")
+    if "gloo_events" in ranks[0]:
+        print(f"tp gloo path for a CUDA tensor (one all-reduce of {batch} x "
+              f"d_model bf16, profiled): {ranks[0]['gloo_events']}")
+    split = base["split"]
+
+    def consistent(run: dict, ref: dict):
+        """(steps + 1, B): the logits whose every MoE route equals ``ref``'s:
+        all of the prefill's (capacity dispatch couples its rows) and the
+        row's own in the decode steps up to that logit (decode rows do not
+        drop, so they are independent)."""
+        same = (run["decode_routes"] == ref["decode_routes"]).all(-1).all(1)
+        rows = torch.cat([torch.ones_like(same[:1]), same]).cumprod(0).bool()
+        return rows & torch.equal(run["prefill_routes"], ref["prefill_routes"])
+
+    def flips(run: dict, ref: dict) -> str:
+        pre = (run["prefill_routes"] != ref["prefill_routes"]).any(-1)
+        dec = (run["decode_routes"] != ref["decode_routes"]).any(-1)
+        return (f"{int(pre.sum())} of {pre.numel()} prefill and "
+                f"{int(dec.sum())} of {dec.numel()} decode (layer, token) "
+                f"routes differ")
+
+    def row_rel(got, ref):
+        return (got - ref).abs().amax(-1) / ref.abs().amax(-1)
+
+    def worst(rel, mask) -> float:
+        return float(rel[mask].max()) if mask.any() else 0.0
+
+    intrinsic = row_rel(split["logits"], want)
+    ok = consistent(split, base)
+    print(f"tp split in one process (each MoE layer's routed experts over "
+          f"{TP_WORLD} halves of ff, the halves' bf16 outputs added) against "
+          f"the baseline: max abs err / max abs {float(intrinsic.max()):.4g} "
+          f"over all {intrinsic.numel()} logit rows, {worst(intrinsic, ok):.4g} "
+          f"over the {int(ok.sum())} whose routes all equal the baseline's "
+          f"(limit {SERVE_REL_TOL}); {flips(split, base)}")
+    if worst(intrinsic, ok) > SERVE_REL_TOL:
+        fail("tp split: logits beyond the bf16 limit where every route equals "
+             "the baseline's")
+    launches: dict[str, int] = {}
+    for key in ranks[0]["runs"]:
+        got = [torch.load(TP_DIR / f"logits_{r}_{key}.pt") for r in range(TP_WORLD)]
+        if not all(torch.equal(g[k], got[0][k]) for g in got[1:] for k in got[0]):
+            fail(f"tp {key}: the ranks' logits or routes differ")
+        run = got[0]
+        logits = run["logits"]
+        if logits.shape != want.shape or not torch.isfinite(logits).all():
+            fail(f"tp {key}: logits {tuple(logits.shape)} vs "
+                 f"{tuple(want.shape)}, or non-finite")
+        flash = key.endswith("flash_decode")
+        if not flash and not all(torch.equal(run[k], split[k]) for k in run):
+            fail(f"tp {key}: logits or routes differ from the split run in "
+                 f"one process")
+        if flash and not torch.equal(logits[0], split["logits"][0]):
+            fail(f"tp {key}: prefill logits differ from the split run's")
+        vs_split = row_rel(logits, split["logits"])
+        ok_split = consistent(run, split)
+        if worst(vs_split, ok_split) > SERVE_REL_TOL:
+            fail(f"tp {key}: logits vs the split run beyond {SERVE_REL_TOL} "
+                 f"where the routes agree")
+        vs_base = row_rel(logits, want)
+        ok_base = consistent(run, base)
+        if worst(vs_base, ok_base) > SERVE_REL_TOL:
+            fail(f"tp {key}: logits vs the baseline beyond {SERVE_REL_TOL} "
+                 f"where the routes agree")
+        top2 = want.topk(2, dim=-1).values
+        sure = ok_base & (top2[..., 0] - top2[..., 1]
+                          > 2 * SERVE_REL_TOL * want.abs().amax(-1))
+        toks = torch.tensor(ranks[0]["runs"][key]["tokens"])
+        if not torch.equal(toks.T[sure], base["tokens"].T[sure]):
+            fail(f"tp {key}: greedy tokens differ from the baseline's where "
+                 f"its routes agree and its top-2 margin is clear")
+        print(f"tp logits {key}: both ranks equal bit for bit; "
+              f"{'against the split run: prefill bit for bit, decode ' + format(worst(vs_split, ok_split), '.4g') + ' at ' + str(int(ok_split.sum())) + ' rows whose routes agree (' + flips(run, split) + ')' if flash else 'bit for bit the split run in one process'}; "
+              f"against the baseline: {float(vs_base.max()):.4g} over all "
+              f"rows, {worst(vs_base, ok_base):.4g} over the "
+              f"{int(ok_base.sum())} whose routes agree (limit "
+              f"{SERVE_REL_TOL}); greedy tokens equal at all {int(sure.sum())} "
+              f"of those whose baseline top-2 margin exceeds "
+              f"{2 * SERVE_REL_TOL} x max |logit|")
+        for r in ranks:
+            run = r["runs"][key]
+            flash = key.endswith("flash_decode")
+            n = gen - 1
+            dec = run["decode_launches"]
+            per_step = {k: v / n for k, v in dec.items()}
+            expect = ({"flash_attention": n_layers} if flash else
+                      {"flash_attention": n_layers,
+                       "flash_attention/combine": n_layers})
+            if on_card and per_step != expect:
+                fail(f"tp {key} rank {r['rank']}: decode launched {dec} in {n} "
+                     f"steps, expected {expect} a step")
+            if flash != run["kv_sharded"]:
+                fail(f"tp {key} rank {r['rank']}: caches cut {run['kv_sharded']}")
+            coll = run["decode_collectives"]
+            coll_s = sum(v["s"] for v in coll.values())
+            dec_ms = run["decode_ms"]
+            print(f"tp serve rank {r['rank']} {key} ({TP_WORLD} ranks on one "
+                  f"card, gloo): decode {statistics.median(dec_ms):.3f} ms a step (median "
+                  f"of {n}), {1e3 * coll_s / n:.3f} ms a step in the "
+                  f"collectives ({coll_s / (sum(dec_ms) / 1e3):.3f} of the "
+                  f"steps); prefill {run['prefill_ms']:.2f} ms; bytes a decode "
+                  f"step {{{', '.join(f'{k}: {v['bytes'] / n:.0f} B in {v['calls'] / n:.0f} calls' for k, v in coll.items())}}}; "
+                  f"prefill collectives {{{', '.join(f'{k}: {v['bytes']} B' for k, v in run['prefill_collectives'].items())}}}; "
+                  f"launches a decode step {per_step}, prefill "
+                  f"{run['prefill_launches']}; held {r['held_gb']:.2f} GB, "
+                  f"routed ff {r['routed_ff']} of a whole "
+                  f"{'smoke' if TP_SMOKE else 1408} ({card})")
+            if flash:
+                for k, v in dec.items():
+                    launches[k] = launches.get(k, 0) + v
+    for r in ranks:
+        blk = r["block"]
+        tol = TP_BLOCK_TOL * max(1.0, blk["max_abs"])
+        worst = max(blk["active_vs_passive"], blk["active_vs_one"],
+                    blk["passive_vs_one"])
+        if worst > tol:
+            fail(f"tp fp32 block rank {r['rank']}: {blk} beyond {tol}")
+        print(f"tp fp32 block rank {r['rank']} ({TP_BLOCK[0]} layers at full "
+              f"width, batch {TP_BLOCK[1]}, {TP_BLOCK[2]} tokens + "
+              f"{TP_BLOCK[3]} flash-decoded steps): max abs err active vs "
+              f"passive {blk['active_vs_passive']:.3g}, active vs one process "
+              f"{blk['active_vs_one']:.3g}, passive vs one process "
+              f"{blk['passive_vs_one']:.3g} (limit {TP_BLOCK_TOL} x max(1, "
+              f"{blk['max_abs']:.3g}))")
+    print(f"tp phase: baseline {base_s:.1f} s, ranks {ranks_s:.1f} s; flash "
+          f"decoding's decode launches over both ranks {launches}")
+    return {"launches": launches, "partials": partials}
+
+
 def kernel_name(mangled: str) -> str:
     """A kernel's mangled name without its anonymous namespace's token."""
     m = re.match(r"_ZN(\d+)_GLOBAL__N_", mangled)
@@ -4757,6 +5400,24 @@ def main() -> None:
     print(f"sim phase: {time.perf_counter() - t0:.1f} s, launches "
           f"{sim_launches}")
 
+    # 4n. the fault harness: seeded fault schedules degrade ResNet-18's
+    #     NetPlan, each degraded plan walked through conv2d_psum against
+    #     cuDNN; the chaos harness on the host
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fault_launches = faults_on_card(torch, dev, graph_ms, smi)
+    print(f"fault phase: {time.perf_counter() - t0:.1f} s, launches "
+          f"{fault_launches}")
+
+    # 4o. the tensor-parallel partial-sum combines: Qwen1.5-MoE-A2.7B on a
+    #     (1, 2) mesh of two processes on the card, active and passive, flash
+    #     decoding off and on, against a one-process baseline
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tp = tp_on_card(torch, dev, smi, graph_ms, time_ms, bound)
+    tp_launches = tp["launches"]
+    print(f"tp phase: {time.perf_counter() - t0:.1f} s, launches {tp_launches}")
+
     # 5. result lines
     sources = {"psum_matmul/active": ("psum_matmul", "src/repro/kernels/psum_matmul.py:48"),
                "psum_matmul/passive": ("psum_matmul", "src/repro/kernels/psum_matmul.py:66"),
@@ -4795,6 +5456,10 @@ def main() -> None:
             **({"sim_launches": sim_launches[name],
                 "sim_pack_launches": sim_launches[f"{name}/pack"]}
                if name in sim_launches else {}),
+            # phase 4n's launches: the fault-degraded NetPlans' walks (conv)
+            **({"fault_launches": fault_launches[name],
+                "fault_pack_launches": fault_launches[f"{name}/pack"]}
+               if name in fault_launches else {}),
             "dtype": "float32",
             "body_by_dtype": {d: v["body"] for d, v in by_dtype.items()},
             "by_dtype": by_dtype})
@@ -4862,6 +5527,12 @@ def main() -> None:
         # every decode layer-step launches pass 1 once and the combine once
         "launches": serve_counts["flash_attention/combine"],
         "combine_launches": serve_counts["flash_attention/combine"],
+        # phase 4o's launches: pass 1 alone, its partials handed back, in
+        # both ranks' flash-decoding steps (no combine)
+        "tp_flash_decode_launches": tp_launches.get("flash_attention", 0),
+        "tp_flash_decode_combine_launches": tp_launches.get(
+            "flash_attention/combine", 0),
+        "tp_partials": tp["partials"],
         **{key: dd[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms", "eager_ms")},
         "dtype": "bfloat16", "case": "decode, device position",
@@ -4873,4 +5544,10 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 3 and sys.argv[1] in ("--tp-baseline", "--tp-rank"):
+        if not (ROOT / "src" / "repro_torch").is_dir():
+            fail(f"src/repro_torch not found beside {ROOT / 'chip_smoke.py'}")
+        (tp_baseline if sys.argv[1] == "--tp-baseline" else tp_rank)(
+            json.loads(sys.argv[2]))
+    else:
+        main()

@@ -15,8 +15,8 @@ kind of failure (``except BudgetError``) rather than on a message:
   * `InvariantViolation`: a fault-injection invariant failed (word-count
     drift, a replan that differs from a fresh plan).
 
-The port raises `PlanError` and `BudgetError` today; the other three wait
-for the hardened planner service and the fault harness (ROADMAP A10(b)).
+The planner raises `PlanError` and `BudgetError`; the chaos harness
+(`repro_torch.faults.chaos`) raises `InvariantViolation` in strict mode.
 """
 
 from __future__ import annotations

@@ -1,21 +1,33 @@
-"""`repro_torch.faults`: the typed fault taxonomy (`models`).
+"""`repro_torch.faults`: deterministic fault injection and graceful
+degradation, the reference's ``repro.faults`` on the port's planner and
+simulator.
 
-The simulator applies a fault's sim projection inside its epoch window
-(``repro_torch.sim.simulate(..., faults=...)``,
-``sim.simulate_network(..., faults=...)``): timing and energy change, word
-counts never do.
+A typed fault taxonomy (`models`), seeded reproducible fault schedules and
+degraded re-planning (`inject`), and a chaos harness (`chaos`) that drives
+randomized schedules through the zoo and the hardened planner service
+(`repro_torch.launch.planserve.ResilientPlanServer`) while asserting the
+stack's invariants: word counts never drift under machine faults, degraded
+re-planning is bit for bit a fresh plan, every surviving plan passes
+`repro_torch.check`, and service availability stays above the floor. All of
+it runs on the host in numpy and equals the reference with ``==``.
 
     from repro_torch import faults, sim
 
-    hurt = sim.simulate_network(netp, faults=[faults.DramThrottle(
-        start_epoch=0, duration_epochs=100, row_buffer_disabled=True)])
-    hurt.as_traffic_report() == netp.simulate().as_traffic_report()
+    sched = faults.generate_schedule(seed=7)
+    rep = netp.simulate()                       # healthy timing
+    hurt = sim.simulate_network(netp, faults=sched.sim_faults())
+    hurt.as_traffic_report() == rep.as_traffic_report()   # words: invariant
+    degraded = faults.apply_to_plan(netp, sched.plan_faults())
 
-The reference's seeded schedules and degraded re-planning (``inject``), its
-chaos harness (``chaos``, ``python -m repro.faults``) and the hardened
-planner service that consumes them are not ported yet: ROADMAP A10(b).
+    python -m repro_torch.faults --schedules 50 --smoke   # the chaos harness
 """
 
+from repro_torch.faults.chaos import (DEFAULT_AVAILABILITY_FLOOR_PCT,
+                                      ChaosReport, run_chaos)
+from repro_torch.faults.inject import (STORM_FACTORS, SURVIVING_FRACS,
+                                       THROTTLE_FACTORS, apply_to_plan,
+                                       degraded_plan_args, generate_schedule,
+                                       plan_args_of, storm_windows)
 from repro_torch.faults.models import (ControllerFallback, DmaStall,
                                        DramThrottle, EngineDegrade, Fault,
                                        FaultEvent, FaultSchedule, PlanArgs,
@@ -25,4 +37,8 @@ __all__ = [
     "Fault", "EngineDegrade", "VmemShrink", "DramThrottle",
     "ControllerFallback", "DmaStall", "RequestStorm",
     "FaultEvent", "FaultSchedule", "PlanArgs",
+    "generate_schedule", "degraded_plan_args", "plan_args_of",
+    "apply_to_plan", "storm_windows",
+    "SURVIVING_FRACS", "THROTTLE_FACTORS", "STORM_FACTORS",
+    "ChaosReport", "run_chaos", "DEFAULT_AVAILABILITY_FLOOR_PCT",
 ]

@@ -11,9 +11,9 @@ or its load*, with two orthogonal projections:
     arithmetic and are pinned bit-for-bit against the un-faulted totals.
   * **plan projection** (`apply_plan`): a pure ``PlanArgs -> PlanArgs``
     transform mapping the fault onto degraded planning parameters (MAC
-    budget P, residency bytes, controller). The reference's fault injector
-    feeds the result to ``NetPlan.replan`` / ``plan_graph``; the port's
-    injector and chaos harness wait for ROADMAP A10(b).
+    budget P, residency bytes, controller). ``repro_torch.faults.inject``
+    feeds the result to ``NetPlan.replan`` / ``plan_graph`` and the chaos
+    harness pins the replanned result word for word against a fresh plan.
 
 `RequestStorm` is the odd one out: it degrades the *load*, not the machine —
 the planner-service load generator multiplies its arrival rate inside the
@@ -21,8 +21,8 @@ storm window. The class flags (``affects_sim`` / ``affects_plan`` /
 ``affects_serve``) let schedules be partitioned without isinstance ladders.
 
 Fault *schedules* (`FaultSchedule`: seeded, time-ordered `FaultEvent`\\ s)
-are built by the reference's ``faults.inject.generate_schedule`` (the port's
-waits for ROADMAP A10(b)); the same seed always yields the same schedule.
+are built by `repro_torch.faults.inject.generate_schedule`; the same seed
+always yields the same schedule, so every chaos run is reproducible.
 """
 
 from __future__ import annotations

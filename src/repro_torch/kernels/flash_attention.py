@@ -292,10 +292,22 @@ def _partials(q, kp, vp, q_ids, *, k_begin: int, k_end: int, bk: int,
     return m, l, acc
 
 
+def fold_splits(m_s: torch.Tensor, l_s: torch.Tensor, acc_s: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The partials of splits stacked on dim 0, folded into one (m, l, acc):
+    m* = max m_s, weights exp(m_s - m*), l and acc their weighted sums, as
+    split_kv's second pass folds them. A split that saw no key (m_s =
+    NEG_INF, l_s = 0) gets weight 0; if none saw a key, m* = NEG_INF and l =
+    acc = 0."""
+    m = m_s.amax(0)
+    w = torch.exp(m_s - m)
+    return m, (l_s * w).sum(0), (acc_s * w).sum(0)
+
+
 def flash_plain(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor, *,
                 bq: int, bk: int, causal: bool, q_offset: int,
                 skv: int, splits: int = 1,
-                pos: torch.Tensor | None = None) -> torch.Tensor:
+                pos: torch.Tensor | None = None, partials: bool = False):
     """The plain version: the reference kernel's kv-block loop over padded
     operands, every (head, q block) at once. qp: (BH, Sq_p, D); kp/vp:
     (BH / g, Skv_p, D). Per q row it carries an fp32 acc, m and l.
@@ -315,7 +327,12 @@ def flash_plain(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor, *,
     ``pos``, where given, is split_kv's device position: int32 (q_offset,
     valid length) on the operands' device, read in place of ``q_offset``
     and ``skv`` in the masks (``skv`` is then the capacity the ranges cut),
-    with no host read."""
+    with no host read.
+
+    ``partials``: return the unnormalised fp32 (m, l, acc) of every row,
+    shaped (BH, Sq_p, 1), (BH, Sq_p, 1) and (BH, Sq_p, D), in place of the
+    output (a row that saw no key: m = NEG_INF, l = acc = 0), for a
+    caller that combines them with other ranks' (flash decoding)."""
     bh, sq_p, d = qp.shape
     hkv, skv_p, _ = kp.shape
     g, gq = bh // hkv, sq_p // bq
@@ -333,10 +350,11 @@ def flash_plain(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor, *,
         ms, ls, accs = zip(*(_partials(q, kp, vp, q_ids, k_begin=b,
                                        k_end=min(skv, b + split_len), **kw)
                              for b in range(0, splits * split_len, split_len)))
-        m_s = torch.stack(ms)
-        w = torch.exp(m_s - m_s.amax(0))      # a split that saw no key: 0
-        l = (torch.stack(ls) * w).sum(0)
-        acc = (torch.stack(accs) * w).sum(0)
+        m, l, acc = fold_splits(torch.stack(ms), torch.stack(ls),
+                                torch.stack(accs))
+    if partials:
+        return (m.reshape(bh, sq_p, 1), l.reshape(bh, sq_p, 1),
+                acc.reshape(bh, sq_p, d))
     out = acc / torch.clamp_min(l, 1e-30)
     return out.reshape(bh, sq_p, d).to(qp.dtype)
 
@@ -344,14 +362,15 @@ def flash_plain(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor, *,
 def _flash_cuda(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor, *,
                 causal: bool, q_offset: int, skv: int, splits: int = 0,
                 dtype: torch.dtype | None = None, body: str | None = None,
-                pos: torch.Tensor | None = None) -> torch.Tensor:
+                pos: torch.Tensor | None = None, partials: bool = False):
     """Launch the Hopper kernels at the built head dim of the operands' d:
     zero-pad q, k and v to it, keep the scale of the logical d, and slice
     the output back. ``dtype``, where given, is the dtype the launch plan
     chose its body for: operands of another dtype raise, before any copy or
     library load. ``body`` is the plan's; None takes split_kv when
     ``splits`` is given, else `one_pass_body`. ``pos`` is split_kv's device
-    position (`flash_plain`)."""
+    position (`flash_plain`). ``partials``: split_kv's pass 1 alone, its
+    (m, l, acc) folded over the splits and handed back (`flash_plain`)."""
     name = "flash_attention"
     launch.check_operands(name, qp, kp, vp, dtypes=DTYPE_CODES)
     if dtype is not None and qp.dtype != dtype:
@@ -365,16 +384,22 @@ def _flash_cuda(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor, *,
               body=body)
     if pos is not None:
         kw["pos"] = pos
+    if partials:
+        kw["partials"] = True
     if d_run == d:
         return _flash_launch(qp, kp, vp, **kw)
     qp, kp, vp = (F.pad(t, (0, d_run - d)) for t in (qp, kp, vp))
-    return _flash_launch(qp, kp, vp, **kw)[..., :d]
+    out = _flash_launch(qp, kp, vp, **kw)
+    if partials:
+        m, l, acc = out
+        return m, l, acc[..., :d]
+    return out[..., :d]
 
 
 def _flash_launch(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor, *,
                   causal: bool, q_offset: int, skv: int, splits: int,
-                  d: int, body: str,
-                  pos: torch.Tensor | None = None) -> torch.Tensor:
+                  d: int, body: str, pos: torch.Tensor | None = None,
+                  partials: bool = False):
     """Launch the Hopper kernels of ``body`` over padded operands: one pass
     on cuda_core (float32) or tc_bf16 (bfloat16); tc_3xtf32 (float32) after
     its pack pass (`tf32_pack_kv`); or split_kv, pass 1 over `splits` key
@@ -383,6 +408,9 @@ def _flash_launch(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor, *,
     1/sqrt(d) scales the scores; the operands may be zero-padded past it.
     ``pos`` (split_kv only) is the device position: two int32 on the
     operands' device, read by pass 1 in place of ``q_offset`` and ``skv``.
+    ``partials`` (split_kv only): no combine; pass 1's partials are folded
+    over the splits here (`fold_splits`) and handed back as fp32 (m, l,
+    acc), (BH, Sq_p, 1), (BH, Sq_p, 1) and (BH, Sq_p, d_run).
     Everything a body cannot take raises before any library is loaded."""
     name = "flash_attention"
     bh, sq_p, d_run = qp.shape
@@ -397,6 +425,9 @@ def _flash_launch(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor, *,
              "tc_bf16": torch.bfloat16, "split_kv": qp.dtype}
     if body not in takes or (body == "split_kv") != bool(splits):
         raise ValueError(f"{name}: body {body!r} with splits={splits}")
+    if partials and body != "split_kv":
+        raise ValueError(f"{name}: partials come from split_kv's pass 1, "
+                         f"not from body {body!r}")
     if qp.dtype != takes[body]:
         raise ValueError(f"{name}: {body} takes {takes[body]}, got {qp.dtype}")
     if body == "tc_3xtf32" and d_run > TF_MAX_D:
@@ -452,6 +483,14 @@ def _flash_launch(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor, *,
             scale, stream)
         _build.check(lib, rc, name)
         launch.count_launch(name)
+        if partials:
+            acc = part[:n_acc].view(hkv, splits, group, sq_p, d_run)
+            ml = part[n_acc:].view(hkv, splits, group, sq_p, 2)
+            m, l, acc = fold_splits(ml[..., :1].transpose(0, 1),
+                                    ml[..., 1:].transpose(0, 1),
+                                    acc.transpose(0, 1))
+            return (m.reshape(bh, sq_p, 1), l.reshape(bh, sq_p, 1),
+                    acc.reshape(bh, sq_p, d_run))
         rc = fns["flash_combine_launch"](
             acc_ptr, ml_ptr, out.data_ptr(), code, hkv, sq_p, d_run, group, splits,
             stream)
@@ -464,8 +503,8 @@ def _flash_launch(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor, *,
 def flash_launch_plan(*, bh: int, sq: int, skv: int, d: int, bq: int = 128,
                       bk: int = 128, causal: bool = True, q_offset: int = 0,
                       kv_group: int = 1, dtype: torch.dtype | None = None,
-                      body: str | None = None,
-                      device_pos: bool = False) -> launch.LaunchPlan:
+                      body: str | None = None, device_pos: bool = False,
+                      partials: bool = False) -> launch.LaunchPlan:
     """The launch `flash_attention` executes, from plain integers: blocks
     clamped and sequences padded exactly as the reference does, the body
     picked by `flash_body` for ``dtype`` (float32 when None), or ``body``
@@ -492,6 +531,13 @@ def flash_launch_plan(*, bh: int, sq: int, skv: int, d: int, bq: int = 128,
     cache, which the plan takes unpadded (split_kv's loads mask the tail)
     and the splits cut; ``q_offset`` must be 0, and the body is split_kv.
 
+    ``partials``: split_kv's pass 1 alone, one launch, whose fp32 (m, l,
+    acc) per row, folded over the splits, are the outputs in place of out
+    (`flash_plain`); the caller combines them (flash decoding over a
+    sequence-sharded cache, `repro_torch.sharding.flash_decode`). It takes
+    a device position, so that a rank whose block lies past the position
+    sees no key.
+
     A plan is a pure function of these arguments and is cached: the layers
     of a serving step, which share a shape, build it once.
     """
@@ -501,6 +547,9 @@ def flash_launch_plan(*, bh: int, sq: int, skv: int, d: int, bq: int = 128,
     if device_pos and q_offset:
         raise ValueError(f"flash_attention: q_offset={q_offset} with a device "
                          f"position; the position is read on the device")
+    if partials and not device_pos:
+        raise ValueError("flash_attention: partials come from split_kv's "
+                         "pass 1, which a device position takes")
     sq_p = sq + (-sq) % bq
     skv_p = skv if device_pos else skv + (-skv) % bk
     gk = -(-skv_p // bk)
@@ -548,6 +597,11 @@ def flash_launch_plan(*, bh: int, sq: int, skv: int, d: int, bq: int = 128,
         grid, threads = (-(-sq_p // QT), bh), THREADS
         smem, loops = 4 * smem_floats(d_run), (("kv", gk),)
     kv_shape = (hkv, skv_p, d)
+    outputs = (launch.OperandPlan("out", (bh, sq_p, d), (1, bq, d)),)
+    if partials:
+        outputs = (launch.OperandPlan("m", (bh, sq_p, 1), (1, bq, 1)),
+                   launch.OperandPlan("l", (bh, sq_p, 1), (1, bq, 1)),
+                   launch.OperandPlan("acc", (bh, sq_p, d), (1, bq, d)))
     if d_run != d:
         scratch += (launch.ScratchPlan("q_padded", (bh, sq_p, d_run), "device"),
                     launch.ScratchPlan("k_padded", (hkv, skv_p, d_run), "device"),
@@ -557,18 +611,19 @@ def flash_launch_plan(*, bh: int, sq: int, skv: int, d: int, bq: int = 128,
         grid=grid,
         threads=threads,
         smem_bytes=smem,
-        launches=(2 if splits else 1) + packs,
+        launches=(2 if splits and not partials else 1) + packs,
         loops=loops,
         inputs=(launch.OperandPlan("q", (bh, sq_p, d), (1, bq, d)),
                 launch.OperandPlan("k", kv_shape, (1, bk, d)),
                 launch.OperandPlan("v", kv_shape, (1, bk, d))),
-        outputs=(launch.OperandPlan("out", (bh, sq_p, d), (1, bq, d)),),
+        outputs=outputs,
         scratch=scratch,
         cuda=functools.partial(_flash_cuda, causal=causal, q_offset=q_offset,
-                               skv=skv, splits=splits, dtype=dtype, body=body),
+                               skv=skv, splits=splits, dtype=dtype, body=body,
+                               partials=partials),
         plain=functools.partial(flash_plain, bq=bq, bk=bk, causal=causal,
                                 q_offset=q_offset, skv=skv,
-                                splits=max(1, splits)),
+                                splits=max(1, splits), partials=partials),
         body=body,
     )
 
@@ -591,7 +646,8 @@ def device_position(q_offset: int | torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, bq: int = 128, bk: int = 128,
                     q_offset: int | torch.Tensor = 0,
-                    kv_valid_len: torch.Tensor | None = None) -> torch.Tensor:
+                    kv_valid_len: torch.Tensor | None = None,
+                    partials: bool = False):
     """q: (BH, Sq, D); k/v: (BH / g, Skv, D) for a whole g >= 1 (g = 1 is
     the reference's layout), float32 or bfloat16. q_offset shifts the causal
     ids for decode (q positions start at q_offset). q, k and v are
@@ -603,6 +659,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     device and never on the host, as the reference's ``chunked_attention``
     takes a traced one: k and v are a cache of Skv = its capacity, passed
     without a pad or a copy, and the call takes split_kv (`flash_body`).
+
+    ``partials`` (a device position only): the fp32 (m, l, acc) of every
+    row, (BH, Sq, 1), (BH, Sq, 1) and (BH, Sq, D), unnormalised, from
+    split_kv's pass 1 alone (`flash_launch_plan`), in place of the output.
 
     Before its plan is built the call is pre-flighted by
     `repro_torch.check`: a host position runs the launch checks and the
@@ -627,11 +687,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              causal=causal,
                              q_offset=0 if device_pos else q_offset,
                              kv_group=bh // hkv, dtype=q.dtype,
-                             device_pos=device_pos)
+                             device_pos=device_pos, partials=partials)
     pq = plan.inputs[0].array_shape[1] - sq
     pk = plan.inputs[1].array_shape[1] - skv
     q, k, v = (F.pad(t, (0, 0, 0, p)).contiguous() if p else t.contiguous()
                for t, p in ((q, pq), (k, pk), (v, pk)))
     extra = ({"pos": device_position(q_offset, kv_valid_len, skv)}
              if device_pos else {})
-    return launch.run(plan, q, k, v, **extra)[:, :sq]
+    out = launch.run(plan, q, k, v, **extra)
+    if partials:
+        return tuple(t[:, :sq] for t in out)
+    return out[:, :sq]

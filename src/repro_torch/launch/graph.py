@@ -130,6 +130,17 @@ def _advanced_buffers(caches) -> list[torch.Tensor]:
                              if set(c) == set(STATE) for n in STATE)]
 
 
+def _check_compilable(step) -> None:
+    """A step a CUDA graph can capture: no host read of a tensor value
+    (`check_capturable`) and no collective (a step with a ``parallel``
+    runs eagerly)."""
+    check_capturable(step.cfg)
+    if getattr(step, "parallel", None) is not None:
+        raise ValueError("compiled steps: a step with a Parallel calls "
+                         "collectives, which a CUDA graph does not capture; "
+                         "run it eagerly")
+
+
 def _check_same(step: str, what: str, got: list, captured: list) -> None:
     if len(got) != len(captured) or any(a is not b for a, b in zip(got, captured)):
         raise ValueError(f"compiled {step}: called on {what} other than the "
@@ -141,7 +152,7 @@ class CompiledPrefill:
     compiled: see the module's docstring."""
 
     def __init__(self, step):
-        check_capturable(step.cfg)
+        _check_compilable(step)
         self.step = step
         self.caches: dict[tuple, dict] = {}     # (batch, memory) -> static cache
         self.graphs: dict[tuple, dict] = {}     # inputs' shapes -> graph
@@ -196,7 +207,7 @@ class CompiledDecode:
     compiled: see the module's docstring."""
 
     def __init__(self, step):
-        check_capturable(step.cfg)
+        _check_compilable(step)
         self.step = step
         # (token's shape, dtype, memory length where there is one) -> graph
         self.graphs: dict[tuple, dict] = {}

@@ -12,7 +12,7 @@ params and optimizer state are updated in place (the reference's launcher
 donates them to ``jax.jit``). Every attention forward runs the flash kernel,
 its backward `chunked_attention` recomputed (`layers.FlashAttention`). One
 process, one device: the reference's ``--mesh``, ``--psum`` and ``--remat``
-configure its sharding (``Parallel``) and wait for ROADMAP A9.
+configure its sharding (``Parallel``) and wait for ROADMAP A9's second half.
 """
 
 from __future__ import annotations

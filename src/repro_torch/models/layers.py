@@ -321,8 +321,8 @@ def cross_apply(p: Params, x: torch.Tensor, cfg, *,
 def attn_apply(p: Params, x: torch.Tensor, cfg, *, positions: torch.Tensor,
                cache: Params | None = None,
                cache_pos: torch.Tensor | None = None,
-               start: int | None = None, causal: bool = True
-               ) -> tuple[torch.Tensor, Params | None]:
+               start: int | None = None, causal: bool = True,
+               parallel=None) -> tuple[torch.Tensor, Params | None]:
     """Self-attention with an optional KV cache, causal unless ``causal`` is
     False (an encoder's, with no cache); cross-attention is `cross_apply`.
     x: (B, S, d); positions: (S,) on x's device.
@@ -336,7 +336,16 @@ def attn_apply(p: Params, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     ``start``, where the caller knows the position on the host (a prefill
     into fresh caches: 0), attends to keys [0, start + S) of the cache with
     an integer offset instead, which the flash kernel's one-pass bodies
-    take. Returns (out, cache)."""
+    take.
+
+    ``parallel`` with ``flash_decode`` set, for one token with a cache:
+    the cache is this rank's block of a sequence-sharded cache
+    (`repro_torch.sharding.rules.kv_block_specs`), and attention is
+    `repro_torch.sharding.flash_decode.flash_decode_attention`: the token
+    written into the block that owns its position, the blocks' partial
+    softmax sums combined across the tp axis. Otherwise ``parallel`` is not
+    read: the reference's sequence-sharding annotation of attention leaves
+    the math unchanged. Returns (out, cache)."""
     b, s, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = dense(p["wq"], x).reshape(b, s, hq, hd)
@@ -350,6 +359,10 @@ def attn_apply(p: Params, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     v = v.transpose(1, 2)
     if cache is None:
         out = attention(q, k, v, causal=causal, chunk=cfg.attn_chunk)
+    elif s == 1 and parallel is not None and parallel.flash_decode:
+        from repro_torch.sharding.flash_decode import flash_decode_attention
+        out, _, _ = flash_decode_attention(q, cache["k"], cache["v"], k, v,
+                                           cache_pos, parallel)
     else:
         cap = cache["k"].shape[2]
         if s > cap or (start is not None and not 0 <= start <= cap - s):

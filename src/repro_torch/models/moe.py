@@ -4,12 +4,19 @@ experts' gated FFN dispatched through capacity buffers (GShard, the
 config's default, ``impl="capacity"``) or through grouped products in expert
 order (`ragged_dot`, ``impl="ragged"``), and an optional gated shared expert.
 
-Partial sums. The reference shards the routed experts' ff dim over the
-tensor-parallel axis, so the down-projection yields partial sums across
-that axis, combined actively (``psum``) or passively (``all_gather`` and a
-local add). On one card ``parallel`` is None and the same code runs
-locally, as in the reference's CPU tests; the combine across ranks waits
-for ROADMAP A9.
+Partial sums. With ``parallel`` (`repro_torch.sharding.api.Parallel`) the
+routed experts' ff dim is sharded over the tensor-parallel axis: each rank
+runs the dispatch and the expert products over its block of ff (wg and wi
+column blocks, wo's row block), so its down-projection yields a partial
+sum of y, combined across the axis actively (an all-reduce: the sum
+happens in the interconnect, the paper's active memory controller) or
+passively (an all-gather of every rank's partial into (TP, t, d) and a
+local add: the read-back baseline, TP times the bytes). Tokens are split
+over the data axes where their count divides, as the reference's
+``shard_map`` splits them, and gathered back after the combine, since the
+rest of the layer runs replicated on every rank in the port. The router
+and the shared expert run replicated. With ``parallel=None`` the same code
+runs on one device.
 
 Capture. The capacity path reads no tensor value on the host: its buffer
 size depends on the token count alone, the expert counts are a
@@ -35,6 +42,8 @@ from typing import Any
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.sharding import collectives
+from repro_torch.sharding.api import check_parallel
 
 Params = dict[str, Any]
 
@@ -194,22 +203,81 @@ def _ragged_ffn(routed: Params, mc, x: torch.Tensor, weights: torch.Tensor,
     return _combine(out, order, weights)
 
 
+def _tp_block(routed: Params, mc, parallel) -> Params:
+    """This rank's block of the routed experts' ff dim: wg and wi (E, d, f)
+    by columns, wo (E, f, d) by rows. Weights already cut to the block
+    (`repro_torch.sharding.rules.routed_specs`) are taken as they are;
+    whole ones are sliced here (a view)."""
+    tp, rank = parallel.tp_size, parallel.tp_rank
+    ff = mc.expert_ff
+    if ff % tp:
+        raise ValueError(f"moe_apply: expert ff {ff} does not divide over "
+                         f"{tp} tp ranks")
+    f_loc = ff // tp
+    out = {}
+    for name, dim in (("wg", 2), ("wi", 2), ("wo", 1)):
+        w = routed[name]
+        if w.shape[dim] == ff and tp > 1:
+            w = w.narrow(dim, rank * f_loc, f_loc)
+        elif w.shape[dim] != f_loc:
+            raise ValueError(f"moe_apply: routed {name} {tuple(w.shape)} is "
+                             f"neither the whole ff {ff} nor a block of "
+                             f"{f_loc}")
+        out[name] = w
+    return out
+
+
+def _sharded_ffn(ffn, routed: Params, mc, x: torch.Tensor,
+                 weights: torch.Tensor, idx: torch.Tensor, act: str,
+                 parallel) -> torch.Tensor:
+    """The reference's ``shard_map`` body in explicit SPMD: this rank's
+    tokens (its data-axis slice where the count divides, else all of them)
+    through ``ffn`` over its ff block, a partial y over the tp axis,
+    combined by the parallel's psum_strategy, then the data-axis slices
+    gathered back."""
+    t, d = x.shape
+    dp = parallel.dp_size
+    if t % dp:
+        # tiny token counts (batch-1 long-context decode) cannot shard over
+        # the data axes: replicate the tokens, keep ff tp-sharded
+        dp = 1
+    t_loc = t // dp
+    lo = (parallel.dp_rank if dp > 1 else 0) * t_loc
+    y_part = ffn(_tp_block(routed, mc, parallel), mc, x[lo:lo + t_loc],
+                 weights[lo:lo + t_loc], idx[lo:lo + t_loc], act)
+    if parallel.psum_strategy == "active":
+        y = collectives.all_reduce(y_part, parallel.tp_group, site="moe")
+    else:
+        # passive: gather every rank's partial sums and add them here
+        y = collectives.all_gather(y_part, parallel.tp_group,
+                                   parallel.tp_size, site="moe").sum(0)
+    if dp > 1:
+        y = collectives.all_gather(y, parallel.dp_group, dp,
+                                   site="moe/data").reshape(t, d)
+    return y
+
+
 def moe_apply(p: Params, x: torch.Tensor, cfg, parallel=None
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (out (B, S, d), aux_loss 0-d fp32). The routing
     weights are cast to x's dtype after normalisation; the shared expert's
-    sigmoid gate is computed in fp32."""
+    sigmoid gate is computed in fp32. With ``parallel`` the routed experts
+    run over this rank's ff block and their partial sums are combined
+    across the tp axis (module docstring); anything but a `Parallel` raises
+    a TypeError."""
     if parallel is not None:
-        raise NotImplementedError(
-            "moe_apply: the combine of the experts' partial sums across ranks "
-            "(psum, or all_gather and a local add) waits for ROADMAP A9")
+        check_parallel(parallel, "moe_apply")
     mc = cfg.moe
     b, s, d = x.shape
     x2 = x.reshape(b * s, d)
     weights, idx, aux = route(p["router"]["w"], x2, mc)
     weights = weights.to(x.dtype)
     ffn = _capacity_ffn if mc.impl == "capacity" else _ragged_ffn
-    y2 = ffn(p["routed"], mc, x2, weights, idx, cfg.act)
+    if parallel is None:
+        y2 = ffn(p["routed"], mc, x2, weights, idx, cfg.act)
+    else:
+        y2 = _sharded_ffn(ffn, p["routed"], mc, x2, weights, idx, cfg.act,
+                          parallel)
     if mc.n_shared:
         sh = L.mlp_apply(p["shared"], x2, cfg.act)
         if "shared_gate" in p:

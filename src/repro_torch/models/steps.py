@@ -14,7 +14,8 @@ import torch
 from repro_torch import tree as T
 from repro_torch.configs.base import ArchConfig
 from repro_torch.launch import graph
-from repro_torch.models.transformer import encode, forward, init_caches
+from repro_torch.models.transformer import (KV_SHARDED, encode, forward,
+                                            init_caches)
 from repro_torch.optim import adamw
 
 Z_LOSS = 1e-4
@@ -112,7 +113,21 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
     return train_step
 
 
-def make_prefill_step(cfg: ArchConfig, max_len: int):
+def _cut_kv_blocks(caches, parallel):
+    """The caches with each self-attention KV cache cut to this rank's block
+    of the sequence and marked `KV_SHARDED`, where ``max_len`` divides over
+    the tp axis (the reference's condition for flash decoding); else as
+    they are, and decode attends over the whole cache on every rank."""
+    from repro_torch.sharding import rules
+    keys = [c["k"] for c in caches["layers"] if "k" in c]
+    if keys and all(k.shape[2] % parallel.tp_size == 0 for k in keys):
+        caches = rules.shard_tree(caches, rules.kv_block_specs(caches, parallel),
+                                  parallel.mesh)
+        caches[KV_SHARDED] = True
+    return caches
+
+
+def make_prefill_step(cfg: ArchConfig, max_len: int, parallel=None):
     """Full-sequence forward that fills caches and returns the last token's
     logits (sampling seed). The caches are fresh ones on the tokens' device,
     or ``caches`` where given, zeroed at position 0 (the compiled step's
@@ -120,7 +135,13 @@ def make_prefill_step(cfg: ArchConfig, max_len: int):
     takes it as an integer. A vlm or enc-dec arch's batch also carries
     ``vision_ctx`` or ``frames`` (`repro_torch.data.make_extra_inputs`):
     the memory is computed here (the encoder runs inside the step) and its
-    keys and values fill the cross caches."""
+    keys and values fill the cross caches.
+
+    ``parallel``: this process is one rank of a mesh (`forward`); the
+    prefill itself runs replicated, and under ``parallel.flash_decode`` the
+    caches it returns hold this rank's block of each KV cache's sequence
+    where ``max_len`` divides over the tp axis. Such a step runs eagerly:
+    its collectives are not captured in a CUDA graph."""
     def prefill_step(params, batch, caches=None):
         tokens = batch["tokens"]
         memory = _memory_from_batch(cfg, params, batch)
@@ -129,22 +150,26 @@ def make_prefill_step(cfg: ArchConfig, max_len: int):
                                  mem_len=0 if memory is None else memory.shape[1],
                                  device=tokens.device)
         logits, caches, _ = forward(params, cfg, tokens, caches=caches, start=0,
-                                    memory=memory)
+                                    memory=memory, parallel=parallel)
+        if parallel is not None and parallel.flash_decode:
+            caches = _cut_kv_blocks(caches, parallel)
         return logits[:, -1], caches
 
-    prefill_step.cfg = cfg
+    prefill_step.cfg, prefill_step.parallel = cfg, parallel
     return prefill_step
 
 
-def make_decode_step(cfg: ArchConfig):
+def make_decode_step(cfg: ArchConfig, parallel=None):
     """One-token decode against a populated cache (the cross keys and values
     included, so no memory is needed); it reads its position on the device
-    only."""
+    only. ``parallel`` as in `make_prefill_step`: with caches that a
+    flash-decoding prefill cut, each rank attends over its block."""
     def decode_step(params, caches, token):
-        logits, caches, _ = forward(params, cfg, token, caches=caches)
+        logits, caches, _ = forward(params, cfg, token, caches=caches,
+                                    parallel=parallel)
         return logits[:, -1], caches
 
-    decode_step.cfg = cfg
+    decode_step.cfg, decode_step.parallel = cfg, parallel
     return decode_step
 
 

@@ -112,14 +112,17 @@ def _layer_init(gen, cfg: ArchConfig, mixer: str, ffn: str, device,
 def _layer_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
                  positions: torch.Tensor, cache: Params | None,
                  cache_pos: torch.Tensor | None, start: int | None,
-                 memory: torch.Tensor | None = None, causal: bool = True
+                 memory: torch.Tensor | None = None, causal: bool = True,
+                 parallel=None, attn_parallel=None
                  ) -> tuple[torch.Tensor, Params | None, torch.Tensor | None]:
     """One sublayer: the mamba mixer, cross-attention over ``memory`` (or
     the cross cache), or self-attention (``causal`` unless an encoder's),
     followed in an ``"attn+cross"`` layer by ``norm_cross`` and
     cross-attention, each added to the residual; then the dense or MoE FFN
-    where the layer has one. Returns (x, cache, aux), aux the MoE's loss or
-    None."""
+    where the layer has one. ``parallel`` goes to the MoE (the experts'
+    partial sums combined across the tp axis), ``attn_parallel`` to
+    self-attention (flash decoding over a sequence-sharded cache). Returns
+    (x, cache, aux), aux the MoE's loss or None."""
     h = L.norm_apply(p["norm1"], x, cfg.norm_eps)
     if "mamba" in p:
         out, cache = S.mamba_apply(p["mamba"], h, cfg, cache=cache)
@@ -129,7 +132,8 @@ def _layer_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
         apply = L.mla_apply if cfg.mla else L.attn_apply
         out, cache = apply(p["attn"], h, cfg, positions=positions, cache=cache,
                            cache_pos=cache_pos, start=start,
-                           **({} if cfg.mla else {"causal": causal}))
+                           **({} if cfg.mla else {"causal": causal,
+                                                  "parallel": attn_parallel}))
         if "cross" in p:
             x = x + out
             h = L.norm_apply(p["norm_cross"], x, cfg.norm_eps)
@@ -140,7 +144,7 @@ def _layer_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
         return x, cache, None
     h = L.norm_apply(p["norm2"], x, cfg.norm_eps)
     if "moe" in p:
-        out, aux = M.moe_apply(p["moe"], h, cfg)
+        out, aux = M.moe_apply(p["moe"], h, cfg, parallel)
         return x + out, cache, aux
     return x + L.mlp_apply(p["mlp"], h, cfg.act), cache, None
 
@@ -242,9 +246,15 @@ def encode(params: Params, cfg: ArchConfig, frames: torch.Tensor
     return L.norm_apply(params["enc_norm"], x, cfg.norm_eps)
 
 
+#: the key a caches dict carries when its self-attention KV caches are this
+#: rank's blocks of the sequence (`repro_torch.models.steps` cuts them after
+#: a prefill under a flash-decoding `Parallel`)
+KV_SHARDED = "kv_sharded"
+
+
 def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
             caches: Params | None = None, start: int | None = None,
-            memory: torch.Tensor | None = None
+            memory: torch.Tensor | None = None, parallel=None
             ) -> tuple[torch.Tensor, Params | None, torch.Tensor]:
     """tokens: (B, S) int -> (logits (B, S, padded_vocab), new_caches,
     aux_loss). The caches are updated in place and returned with ``pos``
@@ -256,7 +266,16 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     ``memory`` (B, Sm, d_model), the encoder's output (`encode`) or the
     stubbed vision embeddings, is what the cross layers attend to; with
     caches it is written into their cross caches, and a step without it
-    (decode) reads them."""
+    (decode) reads them.
+
+    ``parallel`` (`repro_torch.sharding.api.Parallel`): this process is one
+    rank of a mesh. The MoE layers combine their experts' partial sums
+    across the tp axis; with caches marked `KV_SHARDED`, self-attention
+    decodes over each rank's block of the sequence. Everything else runs
+    replicated on every rank, the same math as the reference, whose
+    ``_constrain`` and ``_seq_shard`` are sharding annotations that change
+    no value: in the port they have no counterpart. ``parallel=None`` is
+    one device."""
     check_ported(cfg)
     x = params["embed"]["w"][tokens]
     if cfg.embed_scale:
@@ -266,17 +285,21 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     positions = torch.arange(s, device=tokens.device)
     if pos is not None:
         positions = pos + positions
+    sharded = caches is not None and caches.get(KV_SHARDED, False)
     layer_caches = []
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, lp in enumerate(params["layers"]):
         c = caches["layers"][i] if caches is not None else None
         x, c, aux = _layer_apply(lp, x, cfg, positions=positions, cache=c,
-                                 cache_pos=pos, start=start, memory=memory)
+                                 cache_pos=pos, start=start, memory=memory,
+                                 parallel=parallel,
+                                 attn_parallel=parallel if sharded else None)
         layer_caches.append(c)
         if aux is not None:
             aux_total = aux_total + aux
     new_caches = (None if caches is None
-                  else {"pos": pos + s, "layers": layer_caches})
+                  else {"pos": pos + s, "layers": layer_caches,
+                        **({KV_SHARDED: True} if sharded else {})})
     x = L.norm_apply(params["final_norm"], x, cfg.norm_eps)
     head_w = (params["embed"]["w"].T if cfg.tie_embed
               else params["lm_head"]["w"])

@@ -50,7 +50,15 @@ def test_port_imports_without_jax_or_repro():
             "repro_torch.launch.planserve", "repro_torch.data",
             "repro_torch.data.pipeline"} <= names
     assert SIM_MODULES <= names
+    assert FAULT_AND_SHARDING_MODULES <= names
 
+
+FAULT_AND_SHARDING_MODULES = {
+    "repro_torch.faults.inject", "repro_torch.faults.chaos",
+    "repro_torch.faults.__main__", "repro_torch.sharding",
+    "repro_torch.sharding.api", "repro_torch.sharding.rules",
+    "repro_torch.sharding.flash_decode", "repro_torch.sharding.collectives",
+    "repro_torch.launch.mesh"}
 
 SIM_MODULES = {
     "repro_torch.roofline", "repro_torch.roofline.constants",
@@ -72,10 +80,13 @@ print(mod.__name__)
 
 
 @pytest.mark.parametrize("module", ["repro_torch.sim", "repro_torch.roofline",
-                                    "repro_torch.faults.models"])
+                                    "repro_torch.faults.models",
+                                    "repro_torch.faults",
+                                    "repro_torch.sharding"])
 def test_simulator_modules_import_alone_without_jax_or_repro(module):
-    """Each package of the simulator slice, imported first and alone in a
-    fresh interpreter, pulls in neither JAX nor the reference package."""
+    """Each package of the simulator, fault-harness and sharding slices,
+    imported first and alone in a fresh interpreter, pulls in neither JAX
+    nor the reference package."""
     out = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module],
                          env=_env(), capture_output=True, text=True,
                          timeout=300)

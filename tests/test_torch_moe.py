@@ -247,9 +247,13 @@ def test_moe_apply_matches_jax(dtype, impl, shared):
 
 
 def test_parallel_names_the_distributed_combine():
+    """A ``parallel`` that is not a `Parallel` (no mesh) raises, naming what
+    the combine of the experts' partial sums across ranks needs; the
+    combine itself is held in tests/test_torch_distributed.py."""
     _, tcfg = _cfgs()
     _, tp = _layer0_moe(*_cfgs())
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises((TypeError, ValueError),
+                       match="Parallel.*DeviceMesh.*psum_strategy"):
         tmoe.moe_apply(tp, torch.zeros(1, 2, tcfg.d_model), tcfg,
                        parallel=object())
 

@@ -3,16 +3,20 @@ CLI (`python -m repro_torch.obs`) against the live reference: served plans
 equal to individual ``plan_graphs`` calls and to the reference's NetPlans
 (schedules and words with ``==``), the load report's deterministic fields
 equal to the reference's and its histogram percentiles within 1% of
-``np.percentile``, the speedup report's words equal, the names that wait for
-ROADMAP A10(b) raising, and the CLI's three commands."""
+``np.percentile``, the speedup report's words equal, the hardened server's
+fault half (ROADMAP A10(b)) equal to the reference's, and the CLI's three
+commands."""
 
+import dataclasses
 import json
 
 import pytest
 
+from repro import faults as jfaults
 from repro import obs as jobs
 from repro import plan as jplan
 from repro.launch import planserve as jps
+from repro_torch import faults as tfaults
 from repro_torch import obs as tobs
 from repro_torch import plan as tplan
 from repro_torch.launch import planserve as tps
@@ -126,12 +130,41 @@ def test_run_speedup_matches_reference():
     assert got["batched_vs_sequential"] > 0
 
 
+def _request(r):
+    return (r.graph, r.budget, r.strategy, r.controller, r.residency_bytes,
+            r.beam_width, r.objective)
+
+
+def _degraded_answer(server, ps, faults):
+    """A server's answer to a sim_latency request after an engine fault: the
+    breaker's state, the degraded request and the plan it serves."""
+    server.inject(faults.EngineDegrade(surviving_frac=0.5), now_s=0.0)
+    req = server.degraded_request(ps.PlanRequest(
+        graph="alexnet", controller="active", objective="sim_latency"))
+    (netp,) = server.serve_degraded([req])
+    return (server.breaker_open, server.breaker_opens, _request(req),
+            _view(netp))
+
+
+_FAULT_HALF = {
+    "ServerPolicy": lambda obj, ps, faults: dataclasses.asdict(obj),
+    "ResilientPlanServer": _degraded_answer,
+    "fault_catalog": lambda obj, ps, faults: [_request(r) for r in obj],
+    "run_fault_load": lambda obj, ps, faults: obj,
+}
+
+
 @pytest.mark.parametrize("name,args", [
     ("ServerPolicy", ()), ("ResilientPlanServer", ()),
     ("fault_catalog", (True,)), ("run_fault_load", ())])
 def test_fault_half_waits_for_a10(name, args):
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        getattr(tps, name)(*args)
+    """The hardened server's four names, which waited for ROADMAP A10(b),
+    each equal to the reference's under the same call: the policy's
+    fields, a server's answer to a degraded request, the fault catalog
+    request by request, and the default fault-load report key by key."""
+    got = _FAULT_HALF[name](getattr(tps, name)(*args), tps, tfaults)
+    want = _FAULT_HALF[name](getattr(jps, name)(*args), jps, jfaults)
+    assert got == want
 
 
 def test_main_prints_the_report(capsys):
