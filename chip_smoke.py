@@ -287,6 +287,28 @@
       collective per decode step, decode ms and the collectives' share;
       then two fp32 layers, active against passive and one process within
       2e-4.
+   p. training on a mesh (``make_train_step(..., parallel)``,
+      ``repro_torch.sharding.fsdp``, ``optim.compress``,
+      ``runtime.pipeline``, ``runtime.elastic``), two ranks sharing this
+      card through gloo, after a one-process baseline in a process of its
+      own: (a) Qwen2-1.5B at its published widths and depth (28 layers,
+      bf16, seeded weights) on a (2, 1) mesh, remat "full", each rank
+      holding half of every leaf the data axes divide, 2 steps of a global
+      4 x 1024 synthetic batch: both ranks' losses equal bit for bit and
+      within 5e-3 of the one-process steps, the gathered params equal on
+      both ranks; the held GB, step walls, the collectives by site, the
+      flash launches (the remat recompute runs each forward again), then
+      one int8 `compressed_allreduce` of a step's gradients beside the
+      fp32 all-reduce; (b) Qwen1.5-MoE-A2.7B at its published widths,
+      reduced to 2 of 24 layers, on a (1, 2) mesh, 2 steps of 2 x 1024,
+      active and passive: equal on both ranks and to each other, the first
+      step's loss bit for bit the same expert split in one process, the
+      second within 5e-3, the gap to the unsplit model printed with its
+      route flips; (c) the 28 layers as a two-stage pipeline, 4
+      microbatches of 1 x 1024, the last hidden state within 3e-2 of one
+      process's; (d) the (2, 1) run's checkpoint (global leaves) resumed by
+      one process on `largest_healthy_mesh(1, 1)` for one more step, its
+      loss no more than 0.05 above step 2's.
    Every output is checked against a library reference (the served logits
    against the model with `ref.attention_ref` as its attention, and against
    one full forward of prompt plus generated tokens; the fp32 forward's
@@ -313,6 +335,7 @@ import statistics
 import subprocess
 import sys
 import time
+import zlib
 
 ROOT = pathlib.Path(__file__).resolve().parent
 
@@ -3736,8 +3759,8 @@ def _tp_generate(torch, dev, cfg, params, prompts, forced, gen, parallel,
     out: dict = {}
     routes: list = []
 
-    def recorded(w, x2, mc):
-        weights, idx, aux = route(w, x2, mc)
+    def recorded(w, x2, mc, over=None):
+        weights, idx, aux = route(w, x2, mc, over=over)
         routes.append(idx.cpu())
         return weights, idx, aux
 
@@ -4198,6 +4221,728 @@ def tp_on_card(torch, dev, card: str, graph_ms, time_ms,
     print(f"tp phase: baseline {base_s:.1f} s, ranks {ranks_s:.1f} s; flash "
           f"decoding's decode launches over both ranks {launches}")
     return {"launches": launches, "partials": partials}
+
+
+MESH_ARCH = "qwen2-1.5b"
+MESH_MOE_ARCH = "qwen2-moe-a2.7b"
+MESH_SMOKE = False                   # True only in a CPU rehearsal
+MESH_RUN = (4, 1024, 2)              # global batch, tokens, steps on (2, 1)
+MESH_MOE = (2, 2, 1024, 2)           # layers (of 24), batch, tokens, steps
+MESH_PIPE = (4, 1, 1024)             # microbatches, rows, tokens; 2 stages
+MESH_LR = 1e-3
+# (a)'s loss limit against one process: tests/test_distributed.py's 5e-3,
+# tightened toward the measured 1.43e-5 with room
+MESH_TOL = 1e-4
+MESH_MOE_TOL = 5e-4                  # (b) against the split in one process
+MESH_SAMPLES = 1024                  # positions of each leaf's update compared
+MESH_UPDATE_TOL = 0.5                # |rank - one| / |one's update| a leaf
+MESH_SPIKE = 0.05                    # the elastic restart's loss step limit
+MESH_WORLD = 2
+MESH_TIMEOUT = 900                   # seconds a worker may take
+MESH_DIR = ROOT / "build" / "mesh_phase"   # git-ignored
+
+
+def _mesh_common(spec: dict, arch: str):
+    """A phase 4p worker's torch, device and ``arch``'s config (published,
+    or smoke in a rehearsal)."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config, get_smoke
+
+    dev = torch.device(spec["device"], 0) if spec["device"] == "cuda" else \
+        torch.device("cpu")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    return torch, dev, (get_smoke if spec["smoke"] else get_config)(arch)
+
+
+def _mesh_moe_config(spec: dict):
+    torch, dev, cfg = _mesh_common(spec, MESH_MOE_ARCH)
+    return torch, dev, dataclasses.replace(cfg, n_periods=spec["moe"][0])
+
+
+def _mesh_opt(steps: int):
+    """The launcher's AdamW at ``MESH_LR``: no warm-up (min(20, steps // 5)
+    is 0), cosine over the run's steps and the resumed one."""
+    from repro_torch.optim import adamw
+    return adamw.AdamWConfig(lr=MESH_LR, warmup_steps=0, total_steps=steps + 1)
+
+
+def _mesh_batches(torch, dev, cfg, batch: int, seq: int, steps: int) -> list:
+    from repro_torch.data import DataConfig, SyntheticLM
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                  global_batch=batch, seed=0))
+    return [data.torch_batch(i, dev) for i in range(steps)]
+
+
+def _mesh_steps(torch, dev, step, params, opt_state, batches, *,
+                timed_last: bool = False) -> tuple:
+    """``step`` over ``batches``: each step's loss, host wall (ms, the card
+    synchronised around it), launches and collectives (host ms counted on
+    the last step where ``timed_last``), and the MoE's routed experts of
+    each step's forward (the first calls of `moe.route`)."""
+    from unittest import mock
+
+    from repro_torch.kernels import launch
+    from repro_torch.models import moe
+    from repro_torch.sharding import collectives
+
+    routes: list = []
+    real = moe.route
+
+    def recorded(*args, **kwargs):
+        out = real(*args, **kwargs)
+        routes.append(out[1].cpu())
+        return out
+
+    rows = []
+    for i, b in enumerate(batches):
+        launch.reset_launches()
+        collectives.reset()
+        routes.clear()
+        ctx = (collectives.timed() if timed_last and i == len(batches) - 1
+               else contextlib.nullcontext())
+        card_sync(torch, dev)
+        t0 = time.perf_counter()
+        with ctx, mock.patch.object(moe, "route", recorded):
+            params, opt_state, m = step(params, opt_state, b)
+            loss = float(m["loss"])
+        card_sync(torch, dev)
+        rows.append({"loss": loss, "grad_norm": float(m["grad_norm"]),
+                     "ms": 1e3 * (time.perf_counter() - t0),
+                     "launches": dict(launch.LAUNCHES),
+                     "collectives": {k: dict(v) for k, v in
+                                     collectives.COLLECTIVES.items()},
+                     "routes": [r.tolist() for r in routes]})
+    return params, opt_state, rows
+
+
+def _held_gb(torch, dev) -> float:
+    return torch.cuda.memory_allocated(dev) / 1e9 if dev.type == "cuda" else 0.0
+
+
+def _tree_gb(tree_mod, *trees) -> float:
+    """GB of the tensors of ``trees``: what a rank holds of them."""
+    return sum(t.nbytes for t in tree_mod.leaves(trees)) / 1e9
+
+
+def _free(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def mesh_baseline(spec: dict) -> None:
+    """Phase 4p's one-process runs, in a process of their own, with
+    ``parallel=None``: (a) Qwen2-1.5B's steps over the global batch; (b)
+    the reduced MoE's steps unsplit, then with each MoE layer's routed
+    experts run over two halves of ff, the halves' bf16 outputs added, as
+    the ranks split them. Saves their losses, walls, launches, routes and
+    peak memory, and (a)'s fp32 master weights before and after its steps
+    at seeded positions (`_samples`)."""
+    from unittest import mock
+
+    torch, dev, cfg = _mesh_common(spec, MESH_ARCH)
+    from repro_torch import tree
+    from repro_torch.models import moe
+    from repro_torch.models import steps as model_steps
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.optim import adamw
+
+    batch, seq, steps = spec["run"]
+    out: dict = {}
+    params = init_lm(cfg, seed=0, device=dev)
+    opt_state = adamw.init(params)
+    out["held_gb"] = _tree_gb(tree, params, opt_state)
+    init = _samples(torch, tree, opt_state["master"])
+    step = model_steps.make_train_step(cfg, _mesh_opt(steps), None,
+                                       microbatches=1)
+    _peak_reset(torch, dev)
+    _, opt_state, out["run"] = _mesh_steps(
+        torch, dev, step, params, opt_state,
+        _mesh_batches(torch, dev, cfg, batch, seq, steps))
+    out["peak_gb"] = _peak_gb(torch, dev)
+    torch.save({"init": init,
+                "after": _samples(torch, tree, opt_state["master"])},
+               pathlib.Path(spec["dir"]) / "baseline_samples.pt")
+    del params, opt_state
+    _free(torch, dev)
+
+    torch, dev, mcfg = _mesh_moe_config(spec)
+    _, mb, mseq, msteps = spec["moe"]
+    batches = _mesh_batches(torch, dev, mcfg, mb, mseq, msteps)
+    ffn = moe._capacity_ffn
+    half = mcfg.moe.expert_ff // MESH_WORLD
+
+    def split_ffn(routed, mc, x, weights, idx, act):
+        parts = [ffn({n: routed[n].narrow(1 if n == "wo" else 2, r * half,
+                                          half).contiguous()
+                      for n in ("wg", "wi", "wo")}, mc, x, weights, idx, act)
+                 for r in range(MESH_WORLD)]
+        return functools.reduce(lambda a, b: a + b, parts)
+
+    for label, patch in (("unsplit", contextlib.nullcontext()),
+                         ("split", mock.patch.object(moe, "_capacity_ffn",
+                                                     split_ffn))):
+        params = init_lm(mcfg, seed=0, device=dev)
+        opt_state = adamw.init(params)
+        step = model_steps.make_train_step(mcfg, _mesh_opt(msteps), None,
+                                           microbatches=1)
+        with patch:
+            *_, out[f"moe_{label}"] = _mesh_steps(torch, dev, step, params,
+                                                  opt_state, batches)
+        del params, opt_state
+        _free(torch, dev)
+    (pathlib.Path(spec["dir"]) / "baseline.json").write_text(json.dumps(out))
+
+
+def _fingerprint(torch, t) -> int:
+    """An integer of a tensor's bits and their positions: equal tensors
+    give equal ones."""
+    bits = t.contiguous().view(torch.int16 if t.element_size() == 2
+                               else torch.int32).flatten().to(torch.int64)
+    weights = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+    return int((bits * weights).sum())
+
+
+def _samples(torch, tree_mod, whole) -> dict:
+    """Each leaf of a tree of whole leaves at MESH_SAMPLES positions drawn
+    from a seed of its path, fp32 on the host."""
+    out = {}
+    for path, leaf in tree_mod.flatten_with_keys(whole).items():
+        gen = torch.Generator().manual_seed(zlib.crc32(path.encode()))
+        idx = torch.randint(0, leaf.numel(), (MESH_SAMPLES,), generator=gen)
+        out[path] = leaf.reshape(-1)[idx.to(leaf.device)].float().cpu()
+    return out
+
+
+def _peak_reset(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _peak_gb(torch, dev) -> float:
+    return (torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda"
+            else 0.0)
+
+
+def mesh_rank(spec: dict) -> None:
+    """One rank of phase 4p: gloo over a file rendezvous. (a) Qwen2-1.5B on
+    the (2, 1) mesh: the seeded weights cut to this rank's fsdp shards,
+    AdamW on the shards, the steps (the last with the collectives' host
+    ms; the peak memory across them), the params gathered and
+    fingerprinted, the fp32 master gathered and sampled as the baseline
+    samples it (rank 0 saves them), the global checkpoint
+    saved (rank 0 writes), then one more batch's gradients all-reduced in
+    int8 (`compressed_allreduce`) and in fp32. (b) the reduced MoE on the
+    (1, 2) mesh, active then passive. (c) the two-stage pipeline."""
+    import datetime
+
+    torch, dev, cfg = _mesh_common(spec, MESH_ARCH)
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch import tree
+    from repro_torch.checkpoint.store import CheckpointManager
+    from repro_torch.kernels import launch
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import steps as model_steps
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw, compress
+    from repro_torch.runtime.pipeline import pipeline_apply
+    from repro_torch.sharding import collectives, fsdp, rules
+    from repro_torch.sharding.api import make_parallel
+
+    rank, out_dir = spec["rank"], pathlib.Path(spec["dir"])
+    dist.init_process_group("gloo", init_method=f"file://{out_dir / 'rdzv'}",
+                            rank=rank, world_size=MESH_WORLD,
+                            timeout=datetime.timedelta(seconds=600))
+    res: dict = {"rank": rank}
+
+    # (a) Qwen2-1.5B on (2, 1): data 2, the batch and the fsdp shards cut
+    batch, seq, steps = spec["run"]
+    mesh = make_test_mesh(MESH_WORLD, 1, device_type=dev.type)
+    par = make_parallel(mesh, remat="full")
+    whole = transformer.init_lm(cfg, seed=0, device=dev)
+    held = fsdp.held_specs(mesh, whole)
+    params = rules.shard_tree(whole, held, mesh)
+    del whole
+    _free(torch, dev)
+    opt_state = adamw.init(params)
+    o_held = fsdp.opt_held_specs(held)
+    res["held_gb"] = (_tree_gb(tree, params, opt_state), _held_gb(torch, dev))
+    res["embed_held"] = list(params["embed"]["w"].shape)
+    batches = _mesh_batches(torch, dev, cfg, batch, seq, steps + 1)
+    step = model_steps.make_train_step(cfg, _mesh_opt(steps), par,
+                                       microbatches=1)
+    _peak_reset(torch, dev)
+    params, opt_state, res["run"] = _mesh_steps(
+        torch, dev, step, params, opt_state, batches[:steps], timed_last=True)
+    res["peak_gb"] = _peak_gb(torch, dev)
+    res["fingerprints"] = {
+        path: _fingerprint(torch, fsdp.gather_leaf_global(
+            leaf, rules._at(held, path), par, "check"))
+        for path, leaf in tree.flatten_with_keys(params).items()}
+    master = {path: fsdp.gather_leaf_global(leaf, rules._at(held, path), par,
+                                            "check")
+              for path, leaf in tree.flatten_with_keys(
+                  opt_state["master"]).items()}
+    if rank == 0:
+        torch.save(_samples(torch, tree, master), out_dir / "rank_samples.pt")
+    del master
+    # the checkpoint: gathered now, written by rank 0 in the background
+    # while the rest of the phase runs
+    ckpt = CheckpointManager(str(out_dir / "ckpt"))
+    t0 = time.perf_counter()
+    ckpt.save(steps, {"params": params, "opt_state": opt_state},
+              shardings={"params": held, "opt_state": o_held}, parallel=par)
+    res["gather_s"] = time.perf_counter() - t0
+    del opt_state
+    _free(torch, dev)
+
+    # one compressed all-reduce of the next batch's gradients, beside the
+    # fp32 one
+    split = par.split_batch()
+    local = rules.shard_tree(batches[steps],
+                             rules.batch_shardings(mesh, batches[steps]), mesh)
+    full = fsdp.gather(params, held, split)
+    _, _, grads = model_steps.loss_and_grads(full, cfg, local, split)
+    del full
+    collectives.reset()
+    card_sync(torch, dev)
+    t0 = time.perf_counter()
+    mean, error = compress.compressed_allreduce(
+        grads, compress.init_error_feedback(grads), par, par.dp_axes)
+    card_sync(torch, dev)
+    comp_ms = 1e3 * (time.perf_counter() - t0)
+    comp = {k: dict(v) for k, v in collectives.COLLECTIVES.items()}
+    collectives.reset()
+    worst = over_bound = over_half = 0.0
+    card_sync(torch, dev)
+    t0 = time.perf_counter()
+    for g, c, e in zip(tree.leaves(grads), tree.leaves(mean),
+                       tree.leaves(error)):
+        f = collectives.all_reduce(g.to(torch.float32, copy=True),
+                                   par.dp_group, site="fp32") / par.dp_size
+        mine = torch.clamp_min(g.float().abs().max(), 1e-12) / 127.0
+        scale = collectives.all_reduce(mine.clone(), par.dp_group,
+                                       op=dist.ReduceOp.MAX, site="scale")
+        total = collectives.all_reduce(mine.clone(), par.dp_group,
+                                       site="scale")
+        # each rank's ints dequantized with the largest scale: |q| <= 127,
+        # each off by (scale - its own) a quantum, and rounded by half its
+        # own; the last term for the fp32 rounding of the sums
+        n = par.dp_size
+        bound = (127 * (n * scale - total) + total / 2) / n + 1e-3 * scale
+        err = (c - f).abs().max()
+        worst = max(worst, float(err / scale))
+        over_bound = max(over_bound, float(err / bound))
+        # the residual carried forward: half its own quantum at most
+        over_half = max(over_half, float(e.abs().max() / (mine / 2)))
+    card_sync(torch, dev)
+    fp32_ms = 1e3 * (time.perf_counter() - t0)
+    res["compress"] = {"collectives": comp, "ms": comp_ms,
+                       "fp32_bytes": collectives.COLLECTIVES["fp32 all_reduce"]["bytes"],
+                       "fp32_ms": fp32_ms, "worst_over_scale": worst,
+                       "worst_over_bound": over_bound,
+                       "error_over_half_quantum": over_half,
+                       "leaves": len(tree.leaves(grads))}
+    del grads, mean, error, params, g, c, e, f
+    _free(torch, dev)
+
+    # (b) the MoE, reduced to its first layers, on (1, 2): tp 2
+    torch, dev, mcfg = _mesh_moe_config(spec)
+    _, mb, mseq, msteps = spec["moe"]
+    mbatches = _mesh_batches(torch, dev, mcfg, mb, mseq, msteps)
+    mmesh = make_test_mesh(1, MESH_WORLD, device_type=dev.type)
+    res["moe"] = {}
+    for strategy in ("active", "passive"):
+        mpar = make_parallel(mmesh, psum_strategy=strategy, remat="full")
+        whole = transformer.init_lm(mcfg, seed=0, device=dev)
+        mheld = fsdp.held_specs(mmesh, whole)
+        params = rules.shard_tree(whole, mheld, mmesh)
+        del whole
+        _free(torch, dev)
+        opt_state = adamw.init(params)
+        held_gb = (_tree_gb(tree, params, opt_state), _held_gb(torch, dev))
+        if dev.type == "cuda":
+            print(f"rank {rank} (b) {strategy}: {held_gb[1]:.3f} GB "
+                  f"allocated, {torch.cuda.memory_reserved(dev) / 1e9:.3f} "
+                  f"reserved, the card's free "
+                  f"{torch.cuda.mem_get_info(dev)[0] / 1e9:.3f}", flush=True)
+        step = model_steps.make_train_step(mcfg, _mesh_opt(msteps), mpar,
+                                           microbatches=1)
+        _peak_reset(torch, dev)
+        params, opt_state, rows = _mesh_steps(torch, dev, step, params,
+                                              opt_state, mbatches,
+                                              timed_last=True)
+        res["moe"][strategy] = {
+            "rows": rows, "held_gb": held_gb, "peak_gb": _peak_gb(torch, dev),
+            "routed_ff": params["layers"][0]["moe"]["routed"]["wg"].shape[-1],
+            "fingerprints": {
+                path: _fingerprint(torch, fsdp.gather_leaf_global(
+                    leaf, rules._at(mheld, path), mpar, "check"))
+                for path, leaf in tree.flatten_with_keys(params).items()}}
+        del params, opt_state
+        _free(torch, dev)
+
+    # (c) the 28 layers as a two-stage pipeline over the pod axis
+    m_count, rows_mb, pseq = spec["pipe"]
+    pmesh = DeviceMesh(dev.type, torch.arange(MESH_WORLD),
+                       mesh_dim_names=("pod",))
+    whole = transformer.init_lm(cfg, seed=0, device=dev)
+    per = cfg.n_layers // MESH_WORLD
+    mine = {"layers": whole["layers"][rank * per:(rank + 1) * per]}
+    stacked = tree.tree_map(lambda t: t[None], mine)
+    gen_ = torch.Generator().manual_seed(37)
+    toks = torch.randint(0, cfg.vocab, (m_count, rows_mb, pseq),
+                         generator=gen_).to(dev)
+    with torch.inference_mode():
+        xs = whole["embed"]["w"][toks]
+
+        def stage_fn(p, x):
+            return transformer.layers_apply(p["layers"], x, cfg)
+
+        launch.reset_launches()
+        collectives.reset()
+        card_sync(torch, dev)
+        t0 = time.perf_counter()
+        got = pipeline_apply(pmesh, MESH_WORLD, stage_fn, stacked, xs)
+        card_sync(torch, dev)
+        pipe_ms = 1e3 * (time.perf_counter() - t0)
+        pipe_launches = dict(launch.LAUNCHES)
+        pipe_coll = {k: dict(v) for k, v in collectives.COLLECTIVES.items()}
+        want = torch.stack([transformer.layers_apply(whole["layers"], x, cfg)
+                            for x in xs])
+    res["pipe"] = {"ms": pipe_ms, "launches": pipe_launches,
+                   "collectives": pipe_coll,
+                   "err": float((got.float() - want.float()).abs().max()
+                                / want.float().abs().max()),
+                   "equal": bool(torch.equal(got, want)),
+                   "finite": bool(torch.isfinite(got).all()),
+                   "shape": list(got.shape),
+                   "fingerprint": _fingerprint(torch, got)}
+    t0 = time.perf_counter()
+    ckpt.wait()
+    res["save"] = [res["gather_s"], time.perf_counter() - t0,
+                   *(ckpt.last_write or (0, 0.0))]
+    (out_dir / f"rank{rank}.json").write_text(json.dumps(res))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def mesh_resume(spec: dict) -> None:
+    """Phase 4p(d): one process, a group of one rank; the newest checkpoint
+    of (a) restored on `largest_healthy_mesh(1, 1)` (its global leaves cut
+    to this rank's shards: the whole of each) and one more step."""
+    import datetime
+
+    torch, dev, cfg = _mesh_common(spec, MESH_ARCH)
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.store import CheckpointManager
+    from repro_torch.models import steps as model_steps
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.elastic import largest_healthy_mesh, resume_on_mesh
+    from repro_torch.sharding.api import make_parallel
+
+    out_dir = pathlib.Path(spec["dir"])
+    dist.init_process_group("gloo", init_method=f"file://{out_dir / 'rdzv1'}",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=600))
+    batch, seq, steps = spec["run"]
+    mesh = largest_healthy_mesh(1, 1, device_type=dev.type)
+    like = init_lm(cfg, device="meta")
+    t0 = time.perf_counter()
+    at, params, opt_state = resume_on_mesh(
+        CheckpointManager(str(out_dir / "ckpt")), mesh, like, adamw.init(like),
+        device=dev)
+    card_sync(torch, dev)
+    restore_s = time.perf_counter() - t0
+    step = model_steps.make_train_step(
+        cfg, _mesh_opt(steps), make_parallel(mesh, remat="full"),
+        microbatches=1)
+    batches = _mesh_batches(torch, dev, cfg, batch, seq, steps + 1)
+    *_, rows = _mesh_steps(torch, dev, step, params, opt_state,
+                           batches[steps:])
+    (out_dir / "resume.json").write_text(json.dumps({
+        "step": at, "restore_s": restore_s, "mesh": list(mesh.mesh.shape),
+        "count": int(opt_state["count"]), "row": rows[0]}))
+    dist.destroy_process_group()
+
+
+def _spawn_workers(spec: dict, roles: list[tuple[str, dict]], what: str) -> float:
+    """Start one chip_smoke.py worker per (role, extra spec) at once, wait
+    for all within MESH_TIMEOUT (killing any left), fail on a non-zero exit.
+    Returns the seconds they took."""
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), role,
+         json.dumps({**spec, **extra})],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for role, extra in roles]
+    logs = []
+    try:
+        for proc in procs:
+            logs.append(proc.communicate(timeout=MESH_TIMEOUT)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    for i, (proc, log) in enumerate(zip(procs, logs)):
+        if proc.returncode != 0:
+            fail(f"{what} {i} exited {proc.returncode}:\n{log[-6000:]}")
+    return time.perf_counter() - t0
+
+
+def _coll_text(coll: dict) -> str:
+    return "{" + ", ".join(
+        f"{k}: {v['calls']} calls, {v['bytes']:,} B"
+        + (f", {1e3 * v['s']:.1f} ms" if v.get("s") else "")
+        for k, v in sorted(coll.items())) + "}"
+
+
+def mesh_on_card(torch, dev, card: str) -> dict:
+    """Phase 4p: the one-process baseline (`mesh_baseline`), then the two
+    ranks (`mesh_rank`) sharing the card through gloo, then the elastic
+    resume (`mesh_resume`), each a process of its own; the checks and the
+    lines of (a) to (d). The checkpoint (about 21.6 GB at full size) is
+    written under ``build/`` (its free space checked first) and deleted
+    after. Returns the flash launches of the ranks' main-path steps."""
+    import shutil
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.models.transformer import count_params
+
+    cfg = (get_smoke if MESH_SMOKE else get_config)(MESH_ARCH)
+    batch, seq, steps = MESH_RUN
+    n_params = count_params(cfg)
+    if MESH_DIR.exists():
+        shutil.rmtree(MESH_DIR)
+    MESH_DIR.mkdir(parents=True)
+    ckpt_gb = (n_params * (2 + 3 * 4) + 4) / 1e9
+    free_gb = shutil.disk_usage(MESH_DIR).free / 1e9
+    if free_gb < 1.2 * ckpt_gb:
+        fail(f"mesh checkpoint: {ckpt_gb:.3f} GB does not fit the "
+             f"{free_gb:.1f} GB free under {MESH_DIR}")
+    spec = {"dir": str(MESH_DIR), "device": dev.type, "smoke": MESH_SMOKE,
+            "run": list(MESH_RUN), "moe": list(MESH_MOE),
+            "pipe": list(MESH_PIPE)}
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    try:
+        base_s = _spawn_workers(spec, [("--mesh-baseline", {})], "mesh baseline")
+        ranks_s = _spawn_workers(spec, [("--mesh-rank", {"rank": r})
+                                        for r in range(MESH_WORLD)], "mesh rank")
+        resume_s = _spawn_workers(spec, [("--mesh-resume", {})], "mesh resume")
+        base = json.loads((MESH_DIR / "baseline.json").read_text())
+        ranks = [json.loads((MESH_DIR / f"rank{r}.json").read_text())
+                 for r in range(MESH_WORLD)]
+        resumed = json.loads((MESH_DIR / "resume.json").read_text())
+        one_samples = torch.load(MESH_DIR / "baseline_samples.pt")
+        rank_samples = torch.load(MESH_DIR / "rank_samples.pt")
+    finally:
+        shutil.rmtree(MESH_DIR / "ckpt", ignore_errors=True)
+    on_card = dev.type == "cuda"
+    r0 = ranks[0]
+
+    # (a) Qwen2-1.5B on (2, 1)
+    losses = [[row["loss"] for row in r["run"]] for r in ranks]
+    one = [row["loss"] for row in base["run"]]
+    if losses[1] != losses[0]:
+        fail(f"mesh (a): the ranks' losses differ: {losses}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses[0], one)]
+    if not all(math.isfinite(v) for v in losses[0]) or max(rel) > MESH_TOL:
+        fail(f"mesh (a): losses {losses[0]} against one process's {one} "
+             f"beyond {MESH_TOL} relative")
+    if ranks[1]["fingerprints"] != r0["fingerprints"]:
+        bad = [k for k in r0["fingerprints"]
+               if ranks[1]["fingerprints"][k] != r0["fingerprints"][k]]
+        fail(f"mesh (a): the gathered params differ between the ranks: "
+             f"{bad[:5]}")
+    # the ranks' fp32 master after the steps against one process's, at the
+    # same positions of each leaf, over the update one process made there
+    if set(rank_samples) != set(one_samples["after"]):
+        fail("mesh (a): the ranks' master leaves are not one process's")
+    update_rel = {}
+    for path, got in rank_samples.items():
+        want, init = one_samples["after"][path], one_samples["init"][path]
+        moved = float((want - init).norm())
+        off = float((got - want).norm())
+        update_rel[path] = off / moved if moved else (0.0 if off == 0 else math.inf)
+    worst_leaf = max(update_rel, key=update_rel.get)
+    if not update_rel[worst_leaf] <= MESH_UPDATE_TOL:
+        fail(f"mesh (a): the ranks' master {worst_leaf} is "
+             f"{update_rel[worst_leaf]:.4g} of one process's update away "
+             f"from it (limit {MESH_UPDATE_TOL})")
+    n_layers = cfg.n_layers
+    flash = [[row["launches"].get("flash_attention", 0) for row in r["run"]]
+             for r in ranks]
+    one_flash = [row["launches"].get("flash_attention", 0)
+                 for row in base["run"]]
+    # a rank's step: each layer's forward and its remat recompute (one
+    # microbatch); one process's: the forward alone (parallel=None)
+    if on_card and (any(n != 2 * n_layers for f in flash for n in f)
+                    or any(n != n_layers for n in one_flash)):
+        fail(f"mesh (a): flash_attention launches a step {flash} a rank and "
+             f"{one_flash} in one process, not {2 * n_layers} and {n_layers}")
+    print(f"mesh (a) {cfg.name} ({n_layers} layers, {n_params:,} parameters, "
+          f"{cfg.dtype}) on a (2, 1) mesh of {MESH_WORLD} processes sharing "
+          f"one card through gloo, remat full, {steps} steps of a global "
+          f"{batch} x {seq} batch ({batch // MESH_WORLD} x {seq} a rank, one "
+          f"microbatch): losses {losses[0]} on both ranks bit for bit; one "
+          f"process {one} (rel {max(rel):.3g}, limit {MESH_TOL}); the "
+          f"gathered params equal on both ranks ({len(r0['fingerprints'])} "
+          f"leaves); the fp32 master at {MESH_SAMPLES} seeded positions a "
+          f"leaf {max(update_rel.values()):.4g} at most ({worst_leaf}), "
+          f"median {statistics.median(update_rel.values()):.4g}, of one "
+          f"process's update away from one process's (limit "
+          f"{MESH_UPDATE_TOL}) ({card})")
+    print(f"mesh (a) held a rank: {r0['held_gb'][0]:.3f} GB of params and "
+          f"AdamW state ({r0['held_gb'][1]:.3f} GB allocated; embed shard "
+          f"{r0['embed_held']}); one process {base['held_gb']:.3f} GB; peak "
+          f"allocated across the steps {r0['peak_gb']:.3f} GB a rank (rank 1 "
+          f"{ranks[1]['peak_gb']:.3f}), {base['peak_gb']:.3f} GB in one "
+          f"process ({card})")
+    for r in ranks:
+        print(f"mesh (a) rank {r['rank']}: step walls "
+              f"{[round(row['ms'], 3) for row in r['run']]} ms (one process "
+              f"{[round(row['ms'], 3) for row in base['run']]} ms); flash "
+              f"launches a step {[f for f in flash[r['rank']]]} (predicted "
+              f"{2 * n_layers}: {n_layers} forward + {n_layers} in the remat "
+              f"recompute; one process "
+              f"{[row['launches'].get('flash_attention', 0) for row in base['run']]}); "
+              f"collectives of step {steps} {_coll_text(r['run'][-1]['collectives'])} "
+              f"({card})")
+    c = r0["compress"]
+    cb = c["collectives"]["compress all_reduce"]["bytes"]
+    print(f"mesh (a) compressed_allreduce of one batch's gradients "
+          f"({c['leaves']} leaves, each rank its own): {cb:,} B in "
+          f"{c['collectives']['compress all_reduce']['calls']} calls, "
+          f"{c['ms']:.1f} ms; the fp32 all-reduce {c['fp32_bytes']:,} B, "
+          f"{c['fp32_ms']:.1f} ms (with a MAX and a SUM of each leaf's "
+          f"scale); max |int8 mean - fp32 mean| / scale "
+          f"{c['worst_over_scale']:.4g} (scale: the group's max |g| / 127), "
+          f"{c['worst_over_bound']:.4g} of its bound at most; the residual "
+          f"{c['error_over_half_quantum']:.4g} of half a quantum at most "
+          f"({card})")
+    if not (c["worst_over_bound"] <= 1.0
+            and c["error_over_half_quantum"] <= 1.0 + 1e-3):
+        fail(f"mesh (a): the compressed mean is {c['worst_over_bound']} of "
+             f"its bound (each rank's ints off by the scales' gap and half "
+             f"its own quantum) or the residual "
+             f"{c['error_over_half_quantum']} of half a quantum")
+    gather_s, wait_s, nbytes, write_s = r0["save"]
+    print(f"mesh (a) checkpoint after step {steps}: global leaves gathered "
+          f"leaf by leaf and copied to rank 0's host in {gather_s:.2f} s "
+          f"(rank 1 {ranks[1]['save'][0]:.2f} s), then {int(nbytes):,} bytes "
+          f"({nbytes / 1e9:.3f} GB) written by rank 0 in {write_s:.2f} s in "
+          f"the background, {wait_s:.2f} s of it waited for at the rank's end "
+          f"(crc32s included; warm page cache, not synced)")
+
+    # (b) the reduced MoE on (1, 2), active and passive
+    mlayers, mb, mseq, msteps = MESH_MOE
+    moe_losses = {}
+    for strategy in ("active", "passive"):
+        got = [[row["loss"] for row in r["moe"][strategy]["rows"]] for r in ranks]
+        if got[1] != got[0] or (ranks[1]["moe"][strategy]["fingerprints"]
+                                != r0["moe"][strategy]["fingerprints"]):
+            fail(f"mesh (b) {strategy}: the ranks differ: {got}")
+        moe_losses[strategy] = got[0]
+    if moe_losses["active"] != moe_losses["passive"]:
+        fail(f"mesh (b): active {moe_losses['active']} and passive "
+             f"{moe_losses['passive']} differ")
+    split = [row["loss"] for row in base["moe_split"]]
+    unsplit = [row["loss"] for row in base["moe_unsplit"]]
+    act = moe_losses["active"]
+    if act[0] != split[0]:
+        fail(f"mesh (b): the first step's loss {act[0]} is not the split's "
+             f"{split[0]} bit for bit")
+    rel_split = max(abs(a - b) / abs(b) for a, b in zip(act, split))
+    if rel_split > MESH_MOE_TOL:
+        fail(f"mesh (b): losses {act} against the split in one process "
+             f"{split} beyond {MESH_MOE_TOL}")
+    moe_flash = [row["launches"].get("flash_attention", 0)
+                 for r in ranks for strategy in ("active", "passive")
+                 for row in r["moe"][strategy]["rows"]]
+    if on_card and any(n != 2 * mlayers for n in moe_flash):
+        fail(f"mesh (b): flash_attention launches a step {moe_flash}, not "
+             f"{2 * mlayers}")
+
+    def flips(a, b) -> str:
+        x, y = (torch.tensor(a), torch.tensor(b))
+        differ = (x != y).any(-1)
+        return f"{int(differ.sum())} of {differ.numel()}"
+
+    rows = r0["moe"]["active"]["rows"]
+    print(f"mesh (b) {MESH_MOE_ARCH} at published widths, **reduced** to "
+          f"{mlayers} of 24 layers, on a (1, 2) mesh (routed ff "
+          f"{r0['moe']['active']['routed_ff']} a rank), {msteps} steps of "
+          f"{mb} x {mseq}: losses {act}, both ranks and both combines bit for "
+          f"bit; the split in one process {split} (step 1 bit for bit, "
+          f"rel {rel_split:.3g} at most, limit {MESH_MOE_TOL}); the unsplit "
+          f"model {unsplit} (gap {max(abs(a - b) for a, b in zip(act, unsplit)):.4g}; "
+          f"step 1's (layer, token) routes differing from the unsplit's: "
+          f"{flips(rows[0]['routes'][:mlayers], base['moe_unsplit'][0]['routes'][:mlayers])}); "
+          f"held {r0['moe']['active']['held_gb'][0]:.3f} GB of params and "
+          f"AdamW state a rank ({r0['moe']['active']['held_gb'][1]:.3f} GB "
+          f"allocated at the start, rank 1 "
+          f"{ranks[1]['moe']['active']['held_gb'][1]:.3f}), peak allocated "
+          f"across the steps {r0['moe']['active']['peak_gb']:.3f} GB "
+          f"(passive {r0['moe']['passive']['peak_gb']:.3f}; rank 1 "
+          f"{ranks[1]['moe']['active']['peak_gb']:.3f} and "
+          f"{ranks[1]['moe']['passive']['peak_gb']:.3f}) ({card})")
+    for strategy in ("active", "passive"):
+        rr = r0["moe"][strategy]["rows"]
+        print(f"mesh (b) {strategy}: step walls {[round(x['ms'], 3) for x in rr]} "
+              f"ms (one process {[round(x['ms'], 3) for x in base['moe_split']]}); "
+              f"collectives of step {msteps} {_coll_text(rr[-1]['collectives'])}")
+
+    # (c) the pipeline
+    pipes = [r["pipe"] for r in ranks]
+    m_count, rows_mb, pseq = MESH_PIPE
+    ticks = m_count + MESH_WORLD - 1
+    pipe_flash = [p["launches"].get("flash_attention", 0) for p in pipes]
+    if (pipes[1]["fingerprint"] != pipes[0]["fingerprint"]
+            or not all(p["finite"] and p["equal"] for p in pipes)
+            or (on_card and any(n != n_layers // MESH_WORLD * ticks
+                                for n in pipe_flash))):
+        fail(f"mesh (c): pipeline {pipes}")
+    print(f"mesh (c) two-stage pipeline of {cfg.name}'s {n_layers} layers "
+          f"({n_layers // MESH_WORLD} a stage), {m_count} microbatches of "
+          f"{rows_mb} x {pseq}: last hidden state {pipes[0]['shape']} equal on "
+          f"both ranks and bit for bit one process's (max abs err / max abs "
+          f"{pipes[0]['err']:.4g}); "
+          f"{pipes[0]['ms']:.1f} ms; launches a rank "
+          f"{[p['launches'] for p in pipes]}; collectives "
+          f"{_coll_text(pipes[0]['collectives'])} ({card})")
+
+    # (d) the elastic restart
+    row = resumed["row"]
+    jump = row["loss"] - losses[0][-1]
+    if (resumed["step"] != steps or resumed["mesh"] != [1, 1]
+            or resumed["count"] != steps + 1 or not math.isfinite(row["loss"])
+            or jump > MESH_SPIKE or (on_card and row["launches"].get(
+                "flash_attention", 0) != 2 * n_layers)):
+        fail(f"mesh (d): resumed {resumed} after losses {losses[0]}")
+    print(f"mesh (d) elastic restart: step {steps}'s checkpoint resumed by one "
+          f"process on largest_healthy_mesh(1, 1) in "
+          f"{resumed['restore_s']:.2f} s ({int(nbytes):,} bytes read and "
+          f"checked), step {steps + 1} loss {row['loss']:.6f} ({jump:+.4g} "
+          f"against step {steps}'s, limit +{MESH_SPIKE}); step wall "
+          f"{row['ms']:.1f} ms ({card})")
+    print(f"mesh phase: baseline {base_s:.1f} s, ranks {ranks_s:.1f} s, "
+          f"resume {resume_s:.1f} s")
+    return {"flash_attention": sum(sum(f) for f in flash),
+            "pipeline": sum(p["launches"].get("flash_attention", 0)
+                            for p in pipes),
+            "moe": sum(row["launches"].get("flash_attention", 0)
+                       for r in ranks for s in ("active", "passive")
+                       for row in r["moe"][s]["rows"]),
+            "resume": row["launches"].get("flash_attention", 0)}
 
 
 def kernel_name(mangled: str) -> str:
@@ -5418,6 +6163,16 @@ def main() -> None:
     tp_launches = tp["launches"]
     print(f"tp phase: {time.perf_counter() - t0:.1f} s, launches {tp_launches}")
 
+    # 4p. training on a mesh: Qwen2-1.5B on a (2, 1) mesh of two processes
+    #     on the card (fsdp shards, the batch split, remat full), the
+    #     reduced MoE on (1, 2) under both combines, the two-stage
+    #     pipeline and the elastic restart, against one-process baselines
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh_launches = mesh_on_card(torch, dev, smi)
+    print(f"mesh phase: {time.perf_counter() - t0:.1f} s, flash launches "
+          f"{mesh_launches}")
+
     # 5. result lines
     sources = {"psum_matmul/active": ("psum_matmul", "src/repro/kernels/psum_matmul.py:48"),
                "psum_matmul/passive": ("psum_matmul", "src/repro/kernels/psum_matmul.py:66"),
@@ -5504,6 +6259,13 @@ def main() -> None:
             name: run["launches"].get("flash_attention", 0)
             for name, run in training["smoke"].items()},
         "train_attention": training["attention"],
+        # phase 4p's launches: Qwen2-1.5B's sharded train steps on both
+        # ranks (the forward and the remat recompute), the reduced MoE's,
+        # the pipeline's stages and the elastic restart's step
+        "mesh_launches": mesh_launches["flash_attention"],
+        "mesh_moe_launches": mesh_launches["moe"],
+        "mesh_pipeline_launches": mesh_launches["pipeline"],
+        "mesh_resume_launches": mesh_launches["resume"],
         "max_abs_err": head["max_abs_err"], "ms": head["ms"],
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],
@@ -5544,10 +6306,12 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 3 and sys.argv[1] in ("--tp-baseline", "--tp-rank"):
+    workers = {"--tp-baseline": tp_baseline, "--tp-rank": tp_rank,
+               "--mesh-baseline": mesh_baseline, "--mesh-rank": mesh_rank,
+               "--mesh-resume": mesh_resume}
+    if len(sys.argv) == 3 and sys.argv[1] in workers:
         if not (ROOT / "src" / "repro_torch").is_dir():
             fail(f"src/repro_torch not found beside {ROOT / 'chip_smoke.py'}")
-        (tp_baseline if sys.argv[1] == "--tp-baseline" else tp_rank)(
-            json.loads(sys.argv[2]))
+        workers[sys.argv[1]](json.loads(sys.argv[2]))
     else:
         main()

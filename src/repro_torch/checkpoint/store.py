@@ -39,6 +39,7 @@ import torch
 from repro_torch import tree as T
 from repro_torch.obs.trace import Stopwatch
 from repro_torch.plan.units import nbytes
+from repro_torch.sharding import fsdp, rules
 
 #: the numpy type a tensor's type is stored as (bf16 aside)
 _NP_OF = {torch.float32: np.float32, torch.int32: np.int32,
@@ -58,10 +59,11 @@ def to_numpy(t: torch.Tensor) -> tuple[np.ndarray, str]:
 def from_numpy(arr: np.ndarray, dtype: str) -> torch.Tensor:
     """The tensor a stored array holds under its manifest ``dtype``: bf16
     from its 16-bit words (whatever numpy type they were stored as)."""
-    arr = np.ascontiguousarray(arr)
+    shape = arr.shape
+    arr = np.ascontiguousarray(arr)              # at least 1-d
     if dtype == BF16:
-        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
-    return torch.from_numpy(arr.view(np.dtype(dtype)))
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).reshape(shape)
+    return torch.from_numpy(arr.view(np.dtype(dtype))).reshape(shape)
 
 
 class CheckpointManager:
@@ -77,12 +79,32 @@ class CheckpointManager:
         self.last_write: tuple[int, float] | None = None
 
     # ---------------------------------------------------------------- save
-    def save(self, step: int, tree: Any, blocking: bool = False) -> None:
+    def save(self, step: int, tree: Any, blocking: bool = False, *,
+             shardings: Any = None, parallel=None) -> None:
         """Copy the tree to host memory now; write it to disk in a
-        background thread (at once where ``blocking``)."""
+        background thread (at once where ``blocking``).
+
+        ``shardings`` (a tree of specs over ``parallel``'s mesh, as
+        `repro_torch.sharding.fsdp.held_specs` makes them): the tree holds
+        this rank's shards. Every rank of the mesh calls `save`; each leaf
+        is gathered whole (`fsdp.gather_leaf_global`), one leaf at a time,
+        and rank 0 alone copies it to the host and writes, so that the
+        checkpoint holds global leaves, as the reference's does."""
         with Stopwatch() as sw:
-            host = {k: to_numpy(v)
-                    for k, v in T.flatten_with_keys(tree).items()}
+            flat = T.flatten_with_keys(tree)
+            if shardings is None:
+                host = {k: to_numpy(v) for k, v in flat.items()}
+            else:
+                writer = not any(parallel.mesh.get_coordinate())
+                host = {}
+                for k, v in flat.items():
+                    whole = fsdp.gather_leaf_global(
+                        v, rules._at(shardings, k), parallel, "checkpoint")
+                    if writer:
+                        host[k] = to_numpy(whole)
+                    del whole
+                if not writer:
+                    return
         self.last_snapshot_s = sw.s
         self.wait()
         self._thread = threading.Thread(
@@ -147,13 +169,18 @@ class CheckpointManager:
                 steps.append(int(name.split("_")[1]))
         return sorted(steps)
 
-    def restore(self, step: int, like: Any, device=None) -> Any:
+    def restore(self, step: int, like: Any, device=None, *,
+                shardings: Any = None, mesh=None) -> Any:
         """The checkpoint of ``step`` in the structure of ``like`` (a tree
         of tensors, or of anything with a ``shape``), each leaf in its
         manifest dtype on ``device``, or on the ``like`` leaf's device
-        where that is a tensor (else the CPU). Raises `FileNotFoundError`
-        for a step without ``COMMIT``, `IOError` on a checksum mismatch,
-        `KeyError` for a missing leaf, `ValueError` for another shape."""
+        where that is a tensor (else the CPU). With ``shardings`` (a tree
+        of specs over ``mesh``) ``like`` is this rank's shards: each global
+        leaf is cut to its shard on the host (`rules.shard_of`) before it
+        moves, so a checkpoint restores onto any mesh the specs fit (the
+        elastic restart). Raises `FileNotFoundError` for a step without
+        ``COMMIT``, `IOError` on a checksum mismatch, `KeyError` for a
+        missing leaf, `ValueError` for another shape."""
         d = self._step_dir(step)
         if not os.path.exists(os.path.join(d, "COMMIT")):
             raise FileNotFoundError(f"checkpoint step {step} not committed")
@@ -171,14 +198,17 @@ class CheckpointManager:
             raise KeyError(f"checkpoint lacks leaves: {sorted(missing)[:5]}")
         values = []
         for key, leaf in flat_like.items():
-            arr = stored[key]
-            if tuple(arr.shape) != tuple(leaf.shape):
-                raise ValueError(f"shape mismatch {key}: ckpt {arr.shape} vs "
-                                 f"expected {tuple(leaf.shape)}")
+            t = from_numpy(stored[key], manifest["leaves"][key]["dtype"])
+            if shardings is not None:
+                t = rules.shard_of(t, rules._at(shardings, key),
+                                   rules.logical_dims(key, t.dim()), mesh)
+            if tuple(t.shape) != tuple(leaf.shape):
+                raise ValueError(f"shape mismatch {key}: ckpt "
+                                 f"{tuple(stored[key].shape)} vs expected "
+                                 f"{tuple(leaf.shape)}")
             where = device if device is not None else (
                 leaf.device if isinstance(leaf, torch.Tensor) else "cpu")
-            values.append(from_numpy(arr, manifest["leaves"][key]["dtype"])
-                          .to(where))
+            values.append(t.to(where))
         return T.unflatten_like(like, values)
 
     # ------------------------------------------------------------------ gc

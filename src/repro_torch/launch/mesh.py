@@ -24,14 +24,14 @@ from torch.distributed.device_mesh import DeviceMesh
 
 def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
     """The reference's 16 x 16 (or 2 x 16 x 16) production mesh: 256 or 512
-    ranks, which one card cannot hold. Raises; it waits for the rest of the
-    distributed layer (ROADMAP A9, second half)."""
+    ranks, which one card cannot hold. Raises; it waits with the dry run
+    that lowers it (ROADMAP A9)."""
     shape = "2 x 16 x 16" if multi_pod else "16 x 16"
     raise NotImplementedError(
         f"make_production_mesh: a {shape} mesh needs as many ranks; the "
         f"port runs test meshes over the standing process group "
-        f"(make_test_mesh), and the production layout waits for ROADMAP A9's "
-        f"second half")
+        f"(make_test_mesh), and the production layout waits with the dry "
+        f"run (ROADMAP A9)")
 
 
 def make_test_mesh(data: int = 2, model: int = 4, pod: int | None = None, *,

@@ -15,8 +15,13 @@ local add: the read-back baseline, TP times the bytes). Tokens are split
 over the data axes where their count divides, as the reference's
 ``shard_map`` splits them, and gathered back after the combine, since the
 rest of the layer runs replicated on every rank in the port. The router
-and the shared expert run replicated. With ``parallel=None`` the same code
-runs on one device.
+and the shared expert run replicated. In a train step the batch is split
+over the data axes before the model runs (``parallel.batch_split``): the
+tokens are not cut again, each rank's capacity is its own tokens', as in
+the reference's ``shard_map`` body, and the load-balancing loss's
+per-expert means are reduced over the data group. With a gradient the
+combines are the autograd collectives of `repro_torch.sharding.collectives`.
+With ``parallel=None`` the same code runs on one device.
 
 Capture. The capacity path reads no tensor value on the host: its buffer
 size depends on the token count alone, the expert counts are a
@@ -99,18 +104,26 @@ def expert_counts(flat_e: torch.Tensor, e: int) -> torch.Tensor:
         0, flat_e, torch.ones_like(flat_e))
 
 
-def route(w: torch.Tensor, x2: torch.Tensor, mc
+def route(w: torch.Tensor, x2: torch.Tensor, mc, over=None
           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x2: (T, d) -> (weights (T, k) fp32, idx (T, k), aux 0-d fp32): the
     fp32 router product, softmax, top-k, the optional renormalisation and
-    the Switch loss E * sum_e f_e P_e * router_aux_weight."""
+    the Switch loss E * sum_e f_e P_e * router_aux_weight. ``over``: a
+    `Parallel` whose batch is split over its data axes; f_e and P_e are
+    then means over the data group (P_e's gradient this rank's share),
+    so that the loss is the global batch's."""
     probs = torch.softmax(x2.float() @ w, -1)                     # (T, E)
     weights, idx = torch.topk(probs, mc.top_k, -1)                # (T, k)
     if mc.norm_topk:
         weights = weights / weights.sum(-1, keepdim=True).clamp_min(1e-9)
     fe = (expert_counts(idx.reshape(-1), mc.n_routed).float()
           / (x2.shape[0] * mc.top_k))
-    aux = mc.n_routed * torch.sum(fe * probs.mean(0)) * mc.router_aux_weight
+    pe = probs.mean(0)
+    if over is not None and over.dp_size > 1:
+        both = collectives.group_mean(torch.cat([fe, pe]), over.dp_group,
+                                      over.dp_size, site="moe/aux")
+        fe, pe = both[:mc.n_routed], both[mc.n_routed:]
+    aux = mc.n_routed * torch.sum(fe * pe) * mc.router_aux_weight
     return weights, idx, aux
 
 
@@ -231,29 +244,34 @@ def _sharded_ffn(ffn, routed: Params, mc, x: torch.Tensor,
                  weights: torch.Tensor, idx: torch.Tensor, act: str,
                  parallel) -> torch.Tensor:
     """The reference's ``shard_map`` body in explicit SPMD: this rank's
-    tokens (its data-axis slice where the count divides, else all of them)
+    tokens (its data-axis slice where the count divides, else all of them;
+    a batch the caller split already, ``parallel.batch_split``, as it is)
     through ``ffn`` over its ff block, a partial y over the tp axis,
     combined by the parallel's psum_strategy, then the data-axis slices
-    gathered back."""
-    t, d = x.shape
-    dp = parallel.dp_size
+    gathered back. The collectives are the autograd ones
+    (`collectives.combine_active` and the rest: the block's inputs get the
+    tp group's summed gradient), with a gradient or without."""
+    t = x.shape[0]
+    dp = 1 if parallel.batch_split else parallel.dp_size
     if t % dp:
         # tiny token counts (batch-1 long-context decode) cannot shard over
         # the data axes: replicate the tokens, keep ff tp-sharded
         dp = 1
     t_loc = t // dp
     lo = (parallel.dp_rank if dp > 1 else 0) * t_loc
-    y_part = ffn(_tp_block(routed, mc, parallel), mc, x[lo:lo + t_loc],
-                 weights[lo:lo + t_loc], idx[lo:lo + t_loc], act)
+    x, weights, idx = x[lo:lo + t_loc], weights[lo:lo + t_loc], idx[lo:lo + t_loc]
+    group, tp = parallel.tp_group, parallel.tp_size
+    x = collectives.copy_to_group(x, group, site="moe")
+    weights = collectives.copy_to_group(weights, group, site="moe")
+    y_part = ffn(_tp_block(routed, mc, parallel), mc, x, weights, idx, act)
     if parallel.psum_strategy == "active":
-        y = collectives.all_reduce(y_part, parallel.tp_group, site="moe")
+        y = collectives.combine_active(y_part, group, site="moe")
     else:
         # passive: gather every rank's partial sums and add them here
-        y = collectives.all_gather(y_part, parallel.tp_group,
-                                   parallel.tp_size, site="moe").sum(0)
+        y = collectives.combine_passive(y_part, group, tp, site="moe")
     if dp > 1:
-        y = collectives.all_gather(y, parallel.dp_group, dp,
-                                   site="moe/data").reshape(t, d)
+        y = collectives.gather_rows(y, parallel.dp_group, dp,
+                                    parallel.dp_rank, site="moe/data")
     return y
 
 
@@ -270,7 +288,9 @@ def moe_apply(p: Params, x: torch.Tensor, cfg, parallel=None
     mc = cfg.moe
     b, s, d = x.shape
     x2 = x.reshape(b * s, d)
-    weights, idx, aux = route(p["router"]["w"], x2, mc)
+    split = parallel is not None and parallel.batch_split
+    weights, idx, aux = route(p["router"]["w"], x2, mc,
+                              over=parallel if split else None)
     weights = weights.to(x.dtype)
     ffn = _capacity_ffn if mc.impl == "capacity" else _ragged_ffn
     if parallel is None:

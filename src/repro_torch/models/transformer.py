@@ -230,20 +230,77 @@ def embed_scale(d_model: int, dtype: torch.dtype) -> float:
     return float(torch.tensor(d_model ** 0.5, dtype=dtype))
 
 
-def encode(params: Params, cfg: ArchConfig, frames: torch.Tensor
-           ) -> torch.Tensor:
+@functools.cache
+def _dot_ops() -> frozenset:
+    """What the "dots" policy keeps of a layer's forward: the matmuls'
+    outputs."""
+    return frozenset(getattr(torch.ops.aten, name).default
+                     for name in ("mm", "bmm", "addmm", "baddbmm"))
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if op in _dot_ops()
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(parallel, caches) -> str:
+    """The checkpoint policy of a forward: ``parallel.remat`` where a
+    gradient is wanted and no cache is filled, else "none" (as the
+    reference's ``parallel=None`` is)."""
+    if parallel is None or caches is not None or not torch.is_grad_enabled():
+        return "none"
+    return parallel.remat
+
+
+def _run_layer(remat: str, lp: Params, x: torch.Tensor, cfg: ArchConfig,
+               **kw) -> tuple[torch.Tensor, Params | None, torch.Tensor | None]:
+    """`_layer_apply` under ``remat``: "full" is `torch.utils.checkpoint`
+    over the layer (its forward runs again in the backward), "dots" a
+    selective checkpoint that keeps the matmul outputs
+    (``jax.checkpoint_policies.checkpoint_dots``), "none" the layer as it
+    is."""
+    if remat == "none":
+        return _layer_apply(lp, x, cfg, **kw)
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+    extra = ({} if remat == "full" else {"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, _dots_policy)})
+    return checkpoint(functools.partial(_layer_apply, cfg=cfg, **kw), lp, x,
+                      use_reentrant=False, **extra)
+
+
+def encode(params: Params, cfg: ArchConfig, frames: torch.Tensor,
+           parallel=None) -> torch.Tensor:
     """The encoder of an enc-dec arch. ``frames``: the stubbed modality
     frontend's output (B, S_enc, frontend_dim), precomputed frame
     embeddings. ``enc_proj``, then the encoder's layers, each non-causal
     self-attention (rope at positions 0 .. S_enc - 1) and a dense FFN, with
     no cache, then ``enc_norm``: the memory (B, S_enc, d_model) of the
-    decoder's cross-attention."""
+    decoder's cross-attention. ``parallel`` sets the layers' checkpoint
+    policy (`forward`)."""
     x = L.dense(params["enc_proj"], frames)
     positions = torch.arange(x.shape[1], device=x.device)
+    remat = _remat(parallel, None)
     for lp in params["enc_layers"]:
-        x, _, _ = _layer_apply(lp, x, cfg, positions=positions, cache=None,
-                               cache_pos=None, start=None, causal=False)
+        x, _, _ = _run_layer(remat, lp, x, cfg, positions=positions,
+                             cache=None, cache_pos=None, start=None,
+                             causal=False)
     return L.norm_apply(params["enc_norm"], x, cfg.norm_eps)
+
+
+def layers_apply(layers: list, x: torch.Tensor, cfg: ArchConfig,
+                 parallel=None) -> torch.Tensor:
+    """Hidden states (B, S, d) through ``layers`` (a run of
+    ``params["layers"]``) at positions 0 .. S - 1, without caches or
+    memory: a pipeline stage's body (`repro_torch.runtime.pipeline`)."""
+    positions = torch.arange(x.shape[1], device=x.device)
+    remat = _remat(parallel, None)
+    for lp in layers:
+        x, _, _ = _run_layer(remat, lp, x, cfg, positions=positions,
+                             cache=None, cache_pos=None, start=None,
+                             parallel=parallel)
+    return x
 
 
 #: the key a caches dict carries when its self-attention KV caches are this
@@ -274,8 +331,10 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     decodes over each rank's block of the sequence. Everything else runs
     replicated on every rank, the same math as the reference, whose
     ``_constrain`` and ``_seq_shard`` are sharding annotations that change
-    no value: in the port they have no counterpart. ``parallel=None`` is
-    one device."""
+    no value: in the port they have no counterpart. Where a gradient is
+    wanted and no cache is filled, each layer runs under
+    ``parallel.remat`` (`_run_layer`), the reference's checkpoint of its
+    period scan. ``parallel=None`` is one device, with no checkpoint."""
     check_ported(cfg)
     x = params["embed"]["w"][tokens]
     if cfg.embed_scale:
@@ -286,14 +345,15 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     if pos is not None:
         positions = pos + positions
     sharded = caches is not None and caches.get(KV_SHARDED, False)
+    remat = _remat(parallel, caches)
     layer_caches = []
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, lp in enumerate(params["layers"]):
         c = caches["layers"][i] if caches is not None else None
-        x, c, aux = _layer_apply(lp, x, cfg, positions=positions, cache=c,
-                                 cache_pos=pos, start=start, memory=memory,
-                                 parallel=parallel,
-                                 attn_parallel=parallel if sharded else None)
+        x, c, aux = _run_layer(remat, lp, x, cfg, positions=positions,
+                               cache=c, cache_pos=pos, start=start,
+                               memory=memory, parallel=parallel,
+                               attn_parallel=parallel if sharded else None)
         layer_caches.append(c)
         if aux is not None:
             aux_total = aux_total + aux

@@ -1,8 +1,8 @@
-"""Optimizers of the port: AdamW with fp32 master weights (`adamw`), the
-counterpart of the reference's ``repro/optim/adamw.py``. The reference's
-int8 error-feedback compression (``optim/compress.py``) belongs to the
-distributed layer (ROADMAP A9)."""
+"""Optimizers of the port: AdamW with fp32 master weights (`adamw`) and
+the int8 error-feedback all-reduce of data-parallel gradients
+(`compress`), the counterparts of the reference's ``repro/optim/adamw.py``
+and ``optim/compress.py``."""
 
-from repro_torch.optim import adamw
+from repro_torch.optim import adamw, compress
 
-__all__ = ["adamw"]
+__all__ = ["adamw", "compress"]

@@ -74,15 +74,18 @@ def global_norm(tree: Any) -> torch.Tensor:
     return torch.sqrt(torch.as_tensor(sq, dtype=torch.float32))
 
 
-def update(cfg: AdamWConfig, grads: Any, state: dict, params: Any
-           ) -> tuple[Any, dict, dict]:
+def update(cfg: AdamWConfig, grads: Any, state: dict, params: Any,
+           grad_norm: torch.Tensor | None = None) -> tuple[Any, dict, dict]:
     """One AdamW step: the gradients clipped to ``clip_norm`` by their
     global norm, (m, v) moved, bias-corrected, the decay applied to the
     master weights, and the params made from the new master weights, all
-    written in place. Returns (params, state, {"grad_norm", "lr"}), the
-    trees given."""
+    written in place. ``grad_norm``: the global norm where the caller has
+    it (a rank holding shards of the gradients reduces its squares over the
+    mesh, `repro_torch.sharding.fsdp.global_norm`); else `global_norm` of
+    ``grads``. Returns (params, state, {"grad_norm", "lr"}), the trees
+    given."""
     count = state["count"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gnorm, 1e-9), 1.0)
     lr = schedule(cfg, count)
     b1c = 1 - cfg.b1 ** count.to(torch.float32)

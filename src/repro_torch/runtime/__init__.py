@@ -1,7 +1,8 @@
 """The port's training runtime: the fault-tolerant loop
-(`trainer.Trainer`), the counterpart of the reference's
-``repro/runtime/trainer.py``. The reference's pipeline and elastic runtimes
-belong to the distributed layer (ROADMAP A9)."""
+(`trainer.Trainer`), the GPipe pipeline over the pod axis (`pipeline`) and
+the elastic restart on a smaller mesh (`elastic`), the counterparts of the
+reference's ``repro/runtime/trainer.py``, ``pipeline.py`` and
+``elastic.py``."""
 
 from repro_torch.runtime.trainer import (StragglerDetector, Trainer,
                                          TrainLoopConfig)

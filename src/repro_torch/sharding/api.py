@@ -9,6 +9,7 @@ and group on the tensor-parallel axis and on the data axes.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Literal
 
@@ -16,6 +17,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 STRATEGIES = ("active", "passive")
+REMATS = ("none", "dots", "full")
 
 
 def axis_sizes(mesh: DeviceMesh) -> dict[str, int]:
@@ -32,15 +34,22 @@ class Parallel:
                 the paper's active memory controller at interconnect scale;
       "passive" an all-gather of every rank's partial and a local add: the
                 paper's read-back baseline.
-    remat: the reference's activation checkpoint policy for the period
-      scan; kept for parity, read by no step of this slice (training on a
-      mesh is ROADMAP A9's second half).
+    remat: the activation checkpoint policy of a forward with a gradient
+      (`repro_torch.models.transformer.forward`), over each layer, the
+      port's period: "full" recomputes the layer in the backward, "dots"
+      keeps its matmul outputs and recomputes the rest, "none" keeps
+      everything. The values do not change.
     flash_decode: a one-token decode step attends over the rank's block of
       the sequence-sharded KV cache and combines the blocks' partial
       softmax sums across the tp axis (`repro_torch.sharding.flash_decode`).
     seq_shard_attn: the reference's sequence-parallel annotation of
       attention; a sharding annotation that leaves the math unchanged, so a
       no-op in the port.
+    batch_split: the batch is already this rank's slice over the data axes,
+      as a train step cuts it (`split_batch`): the MoE neither cuts its
+      tokens over the data axes nor gathers them back, and its
+      load-balancing loss takes its per-expert means over the data group,
+      as the reference's GSPMD takes them over the global batch.
 
     Constructing one on every rank, in the same order, is a collective:
     data axes other than one mesh axis get a process group of their own.
@@ -52,6 +61,7 @@ class Parallel:
     remat: Literal["none", "dots", "full"] = "full"
     flash_decode: bool = False
     seq_shard_attn: bool = True
+    batch_split: bool = False
 
     def __post_init__(self) -> None:
         if not isinstance(self.mesh, DeviceMesh):
@@ -66,7 +76,17 @@ class Parallel:
         if self.psum_strategy not in STRATEGIES:
             raise ValueError(f"Parallel: psum_strategy {self.psum_strategy!r} "
                              f"is not one of {STRATEGIES}")
+        if self.remat not in REMATS:
+            raise ValueError(f"Parallel: remat {self.remat!r} is not one of "
+                             f"{REMATS}")
         object.__setattr__(self, "_dp_group", self._make_dp_group())
+
+    def split_batch(self) -> "Parallel":
+        """This context with ``batch_split`` set, sharing its process
+        groups (no collective)."""
+        out = copy.copy(self)
+        object.__setattr__(out, "batch_split", True)
+        return out
 
     def _make_dp_group(self):
         """The process group of the ranks that share this rank's tp index:

@@ -28,11 +28,15 @@ follow the reference's logical dimensions:
 
 `shard_tree` cuts a rank's local shard of a tree from its specs: the
 explicit counterpart of ``jax.device_put(tree, NamedSharding)``. What this
-slice holds as shards is narrower than the rules: a rank keeps its tp block
+port holds as shards is narrower than the rules: a rank keeps its tp block
 of the routed experts' ff dimension (`routed_specs`, the reference's
-``shard_map`` in_specs) and, for flash decoding, its block of each KV
-cache's sequence (`kv_block_specs`); everything else runs replicated, as
-the reference's GSPMD placement of it is ROADMAP A9's second half.
+``shard_map`` in_specs), for flash decoding its block of each KV cache's
+sequence (`kv_block_specs`), and in a train step its fsdp shard of every
+parameter and AdamW leaf (`repro_torch.sharding.fsdp.held_specs`: these
+specs with the tp axis dropped but on the routed experts). Attention, the
+dense FFN, the shared expert and the LM head run replicated over tp: their
+tp placement waits, with the dry run and the production mesh, in ROADMAP
+A9.
 """
 
 from __future__ import annotations

@@ -32,17 +32,19 @@ def leaves(tree: Any) -> list[Any]:
 def flatten_with_keys(tree: Any) -> dict[str, Any]:
     """{path: leaf} in walk order, the path's parts joined by `SEP`."""
     out: dict[str, Any] = {}
-
-    def walk(node, prefix: str) -> None:
-        children = _children(node)
-        if children is None:
-            out[prefix] = node
-            return
-        for key, child in children:
-            walk(child, f"{prefix}{SEP}{key}" if prefix else key)
-
-    walk(tree, "")
+    _walk(tree, "", out)
     return out
+
+
+def _walk(node: Any, prefix: str, out: dict[str, Any]) -> None:
+    # a module-level recursion: a nested one would close over itself and
+    # ``out``, a cycle that keeps every leaf alive until the next gc
+    children = _children(node)
+    if children is None:
+        out[prefix] = node
+        return
+    for key, child in children:
+        _walk(child, f"{prefix}{SEP}{key}" if prefix else key, out)
 
 
 def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
@@ -62,16 +64,17 @@ def unflatten_like(like: Any, values: list[Any]) -> Any:
     """``values``, given in ``like``'s walk order, in ``like``'s
     structure."""
     it = iter(values)
-
-    def build(node):
-        if isinstance(node, dict):
-            built = {key: build(node[key]) for key in sorted(node)}
-            return {key: built[key] for key in node}
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(v) for v in node)
-        return next(it)
-
-    out = build(like)
+    out = _build(like, it)
     if next(it, it) is not it:
         raise ValueError("unflatten_like: more values than leaves")
     return out
+
+
+def _build(node: Any, it) -> Any:
+    # module-level for the reason `_walk` is
+    if isinstance(node, dict):
+        built = {key: _build(node[key], it) for key in sorted(node)}
+        return {key: built[key] for key in node}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_build(v, it) for v in node)
+    return next(it)

@@ -51,6 +51,7 @@ def test_port_imports_without_jax_or_repro():
             "repro_torch.data.pipeline"} <= names
     assert SIM_MODULES <= names
     assert FAULT_AND_SHARDING_MODULES <= names
+    assert MESH_TRAINING_MODULES <= names
 
 
 FAULT_AND_SHARDING_MODULES = {
@@ -59,6 +60,11 @@ FAULT_AND_SHARDING_MODULES = {
     "repro_torch.sharding.api", "repro_torch.sharding.rules",
     "repro_torch.sharding.flash_decode", "repro_torch.sharding.collectives",
     "repro_torch.launch.mesh"}
+
+MESH_TRAINING_MODULES = {
+    "repro_torch.sharding.fsdp", "repro_torch.optim.compress",
+    "repro_torch.runtime.pipeline", "repro_torch.runtime.elastic",
+    "repro_torch.launch.train"}
 
 SIM_MODULES = {
     "repro_torch.roofline", "repro_torch.roofline.constants",
@@ -82,11 +88,15 @@ print(mod.__name__)
 @pytest.mark.parametrize("module", ["repro_torch.sim", "repro_torch.roofline",
                                     "repro_torch.faults.models",
                                     "repro_torch.faults",
-                                    "repro_torch.sharding"])
+                                    "repro_torch.sharding",
+                                    "repro_torch.sharding.fsdp",
+                                    "repro_torch.optim.compress",
+                                    "repro_torch.runtime.pipeline",
+                                    "repro_torch.runtime.elastic"])
 def test_simulator_modules_import_alone_without_jax_or_repro(module):
     """Each package of the simulator, fault-harness and sharding slices,
-    imported first and alone in a fresh interpreter, pulls in neither JAX
-    nor the reference package."""
+    and each module of training on a mesh, imported first and alone in a
+    fresh interpreter, pulls in neither JAX nor the reference package."""
     out = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module],
                          env=_env(), capture_output=True, text=True,
                          timeout=300)
